@@ -1,0 +1,159 @@
+"""Shared layers (counterpart of ``medtok_tpu/models/layers.py``):
+torch-parity multi-head attention, the bidirectional cross-attention stack,
+GCN message passing over padded batched subgraphs and masked mean-pool.
+
+Parameter names follow the JAX package's flax names, so ``convert.py`` maps
+a flax tree onto ``state_dict`` keys one to one.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+NEG_INF = -1e9
+
+
+class MultiheadAttention(nn.Module):
+    """Batch-first MHA: q [B, Lq, E], k/v [B, Lk, E], key_mask [B, Lk] bool
+    (True = valid). Logits and softmax in fp32, the rest in the layer dtype."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *, dtype=None, device=None):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        fk = {"dtype": dtype, "device": device}
+        self.q_proj = nn.Linear(embed_dim, embed_dim, **fk)
+        self.k_proj = nn.Linear(embed_dim, embed_dim, **fk)
+        self.v_proj = nn.Linear(embed_dim, embed_dim, **fk)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, **fk)
+
+    def forward(self, q, k, v, key_mask=None):
+        B, Lq, E = q.shape
+        Lk = k.shape[1]
+        H = self.num_heads
+        Dh = E // H
+        qh = self.q_proj(q).view(B, Lq, H, Dh).transpose(1, 2)
+        kh = self.k_proj(k).view(B, Lk, H, Dh).transpose(1, 2)
+        vh = self.v_proj(v).view(B, Lk, H, Dh).transpose(1, 2)
+        logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(Dh)
+        if key_mask is not None:
+            logits = torch.where(key_mask[:, None, None, :], logits, NEG_INF)
+        attn = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.matmul(attn, vh).transpose(1, 2).reshape(B, Lq, E)
+        return self.out_proj(out)
+
+
+class CrossAttentionLayer(nn.Module):
+    """attn -> residual add -> LayerNorm (eps 1e-5); no feed-forward."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *, dtype=None, device=None):
+        super().__init__()
+        self.multihead_attn = MultiheadAttention(embed_dim, num_heads,
+                                                 dtype=dtype, device=device)
+        self.layer_norm = nn.LayerNorm(embed_dim, eps=1e-5, dtype=dtype,
+                                       device=device)
+
+    def forward(self, query, key, value, key_mask=None):
+        return self.layer_norm(query + self.multihead_attn(query, key, value, key_mask))
+
+
+class CrossAttention(nn.Module):
+    """Bidirectional cross-attention with one shared layer stack: v1 attends
+    to the fixed v2 through every layer, then v2 to the fixed v1 through the
+    same layers."""
+
+    def __init__(self, embed_dim: int, num_heads: int, layers: int = 2, *,
+                 dtype=None, device=None):
+        super().__init__()
+        self.num_layers = layers
+        for i in range(layers):
+            self.add_module(f"layer_{i}", CrossAttentionLayer(
+                embed_dim, num_heads, dtype=dtype, device=device))
+
+    def forward(self, v1, v2, v1_mask=None, v2_mask=None):
+        stack = [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+        v1_ = v1
+        for layer in stack:
+            v1_ = layer(v1_, v2, v2, v2_mask)
+        v2_ = v2
+        for layer in stack:
+            v2_ = layer(v2_, v1, v1, v1_mask)
+        return v1_, v2_
+
+
+def gcn_propagate(x, edge_src, edge_dst, edge_weight):
+    """Symmetric-normalized sum aggregation with a self-loop on every node.
+
+    x [N, D] (already x @ W); edges flat-indexed into N (int64). Padded
+    edges carry weight 0 and add nothing to degrees or messages.
+
+    The scatter-adds are ``index_put_(accumulate=True)``: on CUDA that is a
+    sorted, deterministic reduction that sums each destination in fp32 and
+    rounds once, where ``index_add_`` adds with atomics in an order that
+    changes from run to run (in bf16, rounding at every add), so the same
+    code could get different tokens on two calls."""
+    n = x.shape[0]
+    w = edge_weight.float()
+    deg = torch.ones(n, dtype=torch.float32, device=x.device).index_put_(
+        (edge_dst,), w, accumulate=True)
+    dinv = torch.rsqrt(deg)
+    coef = (dinv[edge_src] * dinv[edge_dst] * w)[:, None].to(x.dtype)
+    out = (dinv * dinv)[:, None].to(x.dtype) * x
+    return out.index_put_((edge_dst,), coef * x[edge_src], accumulate=True)
+
+
+def gcn_norm_adj(edge_src, edge_dst, edge_weight, batch: int, num_nodes: int,
+                 dtype=torch.float32):
+    """Dense normalized adjacency [B, Ln, Ln]: A[b, i, j] is the coefficient
+    of node j's message into node i (gcn_propagate's math, built once and
+    shared by both conv layers).
+
+    A = (dinv_i * dinv_j) * Count + diag(dinv^2), with Count[b, i, j] the
+    summed weight of edges j -> i and deg = 1 + Count.sum(j). Edge indices
+    are within-graph, chunked per graph."""
+    E = edge_src.shape[0]
+    if E % batch:
+        raise ValueError("edge array must be per-graph chunked")
+    dev = edge_src.device
+    b = torch.arange(batch, device=dev).repeat_interleave(E // batch)
+    count = torch.zeros((batch, num_nodes, num_nodes), dtype=torch.float32, device=dev)
+    count.index_put_((b, edge_dst.long(), edge_src.long()), edge_weight.float(),
+                     accumulate=True)
+    deg = 1.0 + count.sum(dim=2)
+    dinv = torch.rsqrt(deg)
+    adj = count.mul_(dinv[:, :, None] * dinv[:, None, :])
+    adj.diagonal(dim1=1, dim2=2).add_(dinv * dinv)
+    return adj.to(dtype)
+
+
+class GCNConv(nn.Module):
+    """PyG GCNConv: out = propagate(x @ W) + b. ``adj`` ([B, Ln, Ln] from
+    gcn_norm_adj, x viewable as [B, Ln, D]) switches aggregation to a
+    batched matmul."""
+
+    def __init__(self, in_channels: int, out_channels: int, *, dtype=None, device=None):
+        super().__init__()
+        self.lin = nn.Linear(in_channels, out_channels, bias=False,
+                             dtype=dtype, device=device)
+        self.bias = nn.Parameter(torch.zeros(out_channels, dtype=dtype, device=device))
+
+    def forward(self, x, edge_src, edge_dst, edge_weight, adj=None):
+        xw = self.lin(x)
+        if adj is not None:
+            B, Ln, _ = adj.shape
+            out = torch.bmm(adj.to(x.dtype), xw.view(B, Ln, -1)).reshape(B * Ln, -1)
+        else:
+            out = gcn_propagate(xw, edge_src, edge_dst, edge_weight)
+        return out + self.bias.to(x.dtype)
+
+
+def global_mean_pool(x, mask):
+    """Masked mean over the node axis: x [B, N, D], mask [B, N] -> [B, D]."""
+    m = mask.to(x.dtype)
+    s = (x * m[..., None]).sum(dim=1)
+    cnt = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
+    return s / cnt

@@ -1,0 +1,146 @@
+"""Builds the CUDA kernels under ``medtok_tpu_torch/csrc/`` at first use.
+
+Each ``.cu`` file is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The library lands in
+``medtok_tpu_torch/_build/`` under a name keyed by a hash of the sources and
+flags, so an unchanged tree reuses it and a changed one rebuilds.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*``,
+launches on that stream and returns ``cudaGetLastError()``; ``check`` turns a
+non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the entry points: name -> (argtypes, restype)
+_SIGNATURES = {
+    # z, e, n_rows_z, n_codes, dim, k, n_splits, tiles_per_split,
+    # part_vals, part_idx, vals, idx, stream
+    "medtok_topk_l2": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+                       ctypes.c_int),
+    "medtok_topk_tile_n": ([], ctypes.c_int),
+    # q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream
+    "medtok_segment_attention": (
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+        ctypes.c_int),
+    "medtok_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: what the last build printed (ptxas register / shared-memory report)
+build_log = ""
+build_seconds = 0.0
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    cands = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(str(Path(home) / "bin" / "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append(str(Path(DEFAULT_CUDA_HOME) / "bin" / "nvcc"))
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc was not found (looked in $CUDA_HOME/bin, PATH and "
+        f"{DEFAULT_CUDA_HOME}/bin); the CUDA kernels of medtok_tpu_torch "
+        "need the CUDA toolkit to build"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmedtok_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> str:
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log = []
+        failed = []
+        for src, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        lib_tmp = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", *map(str, objs), "-o", str(lib_tmp), "-lcudart"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(lib_tmp, out)
+    return "\n".join(log)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use. Raises if nvcc is missing or
+    a source does not compile."""
+    global _lib, build_log, build_seconds
+    with _lock:
+        if _lib is None:
+            path = _library_path()
+            if not path.exists():
+                t0 = time.perf_counter()
+                build_log = _build(path)
+                build_seconds = time.perf_counter() - t0
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if code != 0:
+        msg = load_library().medtok_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} at launch ({msg})")
