@@ -14,7 +14,22 @@ Phases, each fatal on failure:
      (bert-base, 130K-node GCN, 21000 x 64 codebook, bf16) over a synthetic
      heavy-tail vocabulary, counting kernel launches, and hold a small fp32
      export with kernels against the plain versions on the CPU;
-  6. answer tokenize / encode / embed requests for three codes.
+  6. answer tokenize / encode / embed requests for three codes;
+  7. hold kernel K3 (flash attention forward, dq and dk/dv) against its
+     plain version at the EHR shape [256*4, 2003, 16] on an EHR batch's key
+     mask, dropout 0.5, fp32 and bf16: out / lse / dq / dk / dv through
+     autograd, the plain version run in slices of 8 batch rows with the
+     whole batch's dropout bits, and a batch row that has no valid key; time
+     the kernels on that mask and on an all-valid one beside
+     scaled_dot_product_attention;
+  8. train the EHR outcome model at EHRTrainConfig() width (batch 256,
+     2003 positions, 4 layers of 4 heads, 64 wide) on the export's
+     embeddings_all for one epoch of a few steps and evaluate it on two
+     batches, counting K3 launches, then time and profile a train step, and
+     time one on an all-valid batch;
+  9. hold the trained EHR model's eval logits on the card (K3 in fp32 under
+     "highest", bf16 under "default") against the plain versions on the
+     CPU on a small batch.
 It then prints the card, one JSON line of kernel measurements and, last,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result. fp32 matmuls and
@@ -24,6 +39,8 @@ convolutions run in full fp32 (TF32 off) throughout.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import datetime
 import json
 import subprocess
 import sys
@@ -39,6 +56,9 @@ PEAK_BF16 = 989e12
 
 K = 5
 D = 64
+EHR_TRAIN_STEPS = 4     # train batches of one epoch
+EHR_EVAL_BATCHES = 2
+K3_SLICE = 8            # batch rows per slice of K3's plain version
 
 
 def log(msg: str) -> None:
@@ -423,6 +443,378 @@ def serve_requests(cfg, model, dataset, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- EHR -----
+
+ETHNICITIES = ("WHITE", "BLACK", "ASIAN", "HISPANIC", "OTHER")
+
+
+def ehr_samples(rng, n: int, vocab: int, max_codes: int) -> list[list[dict]]:
+    """n readmission samples in the schema of the JAX package's
+    PatientEHRTasks.build: per visit, sorted unique code rows (-1 =
+    unmapped) for conditions / procedures / drugs, encounter and discharge
+    times, birthdate, gender, ethnicity and a 0/1 label. A patient's code
+    count is uniform in [max_codes / 4, max_codes), as bench.py's
+    ehr_train_step draws it for its batch at the reference shape; the codes
+    are distinct within a patient and a visit holds at most one unmapped
+    code, so featurizing keeps every one of them."""
+    import numpy as np
+
+    base = datetime.datetime(2130, 1, 1)
+    out = []
+    for i in range(n):
+        total = int(rng.integers(max_codes // 4, max_codes))
+        n_visits = int(rng.integers(1, min(100, total) + 1))
+        codes = rng.choice(vocab, size=total, replace=False)
+        cuts = np.sort(rng.choice(np.arange(1, total), size=n_visits - 1, replace=False))
+        maps = ([], [], [])
+        for visit in np.split(codes, cuts):
+            if rng.random() < 0.3:
+                visit[0] = -1
+            a, b = len(visit) // 2, (3 * len(visit)) // 4
+            for m, part in zip(maps, (visit[:a], visit[a:b], visit[b:])):
+                m.append(sorted(set(part.tolist())))
+        t = base + datetime.timedelta(days=int(rng.integers(0, 3000)))
+        enc, dis = [], []
+        for _ in range(n_visits):
+            enc.append(t)
+            dis.append(t + datetime.timedelta(hours=int(rng.integers(2, 24 * 30))))
+            t = dis[-1] + datetime.timedelta(days=int(rng.integers(1, 400)))
+        out.append([{
+            "patient_id": i,
+            "birthdate": base - datetime.timedelta(days=int(rng.integers(18 * 365, 90 * 365))),
+            "deathdate": None,
+            "gender": ("M", "F")[int(rng.integers(2))],
+            "ethnicity": ETHNICITIES[int(rng.integers(len(ETHNICITIES)))],
+            "conditions_map": [maps[0]], "procedures_map": [maps[1]],
+            "drugs_map": [maps[2]],
+            "label": int(rng.random() < 0.3),
+            "timestamp_encounter": enc, "timestamp_discharge": dis,
+        }])
+    return out
+
+
+def build_ehr_data(seed: int, vocab: int, batch: int) -> dict:
+    import numpy as np
+
+    from medtok_tpu_torch.ehr.train import EHRTrainConfig, prepare_task_features
+
+    cfg = EHRTrainConfig()
+    rng = np.random.default_rng(seed + 1)
+    n_train = EHR_TRAIN_STEPS * batch
+    n = n_train + (1 + EHR_EVAL_BATCHES) * batch
+    t0 = time.perf_counter()
+    data = ehr_samples(rng, n, vocab, cfg.max_medical_code)
+    t_make = time.perf_counter() - t0
+    labels = np.asarray([d[0]["label"] for d in data])
+    t0 = time.perf_counter()
+    feats, fz = prepare_task_features(data, labels, 2, "readmission", vocab_size=vocab,
+                                      max_visits=cfg.max_visits,
+                                      max_medical_code=cfg.max_medical_code)
+    t_feat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    val = fz.collate(feats[n_train:n_train + batch])
+    t_collate = time.perf_counter() - t0
+    rest = feats[n_train + batch:]
+    lens = np.asarray([int((~f["pad_mask"]).sum()) for f in feats])
+    log(f"EHR data: {n} samples in {t_make:.2f} s, featurized in {t_feat:.2f} s "
+        f"({1e3 * t_feat / n:.3f} ms/sample), collate {1e3 * t_collate:.1f} ms per "
+        f"batch of {batch}; codes per sample {lens.min()}-{lens.max()} (median "
+        f"{int(np.median(lens))}, uniform in [{cfg.max_medical_code // 4}, "
+        f"{cfg.max_medical_code}) as in bench.py's ehr_train_step)")
+    return dict(feats_train=feats[:n_train], labels_train=labels[:n_train], fz=fz,
+                val=[val], eval=[fz.collate(rest[i * batch:(i + 1) * batch])
+                                 for i in range(EHR_EVAL_BATCHES)],
+                featurize_ms=1e3 * t_feat / n * batch, collate_ms=1e3 * t_collate)
+
+
+def key_mask_of(batch, dev):
+    """The encoder's [B, 3 + C] key mask: CLS, gender, ethnicity, codes."""
+    import torch
+
+    pad = torch.from_numpy(batch.pad_mask).to(dev)
+    return torch.cat([torch.ones(pad.shape[0], 3, dtype=torch.bool, device=dev), ~pad], 1)
+
+
+# --------------------------------------------------------------------- K3 --
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def check_k3(gen, dev, mask_path) -> list[dict]:
+    """Kernels vs plain versions at the EHR shape, then times.
+    mask_path: the [256, 2003] key mask of an EHR batch of the main path."""
+    import torch
+    import torch.nn.functional as F
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    Bf, L = mask_path.shape
+    H, Dh, rate, seed = 4, 16, 0.5, 20261016
+    S = K3_SLICE
+    mask = mask_path.clone()
+    mask[-1] = False                                   # a row with no valid key
+    kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=rate, dropout_seed=seed)
+    tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+    keys = ("out", "lse", "dq", "dk", "dv")
+    errs = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(Bf, H, L, Dh, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, **kw)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fa.flash_attention(*leaves, mask, dropout_rate=rate, dropout_seed=seed).float()
+         * do.float()).sum().backward()
+        got = dict(zip(keys, (out, lse, *(t.grad for t in leaves))))
+        diff, scale = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+        for b0 in range(0, Bf, S):
+            rows = slice(b0, b0 + S)
+            part = [t[rows].clone().requires_grad_() for t in (q, k, v)]
+            ref, ref_lse = fa.flash_attention_reference(*part, mask[rows], **kw,
+                                                        bh_offset=b0 * H)
+            (ref.float() * do[rows].float()).sum().backward()
+            want = dict(zip(keys, (ref, ref_lse, *(t.grad for t in part))))
+            for key in keys:
+                w = want[key].detach().float()
+                diff[key] = max(diff[key], float((got[key][rows].float() - w).abs().max()))
+                if key != "lse":
+                    scale[key] = max(scale[key], float(w.abs().max()))
+            del part, ref, ref_lse, want
+        torch.cuda.synchronize()
+        e = {key: diff[key] / scale[key] for key in ("out", "dq", "dk", "dv")}
+        e["lse"] = diff["lse"]
+        name = str(dtype).split(".")[-1]
+        out_tol, grad_tol = tol[dtype]
+        check(e["out"] <= out_tol, f"K3 {name}: out error {e['out']} > {out_tol}")
+        check(e["lse"] <= 1e-4, f"K3 {name}: lse error {e['lse']} > 1e-4")
+        for g in ("dq", "dk", "dv"):
+            check(e[g] <= grad_tol, f"K3 {name}: {g} error {e[g]} > {grad_tol}")
+        check(bool((out[-1] == 0).all() and (lse[-1] == -1e30).all()),
+              f"K3 {name}: the row with no valid key is not 0 / -1e30")
+        check(all(bool((got[g][-1] == 0).all()) for g in ("dq", "dk", "dv")),
+              f"K3 {name}: the row with no valid key has non-zero gradients")
+        errs[name] = {"out": diff["out"], "dq": diff["dq"], "dkv": max(diff["dk"], diff["dv"])}
+        log(f"K3 {name} [{Bf}*{H}, {L}, {Dh}] dropout {rate}, {float(mask.float().mean()):.3f} "
+            f"of the keys valid, plain version in slices of {S} batch rows: errors "
+            f"relative to the plain version's max: out {e['out']:.3e}, dq {e['dq']:.3e}, "
+            f"dk {e['dk']:.3e}, dv {e['dv']:.3e}; lse max abs err {e['lse']:.3e}; "
+            f"max abs err out {diff['out']:.3e}, dq {diff['dq']:.3e}, dk {diff['dk']:.3e}, "
+            f"dv {diff['dv']:.3e}; the row with no valid key is 0 with zero gradients")
+        del q, k, v, do, out, lse, leaves, got
+    log(f"K3 check: {time.perf_counter() - t0:.2f} s")
+
+    # times at the EHR shape in bf16, on the path's mask and on an all-valid one
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(Bf, H, L, Dh, generator=gen, device=dev).to(bf)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    rows = []
+    for label, m in (("path", mask_path), ("all-valid", torch.ones_like(mask_path))):
+        out, lse = fa.flash_attention_fwd(q, k, v, m, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        bwd = (q, k, v, m, lse, delta, do)
+        ms = {"fwd": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, m, **kw), 10),
+              "dq": cuda_ms(lambda: fa.flash_attention_dq(*bwd, **kw), 10),
+              "dkv": cuda_ms(lambda: fa.flash_attention_dkv(*bwd, **kw), 10)}
+        sdpa_mask = m[:, None, None, :]
+        lib = {}
+        for p in (0.0, rate):
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask, dropout_p=p)
+                return torch.autograd.grad(o, leaves, do)
+
+            fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, dropout_p=p), 10)
+            lib[p] = (fwd, cuda_ms(sdpa_fwd_bwd, 10))
+        valid_keys = float(m.sum())                    # sum over rows of valid keys
+        pairs = H * L * valid_keys                     # (query, valid key) per head
+        row = Bf * H * L * Dh * 2                      # one bf16 [B*H, L, Dh] tensor
+        vec = Bf * H * L * 4                           # one fp32 [B*H, L] vector
+        work = {"fwd": (4 * Dh * pairs, 3 * row + Bf * L + row + vec),
+                "dq": (6 * Dh * pairs, 4 * row + 2 * vec + Bf * L + row),
+                "dkv": (8 * Dh * pairs, 4 * row + 2 * vec + Bf * L + 2 * row)}
+        log(f"K3 bf16 [{Bf}*{H}, {L}, {Dh}] dropout {rate}, {label} mask "
+            f"({valid_keys / (Bf * L):.3f} of the keys valid); library "
+            f"scaled_dot_product_attention with the boolean key mask: no dropout fwd "
+            f"{lib[0.0][0]:.4f} ms, fwd+bwd {lib[0.0][1]:.4f} ms; dropout {rate} fwd "
+            f"{lib[rate][0]:.4f} ms, fwd+bwd {lib[rate][1]:.4f} ms (its backward "
+            f"computes dq, dk and dv together)")
+        if label == "path":
+            # the plain versions over the whole batch, a slice of S rows at a time
+            def sliced(fn, tensors):
+                def run():
+                    for b0 in range(0, Bf, S):
+                        fn(*(t[b0:b0 + S] for t in tensors), **kw, bh_offset=b0 * H)
+                return run
+
+            plain = {"fwd": cuda_ms(sliced(fa.flash_attention_reference, bwd[:4]), 2),
+                     "dq": cuda_ms(sliced(fa.flash_attention_dq_reference, bwd), 2),
+                     "dkv": cuda_ms(sliced(fa.flash_attention_dkv_reference, bwd), 2)}
+        lib_ms = {"fwd": lib[rate][0], "dq": lib[rate][1] - lib[rate][0],
+                  "dkv": lib[rate][1] - lib[rate][0]}
+        for key, name, site, err in (("fwd", "flash_attention_fwd", 249, "out"),
+                                     ("dq", "flash_attention_dq", 311, "dq"),
+                                     ("dkv", "flash_attention_dkv", 334, "dkv")):
+            ops, nbytes = work[key]
+            bound_ms = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+            log(f"  K3-{key} ({label}): kernel {ms[key]:.4f} ms, "
+                + (f"plain {plain[key]:.4f} ms, " if label == "path" else "")
+                + f"library {lib_ms[key]:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            if label == "path":
+                rows.append(dict(name=name, route="cuda",
+                                 source="medtok_tpu_torch/csrc/flash_attention.cu",
+                                 replaces=f"medtok_tpu/ops/flash_attention.py:{site}",
+                                 max_abs_err=errs["bfloat16"][err], ms=ms[key],
+                                 plain_ms=plain[key], bound_ms=bound_ms,
+                                 bound_by="operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES
+                                 else "bytes",
+                                 library_ms=lib_ms[key]))
+    return rows
+
+
+def k3_counts() -> dict:
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.flash_attention_fwd.launches, "dq": fa.flash_attention_dq.launches,
+            "dkv": fa.flash_attention_dkv.launches}
+
+
+def run_ehr(table, ehr: dict, dev) -> tuple[dict, object]:
+    """EHRTrainer.fit for one epoch and evaluate on two batches at the
+    reference width, counting K3 launches; then a timed and a profiled
+    train step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer, sample_weights
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(EHRTrainConfig(), epochs=1)
+    trainer = EHRTrainer(cfg, table, 2, device=dev)
+    check(trainer.use_flash, "EHR: flash_attention='auto' did not pick K3 on the card")
+    n_layers = cfg.num_layers
+    steps = len(ehr["feats_train"]) // cfg.batch_size
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    losses = []
+    for f in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv):
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, best = trainer.fit(ehr["feats_train"],
+                          sample_weights(ehr["labels_train"], "readmission"),
+                          ehr["val"], ehr["fz"],
+                          log_fn=lambda e, m: losses.append(m["loss"]))
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_counts = k3_counts()
+    want = {"fwd": n_layers * (steps + len(ehr["val"])), "dq": n_layers * steps,
+            "dkv": n_layers * steps}
+    check(fit_counts == want, f"EHR fit: K3 launches {fit_counts} != {want} "
+          f"({n_layers} per layer for {steps} train steps and {len(ehr['val'])} "
+          f"validation batches)")
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(ehr["eval"])
+    eval_wall = time.perf_counter() - t0
+    counts = k3_counts()
+    check(counts["fwd"] - fit_counts["fwd"] == n_layers * len(ehr["eval"])
+          and counts["dq"] == fit_counts["dq"],
+          f"EHR evaluate: K3 launches {counts} after {fit_counts}")
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"EHR: loss {losses}")
+    for m in (best, metrics):
+        check(all(0.0 <= m[key] <= 1.0 for key in ("auc", "aupr", "f1")),
+              f"EHR: metrics out of [0, 1]: {m}")
+    log(f"EHR model: EHRTrainConfig() width, {n_params / 1e6:.3f} M parameters, "
+        f"K3 {'on' if trainer.use_flash else 'off'} ({cfg.flash_precision}), table "
+        f"{tuple(table.shape)}")
+    log(f"EHR fit: {steps} train steps + validation in {fit_wall:.3f} s, loss "
+        f"{losses[0]:.5f}, val {best}; evaluate on {len(ehr['eval'])} batches "
+        f"{eval_wall:.3f} s: {metrics}; peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {counts}")
+
+    def step_seconds(batch, n_timed: int = 3) -> float:
+        trainer.train_step(batch)                      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), "EHR: non-finite loss in the timed steps")
+        return (time.perf_counter() - t0) / n_timed
+
+    batch = ehr["eval"][0]
+    step_s = step_seconds(batch)
+    full_s = step_seconds(batch._replace(pad_mask=np.zeros_like(batch.pad_mask)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    on_gpu = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.key_averages() if e.device_type == on_gpu]
+    groups = {"K3": 0.0, "GEMM": 0.0, "copies": 0.0, "other": 0.0}
+    for e in device:
+        key = e.key.lower()
+        group = ("K3" if "flash_" in key else
+                 "copies" if key.startswith("memcpy") else
+                 "GEMM" if any(w in key for w in ("gemm", "nvjet", "cutlass", "xmma"))
+                 else "other")
+        groups[group] += e.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    valid = 1.0 - float(batch.pad_mask.mean())
+    log(f"EHR train step (batch {cfg.batch_size}, {cfg.max_medical_code + 3} positions, "
+        f"{valid:.3f} of the codes valid): {1e3 * step_s:.3f} ms, "
+        f"{cfg.batch_size / step_s:.1f} samples/s; on an all-valid batch "
+        f"{1e3 * full_s:.3f} ms, {cfg.batch_size / full_s:.1f} samples/s; host featurize "
+        f"{ehr['featurize_ms']:.1f} ms + collate {ehr['collate_ms']:.1f} ms per batch "
+        f"(outside the step)")
+    log(f"profile: one train step {1e3 * prof_wall:.3f} ms wall; device "
+        + ", ".join(f"{g} {ms:.3f} ms ({100 * ms / (1e3 * prof_wall):.1f}%)"
+                    for g, ms in groups.items())
+        + f"; device busy {100 * busy / (1e3 * prof_wall):.1f}% of wall")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:90]}")
+    return counts, trainer
+
+
+def check_ehr_reference(trainer, ehr: dict, dev, n: int = 8) -> None:
+    """The trained model's eval logits with K3 on the card against the plain
+    versions on the CPU (same weights, same batch), under "highest" (K3 in
+    fp32) and the path's "default" (q/k/v enter K3 in bf16)."""
+    import torch
+
+    from medtok_tpu_torch.ehr.model import EHRModel, to_device
+
+    cfg = trainer.cfg
+    first = ehr["eval"][0]
+    batch = type(first)(*(x[:n] for x in first))
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    table = trainer.model.embedding_table.cpu().numpy()
+    # "default": both sides round q/k/v and the probabilities to bf16, the
+    # kernel against its running max, the plain version against the row max
+    for precision, tol in (("highest", 1e-4), ("default", 2e-2)):
+        logits = []
+        for where in (dev, torch.device("cpu")):
+            model = EHRModel(table, trainer.num_class, input_dim=cfg.input_dim,
+                             output_dim=cfg.output_dim, num_heads=cfg.num_heads,
+                             hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+                             use_flash=True, flash_precision=precision)
+            model.load_state_dict(state)
+            with torch.no_grad():
+                logits.append(model.to(where).eval()(to_device(batch, where))[1].cpu())
+        err = float((logits[0] - logits[1]).abs().max())
+        rel = err / max(float(logits[1].abs().max()), 1e-30)
+        check(bool(torch.isfinite(logits[0]).all()) and rel <= tol,
+              f"EHR reference ({precision}): logits error {rel} relative > {tol}")
+        log(f"EHR reference, {precision} ({n} samples, K3 on the card vs plain on the "
+            f"CPU): logits max abs err {err:.3e}, {rel:.3e} of the largest logit")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -458,7 +850,8 @@ def main(argv=None) -> int:
     _build.load_library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("Function properties", "registers", "spill")) \
+                or line.startswith("=="):
             log(f"  {line.strip()}")
 
     k1 = check_k1(gen, dev)
@@ -472,7 +865,8 @@ def main(argv=None) -> int:
     k2 = check_k2(gen, dev, dataset)
 
     from medtok_tpu_torch.config import MedTokConfig, ModelConfig
-    from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer, init_random_
+    from medtok_tpu_torch.models.layers import init_random_
+    from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
 
     cfg = MedTokConfig(model=ModelConfig(), data=dataset.cfg)
     model = init_random_(MultimodalTokenizer(cfg.model, device=dev), gen).eval()
@@ -483,13 +877,23 @@ def main(argv=None) -> int:
     profile_main_path(model, dataset, dev, arrays)
     check_reference(model, dataset, dev)
     serve_requests(cfg, model, dataset, dev)
+    del model
+
+    # the export's embeddings_all is the EHR model's frozen code table
+    table = arrays["embeddings_all"]
+    ehr = build_ehr_data(args.seed, table.shape[0], batch=256)
+    k3 = check_k3(gen, dev, key_mask_of(ehr["val"][0], dev))
+    k3_launches, trainer = run_ehr(table, ehr, dev)
+    check_ehr_reference(trainer, ehr, dev)
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]
+    for row, key in zip(k3, ("fwd", "dq", "dkv")):
+        row["launches"] = k3_launches[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(card)
-    log(json.dumps({"kernels": [{key: k[key] for key in keys} for k in (k1, k2)]}))
+    log(json.dumps({"kernels": [{key: k[key] for key in keys} for k in (k1, k2, *k3)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the medtok_tpu framework (eval export slice).
+"""PyTorch + CUDA port of the medtok_tpu framework (the eval export and EHR
+training slices).
 
 The JAX package ``medtok_tpu`` stays the reference; this package keeps its
 own copy of every piece of host code it needs and imports nothing from it.

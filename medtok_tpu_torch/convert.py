@@ -10,6 +10,8 @@ module names), with these leaf renames:
     LayerNorm ``scale``         -> ``weight``
     Embed ``embedding``         -> ``weight``
     ``bias``, ``codebook``      -> unchanged
+    raw parameters ``miss_emb``, ``cls_emb`` (the EHR model's learned
+    embedding rows, declared with ``self.param``) -> unchanged
 
 A ``.npz`` holds the same tree flattened with ``/``-joined keys
 (``text_model/layer_0/attention/query/kernel``).
@@ -25,7 +27,8 @@ import torch
 from torch import nn
 
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-           "bias": "bias", "codebook": "codebook"}
+           "bias": "bias", "codebook": "codebook",
+           "miss_emb": "miss_emb", "cls_emb": "cls_emb"}
 
 
 def flatten_tree(tree: Mapping, sep: str = "/") -> dict[str, np.ndarray]:

@@ -1,6 +1,8 @@
 """Shared layers (counterpart of ``medtok_tpu/models/layers.py``):
-torch-parity multi-head attention, the bidirectional cross-attention stack,
-GCN message passing over padded batched subgraphs and masked mean-pool.
+torch-parity multi-head attention (dense, or flash attention K3), the
+bidirectional cross-attention stack, GCN message passing over padded batched
+subgraphs, masked mean-pool, dropout from an explicit generator and the
+random initialiser.
 
 Parameter names follow the JAX package's flax names, so ``convert.py`` maps
 a flax tree onto ``state_dict`` keys one to one.
@@ -13,25 +15,78 @@ import math
 import torch
 from torch import nn
 
+from medtok_tpu_torch.ops.flash_attention import flash_attention
+
 NEG_INF = -1e9
+FLASH_PRECISIONS = ("highest", "default")
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from ``generator`` (flax's
+    form: kept values / (1 - rate), dropped ones 0). ``rate`` 0 is the
+    identity."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def draw_seed(device, generator: torch.Generator | None = None) -> torch.Tensor:
+    """The flash path's dropout seed: one int64 in [0, 2**31 - 1) drawn on
+    ``device`` from ``generator``, where the JAX package draws it from its
+    dropout key (the bits differ from JAX's by design). It stays a device
+    tensor, so drawing it does not wait for the device."""
+    return torch.randint(0, 2**31 - 1, (), generator=generator, device=device)
+
+
+def resolve_use_flash(use_flash: bool | str, device) -> bool:
+    """``use_flash`` True / False as given; "auto" is K3 on a CUDA device
+    (the only path there whose attention runs a kernel of this package;
+    the EHR shape's dense scores would not fit the card) and the dense
+    path elsewhere, where K3 would run its dense plain version anyway."""
+    if use_flash not in (True, False, "auto"):
+        raise ValueError(f"use_flash must be True, False or 'auto', got {use_flash!r}")
+    if use_flash == "auto":
+        return torch.device(device).type == "cuda"
+    return use_flash
 
 
 class MultiheadAttention(nn.Module):
     """Batch-first MHA: q [B, Lq, E], k/v [B, Lk, E], key_mask [B, Lk] bool
-    (True = valid). Logits and softmax in fp32, the rest in the layer dtype."""
+    (True = valid). Logits and softmax in fp32, the rest in the layer dtype.
 
-    def __init__(self, embed_dim: int, num_heads: int, *, dtype=None, device=None):
+    ``dropout`` applies to the attention probabilities in training mode.
+    ``use_flash`` (True / False / "auto") routes softmax(QK^T)V through K3
+    (``ops/flash_attention.py``), which keeps no [B, H, L, L] tensor; "auto"
+    takes it on CUDA tensors and the dense path on the CPU
+    (``resolve_use_flash``). Under ``flash_precision`` "default", fp32 q/k/v enter K3 in
+    bf16 (as the JAX package does); "highest" keeps fp32. The flash path's
+    dropout seed and the dense path's dropout mask come from the
+    ``generator`` passed to ``forward``."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *, dropout: float = 0.0,
+                 use_flash: bool | str = False, flash_precision: str = "highest",
+                 dtype=None, device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
+        resolve_use_flash(use_flash, "cpu")   # raises on anything else
+        if flash_precision not in FLASH_PRECISIONS:
+            raise ValueError(f"flash_precision must be one of {FLASH_PRECISIONS}, "
+                             f"got {flash_precision!r}")
         self.num_heads = num_heads
+        self.dropout = dropout
+        self.use_flash = use_flash
+        self.flash_precision = flash_precision
         fk = {"dtype": dtype, "device": device}
         self.q_proj = nn.Linear(embed_dim, embed_dim, **fk)
         self.k_proj = nn.Linear(embed_dim, embed_dim, **fk)
         self.v_proj = nn.Linear(embed_dim, embed_dim, **fk)
         self.out_proj = nn.Linear(embed_dim, embed_dim, **fk)
 
-    def forward(self, q, k, v, key_mask=None):
+    def forward(self, q, k, v, key_mask=None, *,
+                generator: torch.Generator | None = None):
         B, Lq, E = q.shape
         Lk = k.shape[1]
         H = self.num_heads
@@ -39,12 +94,21 @@ class MultiheadAttention(nn.Module):
         qh = self.q_proj(q).view(B, Lq, H, Dh).transpose(1, 2)
         kh = self.k_proj(k).view(B, Lk, H, Dh).transpose(1, 2)
         vh = self.v_proj(v).view(B, Lk, H, Dh).transpose(1, 2)
-        logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(Dh)
-        if key_mask is not None:
-            logits = torch.where(key_mask[:, None, None, :], logits, NEG_INF)
-        attn = torch.softmax(logits, dim=-1).to(q.dtype)
-        out = torch.matmul(attn, vh).transpose(1, 2).reshape(B, Lq, E)
-        return self.out_proj(out)
+        rate = self.dropout if self.training else 0.0
+        if resolve_use_flash(self.use_flash, q.device):
+            seed = draw_seed(q.device, generator) if rate > 0.0 else 0
+            io_dtype = qh.dtype
+            if self.flash_precision == "default" and io_dtype == torch.float32:
+                qh, kh, vh = (t.to(torch.bfloat16) for t in (qh, kh, vh))
+            out = flash_attention(qh, kh, vh, key_mask, dropout_rate=rate,
+                                  dropout_seed=seed).to(io_dtype)
+        else:
+            logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(Dh)
+            if key_mask is not None:
+                logits = torch.where(key_mask[:, None, None, :], logits, NEG_INF)
+            attn = dropout(torch.softmax(logits, dim=-1).to(q.dtype), rate, generator)
+            out = torch.matmul(attn, vh)
+        return self.out_proj(out.transpose(1, 2).reshape(B, Lq, E))
 
 
 class CrossAttentionLayer(nn.Module):
@@ -157,3 +221,26 @@ def global_mean_pool(x, mask):
     s = (x * m[..., None]).sum(dim=1)
     cnt = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
     return s / cnt
+
+
+#: parameters drawn from N(0, 1) by ``init_random_`` (flax ``normal(1.0)``)
+UNIT_NORMAL_LEAVES = ("codebook", "miss_emb", "cls_emb")
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from ``generator``, in the families the JAX package's
+    flax initializers use: N(0, 1/fan_in) for dense kernels, N(0, 1/dim) for
+    embedding tables, N(0, 1) for the codebook and the EHR model's raw
+    embedding rows, zero biases, unit LayerNorm scales."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in UNIT_NORMAL_LEAVES:
+            p.normal_(0.0, 1.0, generator=generator)
+        elif leaf == "bias":
+            p.zero_()
+        elif p.dim() == 1:
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+    return model

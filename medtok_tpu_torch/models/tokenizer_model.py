@@ -13,8 +13,6 @@ projections stay fp32, as the JAX package's dtype promotion has them.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
@@ -85,22 +83,3 @@ class MultimodalTokenizer(nn.Module):
         return self._tokenize(self.text_mapped(hidden), batch.attention_mask, batch)
 
     tokenize = forward
-
-
-@torch.no_grad()
-def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from ``generator``, in the families the JAX package's
-    flax initializers use: N(0, 1/fan_in) for dense kernels, N(0, 1/dim) for
-    embedding tables, N(0, 1) for the codebook, zero biases, unit LayerNorm
-    scales."""
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "codebook":
-            p.normal_(0.0, 1.0, generator=generator)
-        elif leaf == "bias":
-            p.zero_()
-        elif p.dim() == 1:
-            p.fill_(1.0)
-        else:
-            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
-    return model

@@ -33,7 +33,10 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+# K3's trailing arguments: B, H, Lq, Lk, Dh, sm_scale, rate, threshold,
+# seed (pointer to one int64 on the device), is_bf16, stream
+_K3_TAIL = [_I, _I, _I, _I, _I, _F, _F, _U, _P, _I, _P]
 # C signatures of the entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     # z, e, n_rows_z, n_codes, dim, k, n_splits, tiles_per_split,
@@ -43,8 +46,13 @@ _SIGNATURES = {
     "medtok_topk_tile_n": ([], ctypes.c_int),
     # q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream
     "medtok_segment_attention": (
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-        ctypes.c_int),
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
+    # q, k, v, mask, out, lse, *K3_TAIL
+    "medtok_flash_fwd": ([_P] * 6 + _K3_TAIL, ctypes.c_int),
+    # q, k, v, mask, lse, delta, dO, dq, *K3_TAIL
+    "medtok_flash_dq": ([_P] * 8 + _K3_TAIL, ctypes.c_int),
+    # q, k, v, mask, lse, delta, dO, dk, dv, *K3_TAIL
+    "medtok_flash_dkv": ([_P] * 9 + _K3_TAIL, ctypes.c_int),
     "medtok_error_string": ([_I], ctypes.c_char_p),
 }
 

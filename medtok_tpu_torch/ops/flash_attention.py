@@ -1,16 +1,41 @@
-"""Kernel K2: block-diagonal packed-segment attention (replaces the Pallas
-kernel ``medtok_tpu/ops/flash_attention.py::packed_segment_attention``).
+"""Attention kernels K2 and K3 and their plain versions.
 
-q, k, v are [B, H, L, Dh] and ``seg_ids`` [B, L] int32 (0 = padding). Query
-i attends to key j iff seg_i == seg_j > 0; the softmax runs in fp32 and a
+**K2**, block-diagonal packed-segment attention (replaces the Pallas kernel
+``medtok_tpu/ops/flash_attention.py::packed_segment_attention``). q, k, v
+are [B, H, L, Dh] and ``seg_ids`` [B, L] int32 (0 = padding). Query i
+attends to key j iff seg_i == seg_j > 0; the softmax runs in fp32 and a
 query row with no valid key returns 0. Forward only: the one caller is the
-frozen text encoder.
-
-On CUDA tensors ``packed_segment_attention`` launches
+frozen text encoder. On CUDA tensors ``packed_segment_attention`` launches
 ``csrc/segment_attention.cu``; on CPU tensors it runs the plain version.
 Bound: at the packed BERT shape [256, 12, 128, 64] in bf16 the layer moves
 4 x 50.3 MB (about 60 us at 3.35 TB/s) for at most 12.9 GFLOP, so it is
 memory-bound; the kernel's source note gives its design.
+
+**K3**, flash attention with a key-padding mask and hashed
+attention-probability dropout, forward plus the dq and dk/dv backward
+(replaces ``medtok_tpu/ops/flash_attention.py::flash_attention``: the
+kernels ``_flash_kernel``, ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``). ``flash_attention`` is a
+``torch.autograd.Function`` over the three wrappers ``flash_attention_fwd``,
+``flash_attention_dq`` and ``flash_attention_dkv``; each launches its kernel
+in ``csrc/flash_attention.cu`` on CUDA tensors and runs its plain version
+on CPU tensors. Semantics, as in the TPU kernel:
+
+- softmax(q k^T * sm_scale) over the keys with ``key_mask`` True, in fp32;
+- dropout after the softmax on the numerator only: a kept probability is
+  p / (1 - rate), a dropped one 0, and the denominator stays undropped; the
+  keep bit of element (b*H + h, i, j) is ``uniform_hash(...) >=
+  int(rate * 2**32)``, the same bits as the TPU kernel's, whatever the
+  tiling; the seed is an int or a 0-dim int64 tensor on the device (one
+  drawn there reaches the kernels without a host sync);
+- a query row with no valid key returns 0 and the finite lse -1e30, and
+  gets zero gradients;
+- bf16 inputs are multiplied in fp32 with fp32 sums, and the probabilities
+  (forward) and ds / dropped probabilities (backward) round to bf16 before
+  their products, where the TPU kernel casts them.
+
+Nothing quadratic is saved: the backward recomputes the probabilities from
+the saved lse and the keep bits from the hash.
 """
 
 from __future__ import annotations
@@ -22,6 +47,8 @@ import torch
 from medtok_tpu_torch.ops import _build
 
 _MASKED = -1e30  # finite stand-in for -inf, as in the TPU kernel
+_M32 = 0xFFFFFFFF
+K3_HEAD_DIM = 16  # the head width K3's kernels take (EHR: 64 / 4 heads)
 
 
 def packed_segment_attention_reference(
@@ -97,3 +124,303 @@ def packed_segment_attention(
 
 #: launches of the CUDA kernel (CPU calls of the plain version do not count)
 packed_segment_attention.launches = 0
+
+
+# --------------------------------------------------------------------- K3 --
+
+def uniform_hash(seed, bh, rows, cols) -> torch.Tensor:
+    """The TPU kernel's counter hash (``_uniform_hash``: splitmix/xorshift
+    rounds) of the global (batch*head, query, key) coordinates, broadcast
+    over its arguments. Returns the uint32 values in an int64 tensor.
+
+    torch has no full uint32 arithmetic, so this works in int64 and keeps
+    the low 32 bits after every multiply and add, before every shift; an
+    int64 product wraps modulo 2**64, which leaves the low 32 bits exact."""
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    dev = rows.device
+    cols = torch.as_tensor(cols, dtype=torch.int64, device=dev)
+    bh = torch.as_tensor(bh, dtype=torch.int64, device=dev)
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=dev)
+    x = (rows * 2654435761) & _M32
+    x = x ^ ((cols * 0x85EBCA6B) & _M32)
+    x = x ^ (((seed & _M32) + ((bh * 0x9E3779B9) & _M32)) & _M32)
+    for shift, mult in ((16, 0x7FEB352D), (15, 0x846CA68B)):
+        x = x ^ (x >> shift)
+        x = (x * mult) & _M32
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """A probability is kept where its hash is at least this uint32."""
+    return int(rate * 4294967296.0)
+
+
+def _keep_scale(shape, rate: float, seed, device, bh_offset: int = 0) -> torch.Tensor:
+    """[B, H, Lq, Lk] fp32: 1 / (1 - rate) where the hash keeps, else 0.
+    Row b*H + h of the batch hashes as row bh_offset + b*H + h."""
+    B, H, Lq, Lk = shape
+    bh = torch.arange(bh_offset, bh_offset + B * H, device=device).view(B, H, 1, 1)
+    rows = torch.arange(Lq, device=device).view(1, 1, Lq, 1)
+    cols = torch.arange(Lk, device=device).view(1, 1, 1, Lk)
+    keep = uniform_hash(seed, bh, rows, cols) >= dropout_threshold(rate)
+    return keep.float() / (1.0 - rate)
+
+
+def _key_valid(key_mask, k: torch.Tensor) -> torch.Tensor:
+    """[B, 1, 1, Lk] bool from a [B, Lk] key mask (None: every key)."""
+    B, _, Lk, _ = k.shape
+    if key_mask is None:
+        return torch.ones(B, 1, 1, Lk, dtype=torch.bool, device=k.device)
+    return key_mask.to(device=k.device, dtype=torch.bool).view(B, 1, 1, Lk)
+
+
+def _as_fp32(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """x rounded to ``like``'s dtype, back in fp32: where the TPU kernel
+    casts an fp32 operand to its partner's type before a product."""
+    return x.to(like.dtype).float()
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask=None, *,
+    sm_scale: float | None = None, dropout_rate: float = 0.0,
+    dropout_seed=0, bh_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3's forward: dense fp32 scores, the masked softmax,
+    the hashed dropout on the numerator. Returns (out [B, H, Lq, Dh] in q's
+    dtype, lse [B, H, Lq] fp32). Differentiable by autograd.
+
+    ``bh_offset``: the batch*head index of q's first row in the batch whose
+    dropout bits it takes, so that a slice of batch rows [b0, b1) with
+    bh_offset b0*H gets the bits the whole batch gets (the plain versions'
+    [B, H, Lq, Lk] tensors are checked against the kernels in such
+    slices)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    valid = _key_valid(key_mask, k)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = torch.where(valid, s, _MASKED)
+    m = s.detach().amax(dim=-1, keepdim=True)   # a stabiliser: no gradient
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if dropout_rate > 0.0:
+        p = p * _keep_scale(s.shape, dropout_rate, dropout_seed, q.device, bh_offset)
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    out = torch.matmul(_as_fp32(p, v), v.float()) / safe_l
+    return out.to(q.dtype), (m + torch.log(safe_l)).squeeze(-1)
+
+
+def _bwd_terms(q, k, v, key_mask, lse, delta, do, sm_scale, dropout_rate,
+               dropout_seed, bh_offset):
+    """The backward's recompute: (ds, dropped probabilities), [B, H, Lq, Lk]
+    fp32, from a = exp(s - lse) and t = keep * (dO . V)."""
+    valid = _key_valid(key_mask, k)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    a = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    t = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    a_drop = a
+    if dropout_rate > 0.0:
+        keep = _keep_scale(s.shape, dropout_rate, dropout_seed, q.device, bh_offset)
+        t, a_drop = t * keep, a * keep
+    return a * (t - delta[..., None]), a_drop
+
+
+def flash_attention_dq_reference(q, k, v, key_mask, lse, delta, do, *,
+                                 sm_scale: float, dropout_rate: float = 0.0,
+                                 dropout_seed=0, bh_offset: int = 0) -> torch.Tensor:
+    """Plain version of K3-dq: dQ = sm_scale * ds K, in q's dtype."""
+    ds, _ = _bwd_terms(q, k, v, key_mask, lse, delta, do, sm_scale,
+                       dropout_rate, dropout_seed, bh_offset)
+    return (sm_scale * torch.matmul(_as_fp32(ds, k), k.float())).to(q.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, key_mask, lse, delta, do, *,
+                                  sm_scale: float, dropout_rate: float = 0.0,
+                                  dropout_seed=0, bh_offset: int = 0):
+    """Plain version of K3-dkv: dK = sm_scale * ds^T Q and dV = ã^T dO."""
+    ds, a_drop = _bwd_terms(q, k, v, key_mask, lse, delta, do, sm_scale,
+                            dropout_rate, dropout_seed, bh_offset)
+    dk = sm_scale * torch.matmul(_as_fp32(ds, q).transpose(-1, -2), q.float())
+    dv = torch.matmul(_as_fp32(a_drop, do).transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _k3_device(tensors) -> str:
+    """'cpu' when every tensor is on the CPU; 'cuda' when all are on one
+    CUDA device; otherwise raises."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return "cpu"
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("K3's tensors must be on one CUDA device (or all on "
+                         "the CPU)")
+    return "cuda"
+
+
+def _k3_check(q, k, v, key_mask, extra=()):
+    """Raise on anything K3's kernels do not take."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q [B, H, Lq, Dh] and k, v [B, H, Lk, Dh] expected, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be bfloat16 or all float32, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, H, Lq, Dh = q.shape
+    if Dh != K3_HEAD_DIM:
+        raise ValueError(f"K3 takes head width {K3_HEAD_DIM}, got {Dh}")
+    if key_mask.shape != (B, k.shape[2]) or key_mask.dtype != torch.bool:
+        raise ValueError(f"key_mask must be [B, Lk] = [{B}, {k.shape[2]}] bool, "
+                         f"got {key_mask.dtype} {tuple(key_mask.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("key_mask", key_mask), *extra):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if B * H * max(Lq, k.shape[2]) >= 2**31:
+        raise ValueError("K3's index arithmetic takes fewer than 2**31 rows")
+
+
+def _seed_on(seed, device) -> torch.Tensor:
+    """The dropout seed as one int64 on ``device``: a tensor seed as it is,
+    an int by a fill on the device; neither waits for the device."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype != torch.int64 or seed.device != device:
+            raise ValueError(f"a tensor dropout seed must be one int64 on {device}, "
+                             f"got {seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        return seed.reshape(())
+    return torch.full((), int(seed) & _M32, dtype=torch.int64, device=device)
+
+
+def _k3_launch(entry: str, q, k, tensors, sm_scale: float, dropout_rate: float,
+               dropout_seed) -> None:
+    """Build the library if needed and launch ``entry`` on q's device and
+    current stream, with the pointers of ``tensors`` and the shapes and
+    scalars every K3 entry takes; raises on a missing nvcc or a refused
+    launch."""
+    lib = _build.load_library()
+    B, H, Lq, Dh = q.shape
+    drop = dropout_rate > 0.0
+    seed = _seed_on(dropout_seed, q.device) if drop else None
+    with torch.cuda.device(q.device):
+        code = getattr(lib, entry)(
+            *(t.data_ptr() for t in tensors), B, H, Lq, k.shape[2], Dh,
+            float(sm_scale), float(dropout_rate),
+            dropout_threshold(dropout_rate) if drop else 0,
+            seed.data_ptr() if drop else None, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, entry)
+
+
+def flash_attention_fwd(q, k, v, key_mask, *, sm_scale: float,
+                        dropout_rate: float = 0.0, dropout_seed=0):
+    """K3's forward, (out, lse). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    if _k3_device((q, k, v, key_mask)) == "cpu":
+        return flash_attention_reference(q, k, v, key_mask, sm_scale=sm_scale,
+                                         dropout_rate=dropout_rate,
+                                         dropout_seed=dropout_seed)
+    _k3_check(q, k, v, key_mask)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if out.numel():
+        _k3_launch("medtok_flash_fwd", q, k, (q, k, v, key_mask, out, lse),
+                   sm_scale, dropout_rate, dropout_seed)
+        flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def _bwd_extra(q, lse, delta, do):
+    B, H, Lq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, Lq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be [B, H, Lq] float32, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO must match q, got {do.dtype} {tuple(do.shape)}")
+    return (("lse", lse), ("delta", delta), ("dO", do))
+
+
+def flash_attention_dq(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
+                       dropout_rate: float = 0.0, dropout_seed=0):
+    """K3-dq: the gradient of q, from the saved lse and delta = sum(dO * O).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors = (q, k, v, key_mask, lse, delta, do)
+    if _k3_device(tensors) == "cpu":
+        return flash_attention_dq_reference(*tensors, sm_scale=sm_scale,
+                                            dropout_rate=dropout_rate,
+                                            dropout_seed=dropout_seed)
+    _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
+    dq = torch.empty_like(q)
+    if dq.numel():
+        _k3_launch("medtok_flash_dq", q, k, (*tensors, dq), sm_scale,
+                   dropout_rate, dropout_seed)
+        flash_attention_dq.launches += 1
+    return dq
+
+
+def flash_attention_dkv(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
+                        dropout_rate: float = 0.0, dropout_seed=0):
+    """K3-dkv: the gradients of k and v. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    tensors = (q, k, v, key_mask, lse, delta, do)
+    if _k3_device(tensors) == "cpu":
+        return flash_attention_dkv_reference(*tensors, sm_scale=sm_scale,
+                                             dropout_rate=dropout_rate,
+                                             dropout_seed=dropout_seed)
+    _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel():
+        _k3_launch("medtok_flash_dkv", q, k, (*tensors, dk, dv), sm_scale,
+                   dropout_rate, dropout_seed)
+        flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+#: launches of each CUDA kernel (CPU calls of the plain versions do not count)
+flash_attention_fwd.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3-fwd forward; D = sum(dO * O) in fp32 by a torch op, then K3-dq and
+    K3-dkv, as the TPU version's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, sm_scale, dropout_rate, dropout_seed):
+        out, lse = flash_attention_fwd(q, k, v, key_mask, sm_scale=sm_scale,
+                                       dropout_rate=dropout_rate,
+                                       dropout_seed=dropout_seed)
+        ctx.save_for_backward(q, k, v, key_mask, lse, out)
+        ctx.args = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
+                        dropout_seed=dropout_seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, lse, out = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        delta = (g.float() * out.float()).sum(dim=-1)
+        dq = flash_attention_dq(q, k, v, key_mask, lse, delta, g, **ctx.args)
+        dk, dv = flash_attention_dkv(q, k, v, key_mask, lse, delta, g, **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_mask: torch.Tensor | None = None, *,
+                    sm_scale: float | None = None, dropout_rate: float = 0.0,
+                    dropout_seed: int | torch.Tensor = 0) -> torch.Tensor:
+    """softmax(q k^T * sm_scale) v without the L^2 scores, differentiable:
+    q [B, H, Lq, Dh], k, v [B, H, Lk, Dh], key_mask [B, Lk] (True = valid),
+    output [B, H, Lq, Dh] in q's dtype. ``dropout_seed`` (an int or a 0-dim
+    int64 tensor on q's device) picks the hashed dropout mask (see the
+    module docstring)."""
+    B, H, Lq, Dh = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(Dh)
+    if key_mask is None:
+        key_mask = torch.ones(B, k.shape[2], dtype=torch.bool, device=k.device)
+    key_mask = key_mask.to(dtype=torch.bool).contiguous()
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 key_mask, float(sm_scale), float(dropout_rate),
+                                 dropout_seed)
+

@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,6 +61,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         cli.main(["--config", missing, "--params", missing, "--kg", missing,
                   "--codes", missing, "--vocab", missing])
 
+    from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EHRTrainer(EHRTrainConfig(), np.zeros((4, 256), np.float32), 2)
+
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -71,11 +77,20 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc was not found"):
         _build.load_library()
     assert not (tmp_path / "build").exists()
+    # K3's launch path (what its wrappers run for CUDA tensors) builds
+    # first and raises, with no fall-back to the plain version
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    for entry in ("medtok_flash_fwd", "medtok_flash_dq", "medtok_flash_dkv"):
+        with pytest.raises(RuntimeError, match="nvcc was not found"):
+            fa._k3_launch(entry, None, None, (), 0.25, 0.0, 0)
+    assert not (tmp_path / "build").exists()
 
 
 def test_kernel_sources_are_packaged():
     names = {p.name for p in _build._sources()}
-    assert {"topk_l2.cu", "segment_attention.cu"} <= names
+    assert {"topk_l2.cu", "segment_attention.cu", "flash_attention.cu"} <= names
+    assert {"medtok_flash_fwd", "medtok_flash_dq", "medtok_flash_dkv"} <= set(_build._SIGNATURES)
     assert _build._library_path().parent == _build.BUILD_DIR
     assert "medtok_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
     assert Path(medtok_tpu_torch.__file__).parent / "csrc" == _build.SRC_DIR
