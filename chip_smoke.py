@@ -29,7 +29,25 @@ Phases, each fatal on failure:
      time one on an all-valid batch;
   9. hold the trained EHR model's eval logits on the card (K3 in fp32 under
      "highest", bf16 under "default") against the plain versions on the
-     CPU on a small batch.
+     CPU on a small batch;
+ 10. hold kernel K4 (packed segment attention in the [B, L, H, Dh] layout)
+     against its plain version and against K2 on the transposed inputs at
+     [256, 128, 12, 64] on phase 4's packing layout, and time it beside K2
+     with and without the head transposes;
+ 11. hold kernels K5 and K5-lane (the dense-adjacency Count) against their
+     plain version and a numpy histogram at B=512, Ln=512, Epg=8192 with
+     the bench script's edges (bit for bit on binary weights; within 1e-6
+     and identical across two launches on fractional ones), at an export
+     shape (Ln=128, Epg=1024) and at a dense shape (B=64, Ln=16, Epg=8192,
+     about 24 edges per Count cell, where a sum in another order or
+     precision would show);
+ 12. run the slice-3 entry points at their full default shapes, counting
+     kernel launches: the packed-BERT probe
+     (medtok_tpu_torch.scripts.profile_bert, K2 and K4 12 per kernel-leg
+     call) and the Count A/B (medtok_tpu_torch.scripts.bench_adj, every
+     variant within 1e-6 of the histogram).
+Phase 5's profile also reports the device time of the Count build
+(gcn_norm_adj) in the export's tail node buckets.
 It then prints the card, one JSON line of kernel measurements and, last,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result. fp32 matmuls and
@@ -59,6 +77,9 @@ D = 64
 EHR_TRAIN_STEPS = 4     # train batches of one epoch
 EHR_EVAL_BATCHES = 2
 K3_SLICE = 8            # batch rows per slice of K3's plain version
+# (B, Ln, Epg) of the Count checks: the bench's Ln=512 tail shape, an export
+# bucket, and a dense shape whose cells sum many fractional weights
+K5_SHAPES = ((512, 512, 8192), (512, 128, 1024), (64, 16, 8192))
 
 
 def log(msg: str) -> None:
@@ -77,16 +98,9 @@ def cuda_ms(fn, iters: int) -> float:
     """Mean device time of fn() over iters launches, after one warm-up."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    from medtok_tpu_torch.scripts import timed
+
+    return timed(fn, 1, torch.device("cuda"), iters)
 
 
 def check(cond: bool, what: str) -> None:
@@ -175,28 +189,49 @@ def check_k1(gen, dev) -> dict:
 
 # --------------------------------------------------------------------- K2 --
 
-def check_k2(gen, dev, dataset) -> dict:
+def packed_segments(dataset, dev):
+    """[R, P] int32 segment ids of a real greedy packing of 80% of the
+    first export group, whose last rows stay empty."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from medtok_tpu_torch.export import export_groups, packed_layout
-    from medtok_tpu_torch.ops.flash_attention import (
-        packed_segment_attention,
-        packed_segment_attention_reference,
-    )
 
     row_len, num_rows, _ = packed_layout(dataset)
     group = export_groups(dataset)[0]
-    # 80% of a full group: a real greedy layout whose last rows stay empty
     _, base, lens = dataset.pack_text_rows(group[: int(0.8 * len(group))],
                                            row_len=row_len, num_rows=num_rows)
     seg_np = np.zeros(num_rows * row_len, np.int32)
     for c, (b, n) in enumerate(zip(base.tolist(), lens.tolist())):
         seg_np[b:b + n] = c + 1
     seg = torch.from_numpy(seg_np.reshape(num_rows, row_len)).to(dev)
+    check(bool((seg == 0).all(dim=1).any()), "the packing layout has no all-padding row")
+    return seg
+
+
+def segment_bound(seg, H: int, Dh: int) -> tuple[float, float, float]:
+    """(bound ms, in-segment FLOP, bytes) of one bf16 K2 / K4 layer: q, k,
+    v read and out written once, QK^T and PV over each segment's pairs."""
+    import torch
+
+    R, P = seg.shape
+    seg_sizes = torch.bincount(seg.flatten())[1:].double()
+    ops = 4.0 * H * Dh * float((seg_sizes ** 2).sum())
+    nbytes = 4.0 * R * H * P * Dh * 2 + R * P * 4
+    return max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3, ops, nbytes
+
+
+def check_k2(gen, dev, seg) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from medtok_tpu_torch.ops.flash_attention import (
+        packed_segment_attention,
+        packed_segment_attention_reference,
+    )
+
     pad = seg == 0
-    check(bool(pad.all(dim=1).any()), "K2 layout has no all-padding row")
+    num_rows, row_len = seg.shape
     R, H, P, Dh = num_rows, 12, row_len, 64
     q32, k32, v32 = (torch.randn(R, H, P, Dh, generator=gen, device=dev) for _ in range(3))
 
@@ -220,10 +255,7 @@ def check_k2(gen, dev, dataset) -> dict:
     kernel_ms = cuda_ms(lambda: packed_segment_attention(q, k, v, seg), 20)
     plain_ms = cuda_ms(lambda: packed_segment_attention_reference(q, k, v, seg), 5)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20)
-    seg_sizes = torch.bincount(seg.flatten())[1:].double()
-    ops = 4.0 * H * Dh * float((seg_sizes ** 2).sum())   # QK^T and PV per segment
-    nbytes = 4.0 * R * H * P * Dh * 2 + R * P * 4
-    bound_ms = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    bound_ms, ops, nbytes = segment_bound(seg, H, Dh)
     log(f"K2 bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"sdpa+mask {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP in-segment)")
@@ -234,6 +266,186 @@ def check_k2(gen, dev, dataset) -> dict:
                 bound_ms=bound_ms,
                 bound_by="operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
                 library_ms=library_ms)
+
+
+# --------------------------------------------------------------------- K4 --
+
+def check_k4(gen, dev, seg) -> dict:
+    """K4 against its plain version and against K2 on the transposed
+    inputs, at [256, 128, 12, 64] on the packing layout of phase 4."""
+    import torch
+    import torch.nn.functional as F
+
+    from medtok_tpu_torch.ops.flash_attention import (
+        packed_segment_attention,
+        packed_segment_attention_nt,
+        packed_segment_attention_nt_reference,
+    )
+
+    pad = seg == 0
+    R, P = seg.shape
+    H, Dh = 12, 64
+
+    def heads_first(*ts):
+        return [t.transpose(1, 2).contiguous() for t in ts]
+
+    errs, k2_diff = {}, {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.randn(R, P, H, Dh, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        out = packed_segment_attention_nt(q, k, v, seg)
+        ref = packed_segment_attention_nt_reference(q.float(), k.float(), v.float(), seg)
+        name = str(dtype).split(".")[-1]
+        errs[name] = float((out.float() - ref).abs().max())
+        check(out.dtype == dtype and out.shape == q.shape, f"K4 {name}: output {out.dtype} "
+              f"{tuple(out.shape)}")
+        check(errs[name] <= tol, f"K4 {name}: max error {errs[name]} > {tol}")
+        check(bool((out[pad] == 0).all()), f"K4 {name}: padding rows not 0")
+        k2 = packed_segment_attention(*heads_first(q, k, v), seg).transpose(1, 2)
+        k2_diff[name] = float((out.float() - k2.float()).abs().max())
+    log(f"K4 [{R},{P},{H},{Dh}]: fp32 max err {errs['float32']:.3e}, bf16 max err "
+        f"{errs['bfloat16']:.3e} vs fp32 plain; padding rows 0; vs K2 on the transposed "
+        f"inputs: " + ("identical" if not any(k2_diff.values()) else
+                       f"max difference fp32 {k2_diff['float32']:.3e}, "
+                       f"bf16 {k2_diff['bfloat16']:.3e}"))
+
+    mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0))[:, None]
+    qt, kt, vt = heads_first(q, k, v)
+    kernel_ms = cuda_ms(lambda: packed_segment_attention_nt(q, k, v, seg), 20)
+    plain_ms = cuda_ms(lambda: packed_segment_attention_nt_reference(q, k, v, seg), 5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask), 20)
+    k2_ms = cuda_ms(lambda: packed_segment_attention(qt, kt, vt, seg), 20)
+    k2_transposed_ms = cuda_ms(lambda: packed_segment_attention(
+        *heads_first(q, k, v), seg).transpose(1, 2).contiguous(), 20)
+    bound_ms, ops, nbytes = segment_bound(seg, H, Dh)
+    log(f"K4 bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa+mask "
+        f"on the transposed views {library_ms:.4f} ms, bound {bound_ms:.4f} ms; K2 on "
+        f"[B, H, L, Dh] {k2_ms:.4f} ms, K2 with the three input and one output "
+        f"transposes {k2_transposed_ms:.4f} ms")
+    return dict(name="segment_attention_nt", route="cuda",
+                source="medtok_tpu_torch/csrc/segment_attention.cu",
+                replaces="medtok_tpu/ops/flash_attention.py:654",
+                max_abs_err=errs["bfloat16"], ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
+                library_ms=library_ms)
+
+
+# --------------------------------------------------------------------- K5 --
+
+def check_k5(gen, dev) -> list[dict]:
+    """K5 and K5-lane against their plain version and the numpy histogram
+    at the bench's tail shape, an export shape and a dense shape; times at
+    the first."""
+    import torch
+
+    from medtok_tpu_torch.ops.adj_count import (
+        adj_count,
+        adj_count_onehot,
+        adj_count_reference,
+    )
+    from medtok_tpu_torch.scripts.bench_adj import draw_edges, histogram
+
+    kernels = (adj_count, adj_count_onehot)
+    frac_err = {}
+    for B, Ln, Epg in K5_SHAPES:
+        src, dst, w, ne = draw_edges(B, Ln, Epg)
+        truth = torch.from_numpy(histogram(src, dst, ne, Ln)).to(dev)
+        es, ed, ew = (torch.from_numpy(a.reshape(-1)).to(dev) for a in (src, dst, w))
+        plain = adj_count_reference(es, ed, ew, B, Ln)
+        check(torch.equal(plain, truth), f"K5 plain version != histogram at Ln={Ln}")
+        wf = ew * torch.rand(ew.shape, generator=gen, device=dev)   # fractional
+        plain_f = adj_count_reference(es, ed, wf, B, Ln)
+        scale = float(plain_f.abs().max())
+        for fn in kernels:
+            name = fn.__name__
+            got = fn(es, ed, ew, B, Ln)
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain) and torch.equal(got, truth),
+                  f"{name} B={B} Ln={Ln} Epg={Epg}: binary Count differs from the histogram")
+            first, second = fn(es, ed, wf, B, Ln), fn(es, ed, wf, B, Ln)
+            err = float((first - plain_f).abs().max())
+            check(err <= 1e-6 * scale, f"{name} Ln={Ln}: fractional error {err} > 1e-6 "
+                  f"of the largest count {scale}")
+            check(torch.equal(first, second), f"{name} Ln={Ln}: two launches differ")
+            frac_err[name] = max(frac_err.get(name, 0.0), err)
+            log(f"K5 {name} B={B} Ln={Ln} Epg={Epg}: binary Count equal to the plain "
+                f"version and the histogram bit for bit (largest count "
+                f"{float(truth.max()):.0f}); fractional max abs err {err:.3e} "
+                f"(largest count {scale:.3f}), two launches identical")
+            del got, first, second
+        if (B, Ln, Epg) == K5_SHAPES[0]:
+            times = k5_times(es, ed, ew, B, Ln, Epg, plain)
+            nnz = int((ew != 0).sum())
+        del truth, plain, plain_f
+
+    B, Ln, Epg = K5_SHAPES[0]
+    # The function reads the edges, writes Count and adds once per edge of
+    # weight != 0: the bound of both kernels. K5-lane's one-hot products
+    # (Ln^2 MACs per edge at the bf16 peak) are a floor of its design only.
+    nbytes = 12.0 * B * Epg + 4.0 * B * Ln * Ln
+    bound_ms = max(nnz / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "operations" if nnz / PEAK_FP32 > nbytes / PEAK_BYTES else "bytes"
+    onehot_floor_ms = 2.0 * Ln * Ln * nnz / PEAK_BF16 * 1e3
+    rows = []
+    for fn, lib, site in ((adj_count, "index_put", 154),
+                          (adj_count_onehot, "onehot_bmm", 205)):
+        name = fn.__name__
+        log(f"K5 {name} B={B} Ln={Ln} Epg={Epg}: kernel {times[name]:.4f} ms, plain "
+            f"{times['plain']:.4f} ms, library {lib} {times[lib]:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {nnz} edges of "
+            f"weight != 0)")
+        rows.append(dict(name=name, route="cuda", source="medtok_tpu_torch/csrc/adj_count.cu",
+                         replaces=f"scripts/bench_adj.py:{site}",
+                         max_abs_err=frac_err[name], ms=times[name], plain_ms=times["plain"],
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=times[lib]))
+    log(f"K5 adj_count_onehot design floor: {2.0 * Ln * Ln * nnz / 1e9:.1f} GFLOP of "
+        f"one-hot products at the bf16 peak, {onehot_floor_ms:.4f} ms (not a bound of "
+        f"the function)")
+    return rows
+
+
+def k5_times(es, ed, ew, B: int, Ln: int, Epg: int, plain) -> dict:
+    """ms of both kernels, the plain version, one index_put_ Count and the
+    chunked bf16 one-hot bmm (one-hots under 1 GiB a side); the two library
+    calls must give the plain version's Count."""
+    import torch
+
+    from medtok_tpu_torch.ops.adj_count import (
+        adj_count,
+        adj_count_onehot,
+        adj_count_reference,
+    )
+
+    dev = es.device
+    b = torch.arange(B, device=dev).repeat_interleave(Epg)
+    idx = (b, ed.long(), es.long())
+    w16 = ew.to(torch.bfloat16)
+    chunk = min(Epg, (1 << 30) // (2 * B * Ln))
+    iota = torch.arange(Ln, device=dev, dtype=es.dtype)
+    sg, dg, wg = es.view(B, Epg), ed.view(B, Epg), w16.view(B, Epg)
+
+    def index_put():
+        return torch.zeros((B, Ln, Ln), device=dev).index_put_(idx, w16.float(),
+                                                               accumulate=True)
+
+    def onehot_bmm():
+        count = torch.zeros((B, Ln, Ln), device=dev)
+        for c0 in range(0, Epg, chunk):
+            d = ((dg[:, None, c0:c0 + chunk] == iota[None, :, None]).to(torch.bfloat16)
+                 * wg[:, None, c0:c0 + chunk])                     # [B, Ln, chunk]
+            s = (sg[:, c0:c0 + chunk, None] == iota).to(torch.bfloat16)
+            count += torch.bmm(d, s, out_dtype=torch.float32)
+        return count
+
+    for lib in (index_put, onehot_bmm):
+        check(torch.equal(lib(), plain), f"library {lib.__name__} != the plain Count")
+    return {"adj_count": cuda_ms(lambda: adj_count(es, ed, ew, B, Ln), 20),
+            "adj_count_onehot": cuda_ms(lambda: adj_count_onehot(es, ed, ew, B, Ln), 5),
+            "plain": cuda_ms(lambda: adj_count_reference(es, ed, ew, B, Ln), 5),
+            "index_put": cuda_ms(index_put, 5),
+            "onehot_bmm": cuda_ms(onehot_bmm, 5)}
 
 
 # -------------------------------------------------------------- main path --
@@ -330,13 +542,19 @@ def profile_main_path(model, dataset, dev, first: dict) -> None:
         check(np.array_equal(arr, again[name]), f"a second export changed {name}")
     on_gpu = torch.autograd.DeviceType.CUDA
     events = prof.key_averages()
-    ranges = [e for e in events if e.key.startswith("export.")]
+    ranges = [e for e in events if e.key.startswith("export.") or e.key == "gcn_norm_adj"]
     device = [e for e in events if e.device_type == on_gpu and e not in ranges]
     copies = sum(dev_us(e) for e in device if e.key.startswith("Memcpy"))
     kernels = sum(dev_us(e) for e in device if not e.key.startswith("Memcpy"))
     log(f"profile: second export {wall:.3f} s wall under the profiler (bitwise "
         f"equal to the first); device kernels {kernels / 1e6:.3f} s "
         f"({100 * kernels / 1e6 / wall:.1f}% of wall), copies {copies / 1e6:.3f} s")
+    # the dense-adjacency Count (gcn_norm_adj runs at node buckets >= 64)
+    count = [e for e in ranges if e.key == "gcn_norm_adj" and e.device_type == on_gpu]
+    count_us = sum(dev_us(e) for e in count)
+    log(f"profile: Count build (gcn_norm_adj, tail node buckets) gpu span "
+        f"{count_us / 1e3:.3f} ms over {sum(e.count for e in count)} calls, "
+        f"{100 * count_us / max(kernels, 1.0):.2f}% of the device kernel time")
     for e in sorted(ranges, key=lambda e: (e.device_type == on_gpu, e.key)):
         side = "gpu span" if e.device_type == on_gpu else "host"
         t = dev_us(e) if e.device_type == on_gpu else e.cpu_time_total
@@ -815,6 +1033,53 @@ def check_ehr_reference(trainer, ehr: dict, dev, n: int = 8) -> None:
             f"CPU): logits max abs err {err:.3e}, {rel:.3e} of the largest logit")
 
 
+# ---------------------------------------------------------------- slice 3 --
+
+def run_slice3() -> dict:
+    """The packed-BERT probe and the Count A/B at their full default
+    shapes, each with the launch counters set to 0 just before it; returns
+    the launches of K4, K5 and K5-lane."""
+    from medtok_tpu_torch.ops.adj_count import adj_count, adj_count_onehot
+    from medtok_tpu_torch.ops.flash_attention import (
+        packed_segment_attention,
+        packed_segment_attention_nt,
+    )
+    from medtok_tpu_torch.scripts import bench_adj, profile_bert
+
+    packed_segment_attention.launches = 0
+    packed_segment_attention_nt.launches = 0
+    t0 = time.perf_counter()
+    prof = profile_bert.main([])
+    wall = time.perf_counter() - t0
+    launches = {"segment_attention_nt": packed_segment_attention_nt.launches}
+    per_call = prof["launches_per_call"]
+    for leg, want in (("full_flash", (12, 0)), ("kernel_only", (12, 0)),
+                      ("kernel_nt_only", (0, 12)), ("full", (0, 0))):
+        got = (per_call[leg]["segment_attention"], per_call[leg]["segment_attention_nt"])
+        check(got == want, f"profile_bert {leg}: (K2, K4) launches per call {got} != {want}")
+    legs = [k for k in prof if k.endswith("_ms")]
+    check(len(legs) == 11 and all(0 < prof[k] < float("inf") for k in legs),
+          f"profile_bert: leg times {[prof[k] for k in legs]}")
+    check(launches["segment_attention_nt"] > 0, "profile_bert launched no K4")
+    log(f"profile_bert: {wall:.2f} s, {packed_segment_attention.launches} K2 and "
+        f"{launches['segment_attention_nt']} K4 launches")
+
+    adj_count.launches = 0
+    adj_count_onehot.launches = 0
+    t0 = time.perf_counter()
+    adj = bench_adj.main(["--variants", "bf16_chunked,int8,cuda_count,cuda_onehot"])
+    wall = time.perf_counter() - t0
+    launches.update(adj_count=adj_count.launches, adj_count_onehot=adj_count_onehot.launches)
+    for name in bench_adj.VARIANTS:
+        check("error" not in adj[name], f"bench_adj {name}: {adj[name].get('error')}")
+        check(adj[name]["max_err"] <= 1e-6,
+              f"bench_adj {name}: max_err {adj[name]['max_err']} > 1e-6")
+    check(launches["adj_count"] > 0 and launches["adj_count_onehot"] > 0,
+          f"bench_adj launched no K5 or no K5-lane: {launches}")
+    log(f"bench_adj: {wall:.2f} s, launches {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -862,7 +1127,10 @@ def main(argv=None) -> int:
     log(f"data: {len(dataset)} codes, KG {dataset.kg.num_nodes} nodes / "
         f"{len(dataset.kg.edge_src)} edges, built in {time.perf_counter() - t0:.2f} s")
 
-    k2 = check_k2(gen, dev, dataset)
+    seg = packed_segments(dataset, dev)
+    k2 = check_k2(gen, dev, seg)
+    k4 = check_k4(gen, dev, seg)
+    k5 = check_k5(gen, dev)
 
     from medtok_tpu_torch.config import MedTokConfig, ModelConfig
     from medtok_tpu_torch.models.layers import init_random_
@@ -885,15 +1153,20 @@ def main(argv=None) -> int:
     k3 = check_k3(gen, dev, key_mask_of(ehr["val"][0], dev))
     k3_launches, trainer = run_ehr(table, ehr, dev)
     check_ehr_reference(trainer, ehr, dev)
+    del trainer
+    slice3 = run_slice3()
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]
     for row, key in zip(k3, ("fwd", "dq", "dkv")):
         row["launches"] = k3_launches[key]
+    for row in (k4, *k5):
+        row["launches"] = slice3[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(card)
-    log(json.dumps({"kernels": [{key: k[key] for key in keys} for k in (k1, k2, *k3)]}))
+    log(json.dumps({"kernels": [{key: k[key] for key in keys}
+                                for k in (k1, k2, *k3, k4, *k5)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

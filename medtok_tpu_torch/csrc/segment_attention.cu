@@ -1,17 +1,25 @@
-// Kernel K2: block-diagonal (sequence-packed) attention, forward only, for
-// Hopper (sm_90a).
+// Kernels K2 and K4: block-diagonal (sequence-packed) attention, forward
+// only, for Hopper (sm_90a).
 //
-// Replaces medtok_tpu/ops/flash_attention.py::packed_segment_attention
-// (kernel _flash_seg_kernel). q, k, v, out are [B, H, L, Dh] in bf16 or fp32
-// and seg is [B, L] int32. Query i of a row attends to key j iff
-// seg_i == seg_j > 0; the softmax of q.k * sm_scale runs in fp32 with a
-// running max and sum, and a query row with no valid key (padding) writes 0.
+// K2 replaces medtok_tpu/ops/flash_attention.py::packed_segment_attention
+// (kernel _flash_seg_kernel): q, k, v, out are [B, H, L, Dh]. K4 replaces
+// packed_segment_attention_nt (kernel _flash_seg_kernel_nt): the same
+// attention with q, k, v, out in the projection layout [B, L, H, Dh]. Both
+// are one kernel templated on the layout: element (b, h, i, d) sits at
+// b*L*H*Dh + h*head_stride + i*row_stride + d, with (head, row) strides
+// (L*Dh, Dh) for K2 and (Dh, H*Dh) for K4. Dh = 64 is contiguous in both,
+// so the 16-byte vector loads hold. bf16 or fp32; seg is [B, L] int32.
+// Query i of a row attends to key j iff seg_i == seg_j > 0; the softmax of
+// q.k * sm_scale runs in fp32 with a running max and sum, and a query row
+// with no valid key (padding) writes 0.
 //
 // Bound: at the packed BERT shape [256, 12, 128, 64] in bf16 the kernel must
 // read q, k, v and write o, 4 x 50.3 MB per layer (about 60 us at 3.35 TB/s),
 // while the block-diagonal products are at most 12.9 GFLOP, so it is
-// memory-bound. This first kernel does the products on fp32 CUDA cores, not
-// tensor cores, and sits above that bound.
+// memory-bound; K4 moves the same bytes. This first kernel does the products
+// on fp32 CUDA cores, not tensor cores, and sits above that bound. In K4's
+// layout a thread's q and out rows lie H*Dh apart instead of side by side;
+// the key/value staging still reads whole 128-byte rows.
 //
 // Design. One block per (row b, head h, tile of 128 queries); one thread per
 // query keeps its q row and its fp32 accumulator in registers. Keys and values
@@ -63,7 +71,8 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* o) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-template <typename T>
+// kBLHD: the [B, L, H, Dh] layout (K4); otherwise [B, H, L, Dh] (K2)
+template <typename T, bool kBLHD>
 __global__ void __launch_bounds__(QT)
 segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const int* __restrict__ seg,
@@ -74,8 +83,11 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int b = bh / H;
+  const int h = bh % H;
   const int qi = blockIdx.y * QT + threadIdx.x;
-  const size_t base = (size_t)bh * L * DH;
+  const size_t row_stride = kBLHD ? (size_t)H * DH : (size_t)DH;
+  const size_t head_stride = kBLHD ? (size_t)DH : (size_t)L * DH;
+  const size_t base = (size_t)b * L * H * DH + (size_t)h * head_stride;
   const int* seg_row = seg + (size_t)b * L;
   const int my_seg = qi < L ? seg_row[qi] : 0;
 
@@ -85,7 +97,7 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < DH; ++d) { qr[d] = 0.f; acc[d] = 0.f; }
   if (qi < L) {
 #pragma unroll
-    for (int d = 0; d < DH; d += 8) load8(q + base + (size_t)qi * DH + d, qr + d);
+    for (int d = 0; d < DH; d += 8) load8(q + base + (size_t)qi * row_stride + d, qr + d);
   }
   float m = -INFINITY;
   float l = 0.f;
@@ -96,8 +108,8 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = i / (DH / 8), d = (i % (DH / 8)) * 8;
       float kb[8], vb[8];
       if (t0 + j < L) {
-        load8(k + base + (size_t)(t0 + j) * DH + d, kb);
-        load8(v + base + (size_t)(t0 + j) * DH + d, vb);
+        load8(k + base + (size_t)(t0 + j) * row_stride + d, kb);
+        load8(v + base + (size_t)(t0 + j) * row_stride + d, vb);
       } else {
 #pragma unroll
         for (int x = 0; x < 8; ++x) { kb[x] = 0.f; vb[x] = 0.f; }
@@ -153,37 +165,53 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DH; ++d) acc[d] = acc[d] / denom;
 #pragma unroll
-    for (int d = 0; d < DH; d += 8) store8(out + base + (size_t)qi * DH + d, acc + d);
+    for (int d = 0; d < DH; d += 8) store8(out + base + (size_t)qi * row_stride + d, acc + d);
   }
 }
 
-template <typename T>
+template <typename T, bool kBLHD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
                    void* out, int B, int H, int L, float scale,
                    cudaStream_t stream) {
   const dim3 grid(B * H, (L + QT - 1) / QT);
-  segment_attention_kernel<T><<<grid, QT, 0, stream>>>(
+  segment_attention_kernel<T, kBLHD><<<grid, QT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), seg, static_cast<T*>(out), H, L, scale);
   return cudaGetLastError();
 }
 
+template <bool kBLHD>
+int dispatch(const void* q, const void* k, const void* v, const void* seg,
+             void* out, int B, int H, int L, int Dh, float sm_scale,
+             int is_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || Dh != DH) return (int)cudaErrorInvalidValue;
+  const int* sp = static_cast<const int*>(seg);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch<__nv_bfloat16, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, s)
+              : launch<float, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, s);
+  return (int)err;
+}
+
 }  // namespace
 
-// q, k, v, out: [B, H, L, Dh] contiguous, 16-byte aligned, bf16 (is_bf16=1)
-// or fp32; seg: [B, L] int32. Dh must be 64.
+// K2. q, k, v, out: [B, H, L, Dh] contiguous, 16-byte aligned, bf16
+// (is_bf16=1) or fp32; seg: [B, L] int32. Dh must be 64.
 extern "C" int medtok_segment_attention(const void* q, const void* k,
                                         const void* v, const void* seg,
                                         void* out, int B, int H, int L, int Dh,
                                         float sm_scale, int is_bf16,
                                         void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || Dh != DH) return (int)cudaErrorInvalidValue;
-  const int* sp = static_cast<const int*>(seg);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, sp, out, B, H, L, sm_scale, s)
-              : launch<float>(q, k, v, sp, out, B, H, L, sm_scale, s);
-  return (int)err;
+  return dispatch<false>(q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream);
+}
+
+// K4. As K2 with q, k, v, out in [B, L, H, Dh].
+extern "C" int medtok_segment_attention_nt(const void* q, const void* k,
+                                           const void* v, const void* seg,
+                                           void* out, int B, int H, int L,
+                                           int Dh, float sm_scale, int is_bf16,
+                                           void* stream) {
+  return dispatch<true>(q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream);
 }
 
 extern "C" const char* medtok_error_string(int code) {

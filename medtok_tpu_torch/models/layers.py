@@ -14,7 +14,9 @@ import math
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
+from medtok_tpu_torch.ops.adj_count import adj_count_reference
 from medtok_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e9
@@ -170,28 +172,32 @@ def gcn_propagate(x, edge_src, edge_dst, edge_weight):
     return out.index_put_((edge_dst,), coef * x[edge_src], accumulate=True)
 
 
+def gcn_normalize(count: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A = (dinv_i * dinv_j) * Count + diag(dinv^2) with deg = 1 +
+    Count.sum(j), from an fp32 [B, Ln, Ln] Count, which it overwrites."""
+    deg = 1.0 + count.sum(dim=2)
+    dinv = torch.rsqrt(deg)
+    adj = count.mul_(dinv[:, :, None] * dinv[:, None, :])
+    adj.diagonal(dim1=1, dim2=2).add_(dinv * dinv)
+    return adj.to(dtype)
+
+
 def gcn_norm_adj(edge_src, edge_dst, edge_weight, batch: int, num_nodes: int,
                  dtype=torch.float32):
     """Dense normalized adjacency [B, Ln, Ln]: A[b, i, j] is the coefficient
     of node j's message into node i (gcn_propagate's math, built once and
     shared by both conv layers).
 
-    A = (dinv_i * dinv_j) * Count + diag(dinv^2), with Count[b, i, j] the
-    summed weight of edges j -> i and deg = 1 + Count.sum(j). Edge indices
-    are within-graph, chunked per graph."""
-    E = edge_src.shape[0]
-    if E % batch:
-        raise ValueError("edge array must be per-graph chunked")
-    dev = edge_src.device
-    b = torch.arange(batch, device=dev).repeat_interleave(E // batch)
-    count = torch.zeros((batch, num_nodes, num_nodes), dtype=torch.float32, device=dev)
-    count.index_put_((b, edge_dst.long(), edge_src.long()), edge_weight.float(),
-                     accumulate=True)
-    deg = 1.0 + count.sum(dim=2)
-    dinv = torch.rsqrt(deg)
-    adj = count.mul_(dinv[:, :, None] * dinv[:, None, :])
-    adj.diagonal(dim1=1, dim2=2).add_(dinv * dinv)
-    return adj.to(dtype)
+    A = gcn_normalize(Count), with Count[b, i, j] the summed bf16-rounded
+    weight of edges j -> i (the JAX package rounds the weights to bf16 in
+    its one-hot Count). Edge indices are within-graph, chunked per graph.
+    Count is built by ``index_put_`` (``ops/adj_count.py::
+    adj_count_reference``); the hand kernels K5 and K5-lane compute the same
+    Count and are timed against it by ``scripts/bench_adj.py``. The
+    ``gcn_norm_adj`` range names the build in a torch.profiler trace."""
+    with record_function("gcn_norm_adj"):
+        count = adj_count_reference(edge_src, edge_dst, edge_weight, batch, num_nodes)
+        return gcn_normalize(count, dtype)
 
 
 class GCNConv(nn.Module):

@@ -62,10 +62,16 @@ class MultimodalTokenizer(nn.Module):
             weights=torch.stack([q[p].weights for p in PATH_ORDER], dim=1),
         )
 
-    def encode_text_packed(self, packed_ids, segments, pos_ids):
-        """BERT over packed [R, P] rows with segment ids and within-segment
-        positions -> flat [R*P, hidden] states."""
-        hidden = self.text_model(packed_ids, None, position_ids=pos_ids,
+    def encode_text_packed(self, packed_ids, mask_or_segments, pos_ids):
+        """BERT over packed [R, P] rows with within-segment positions ->
+        flat [R*P, hidden] states. ``mask_or_segments``: [R, P] segment ids
+        (0 = padding), which take kernel K2 when ``cfg.text.packed_flash`` is
+        set, or an [R, P, P] bool pairwise mask for dense attention."""
+        if mask_or_segments.dim() == 2:
+            mask, segments = None, mask_or_segments.to(torch.int32)
+        else:
+            mask, segments = mask_or_segments.bool(), None
+        hidden = self.text_model(packed_ids, mask, position_ids=pos_ids,
                                  segments=segments)
         return hidden.reshape(-1, hidden.shape[-1])
 

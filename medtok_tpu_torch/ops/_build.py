@@ -47,6 +47,12 @@ _SIGNATURES = {
     # q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream
     "medtok_segment_attention": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
+    # as medtok_segment_attention, q/k/v/out in [B, L, H, Dh]
+    "medtok_segment_attention_nt": (
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
+    # src, dst, w, out, B, Ln, Epg, stream
+    "medtok_adj_count": ([_P, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+    "medtok_adj_count_onehot": ([_P, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
     # q, k, v, mask, out, lse, *K3_TAIL
     "medtok_flash_fwd": ([_P] * 6 + _K3_TAIL, ctypes.c_int),
     # q, k, v, mask, lse, delta, dO, dq, *K3_TAIL

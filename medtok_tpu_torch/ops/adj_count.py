@@ -1,0 +1,124 @@
+"""Kernels K5 and K5-lane: the Count step of the dense normalized GCN
+adjacency (replace the Pallas kernels ``pallas_count`` and ``pallas_lane``
+of ``scripts/bench_adj.py``).
+
+    Count[b, i, j] = sum_e bf16(w[b, e]) * 1[dst[b, e] = i] * 1[src[b, e] = j]
+
+``edge_src`` / ``edge_dst`` are int32 [B*Epg] within-graph node indices in
+[0, Ln), chunked per graph; ``edge_weight`` is fp32 [B*Epg] (padding edges
+carry 0). The result is fp32 [B, Ln, Ln]. Each weight is rounded to bf16
+first, as the JAX package's one-hot Count does
+(``medtok_tpu/models/layers.py::gcn_norm_adj``).
+
+- ``adj_count`` (K5) launches the CUDA-core kernel of ``csrc/adj_count.cu``:
+  one thread per destination row adds its edges' weights in edge order.
+- ``adj_count_onehot`` (K5-lane) launches the tensor-core kernel: bf16
+  one-hot tiles built in shared memory, multiplied with WMMA into fp32.
+
+Both are exact for binary weights and give identical bits on every launch
+for any weights (no atomics). On CPU tensors both run the plain version
+``adj_count_reference``, the ``index_put_(accumulate=True)`` Count that
+``models/layers.py::gcn_norm_adj`` builds. Bound: the function moves the
+edges in and Count out and does one add per edge, so bytes bound both
+kernels. K5-lane's own method costs more: 2*Ln*Ln*E one-hot MACs, a floor of
+its design at the bf16 tensor-core peak, not a bound of the function (the
+source note has the numbers at the Ln=512 tail shape).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from medtok_tpu_torch.ops import _build
+
+
+def adj_count_reference(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                        edge_weight: torch.Tensor, batch: int,
+                        num_nodes: int) -> torch.Tensor:
+    """Plain version: the bf16-rounded weights scattered into a zero
+    [B, Ln, Ln] fp32 Count by ``index_put_(accumulate=True)``, which is
+    deterministic on CUDA (a sorted reduction, one fp32 sum per cell)."""
+    E = edge_src.shape[0]
+    if E % batch:
+        raise ValueError("edge array must be per-graph chunked")
+    dev = edge_src.device
+    b = torch.arange(batch, device=dev).repeat_interleave(E // batch)
+    count = torch.zeros((batch, num_nodes, num_nodes), dtype=torch.float32, device=dev)
+    w = edge_weight.to(torch.bfloat16).float()
+    return count.index_put_((b, edge_dst.long(), edge_src.long()), w, accumulate=True)
+
+
+def _count_launch(entry: str, edge_src, edge_dst, edge_weight, out,
+                  batch: int, num_nodes: int) -> None:
+    """Build the library if needed and launch ``entry`` on the edges'
+    device and current stream; raises on a missing nvcc or a refused
+    launch."""
+    lib = _build.load_library()
+    dev = edge_src.device
+    with torch.cuda.device(dev):
+        code = getattr(lib, entry)(
+            edge_src.data_ptr(), edge_dst.data_ptr(), edge_weight.data_ptr(),
+            out.data_ptr(), batch, num_nodes, edge_src.shape[0] // batch,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, entry)
+
+
+def _count_out(edge_src, edge_dst, edge_weight, batch: int,
+               num_nodes: int) -> torch.Tensor:
+    """Raise on anything K5 / K5-lane does not take; returns the empty
+    fp32 [B, Ln, Ln] Count for the kernel to fill."""
+    dev = edge_src.device
+    if dev.type != "cuda" or any(t.device != dev for t in (edge_dst, edge_weight)):
+        raise ValueError("edge_src, edge_dst and edge_weight must be on one "
+                         "CUDA device (or all on the CPU)")
+    E = edge_src.shape[0]
+    for name, t, dtype in (("edge_src", edge_src, torch.int32),
+                           ("edge_dst", edge_dst, torch.int32),
+                           ("edge_weight", edge_weight, torch.float32)):
+        if t.dtype != dtype or t.shape != (E,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [E] {dtype} tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if batch <= 0 or E == 0 or E % batch:
+        raise ValueError(f"{E} edges are not chunked into {batch} graphs")
+    if not 0 < num_nodes <= 32640:
+        raise ValueError(f"num_nodes {num_nodes} must be in [1, 32640]")
+    return torch.empty((batch, num_nodes, num_nodes), dtype=torch.float32, device=dev)
+
+
+def _count(entry: str, edge_src, edge_dst, edge_weight, batch: int,
+           num_nodes: int) -> tuple[torch.Tensor, bool]:
+    """The Count by the plain version on CPU tensors, else by the kernel
+    ``entry`` (raising on anything it does not take); the flag says whether
+    the kernel was launched."""
+    if all(t.device.type == "cpu" for t in (edge_src, edge_dst, edge_weight)):
+        return adj_count_reference(edge_src, edge_dst, edge_weight, batch, num_nodes), False
+    out = _count_out(edge_src, edge_dst, edge_weight, batch, num_nodes)
+    _count_launch(entry, edge_src, edge_dst, edge_weight, out, batch, num_nodes)
+    return out, True
+
+
+def adj_count(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+              edge_weight: torch.Tensor, batch: int, num_nodes: int) -> torch.Tensor:
+    """Count (K5, CUDA cores), fp32 [B, Ln, Ln]. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    out, launched = _count("medtok_adj_count", edge_src, edge_dst, edge_weight,
+                           batch, num_nodes)
+    adj_count.launches += launched
+    return out
+
+
+def adj_count_onehot(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                     edge_weight: torch.Tensor, batch: int,
+                     num_nodes: int) -> torch.Tensor:
+    """Count (K5-lane, bf16 one-hot products on the tensor cores), fp32
+    [B, Ln, Ln]. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    out, launched = _count("medtok_adj_count_onehot", edge_src, edge_dst,
+                           edge_weight, batch, num_nodes)
+    adj_count_onehot.launches += launched
+    return out
+
+
+#: launches of the CUDA kernels (CPU calls of the plain version do not count)
+adj_count.launches = 0
+adj_count_onehot.launches = 0

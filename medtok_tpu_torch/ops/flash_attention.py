@@ -1,4 +1,4 @@
-"""Attention kernels K2 and K3 and their plain versions.
+"""Attention kernels K2, K4 and K3 and their plain versions.
 
 **K2**, block-diagonal packed-segment attention (replaces the Pallas kernel
 ``medtok_tpu/ops/flash_attention.py::packed_segment_attention``). q, k, v
@@ -10,6 +10,12 @@ frozen text encoder. On CUDA tensors ``packed_segment_attention`` launches
 Bound: at the packed BERT shape [256, 12, 128, 64] in bf16 the layer moves
 4 x 50.3 MB (about 60 us at 3.35 TB/s) for at most 12.9 GFLOP, so it is
 memory-bound; the kernel's source note gives its design.
+
+**K4**, ``packed_segment_attention_nt`` (replaces the Pallas kernel
+``packed_segment_attention_nt``): K2 with q, k, v and the output in the
+projection layout [B, L, H, Dh], a free view of the [B, L, H*Dh] linear
+output, so no head transposes are needed on either side. It is K2's CUDA
+kernel in its [B, L, H, Dh] stride mode: same semantics, same bytes.
 
 **K3**, flash attention with a key-padding mask and hashed
 attention-probability dropout, forward plus the dq and dk/dv backward
@@ -72,29 +78,36 @@ def packed_segment_attention_reference(
     return out.to(q.dtype)
 
 
-def packed_segment_attention(
+def packed_segment_attention_nt_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg_ids: torch.Tensor,
     *, sm_scale: float | None = None,
 ) -> torch.Tensor:
-    """Block-diagonal attention, [B, H, L, Dh] in and out.
+    """Plain version of K4: K2's dense fp32 masked softmax on the
+    [B, H, L, Dh] views of [B, L, H, Dh] inputs, returned contiguous in
+    [B, L, H, Dh]. Rows that are all padding return 0."""
+    out = packed_segment_attention_reference(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), seg_ids,
+        sm_scale=sm_scale)
+    return out.transpose(1, 2).contiguous()
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+
+def _segment_check(q, k, v, seg_ids, heads_dim: int) -> int:
+    """Raise on anything K2 / K4 does not take; returns the head count,
+    read from dimension ``heads_dim`` of q (1 for K2's [B, H, L, Dh], 2
+    for K4's [B, L, H, Dh])."""
     tensors = (q, k, v, seg_ids)
-    if all(t.device.type == "cpu" for t in tensors):
-        return packed_segment_attention_reference(q, k, v, seg_ids,
-                                                  sm_scale=sm_scale)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError("q, k, v and seg_ids must be on one CUDA device "
                          "(or all on the CPU)")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one [B, H, L, Dh] shape, got "
+        raise ValueError(f"q, k, v must share one 4-D shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be bfloat16 or all float32, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    B, H, L, Dh = q.shape
+    B, Dh = q.shape[0], q.shape[3]
+    L = q.shape[3 - heads_dim]
     if Dh != 64:
         raise ValueError(f"the kernel takes head width 64, got {Dh}")
     if seg_ids.shape != (B, L) or seg_ids.dtype != torch.int32:
@@ -103,27 +116,70 @@ def packed_segment_attention(
     for name, t in (("q", q), ("k", k), ("v", v), ("seg_ids", seg_ids)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return q.shape[heads_dim]
+
+
+def _segment_launch(entry: str, q, k, v, seg_ids, out, heads: int,
+                    sm_scale: float | None) -> None:
+    """Build the library if needed and launch K2 or K4 (``entry``) on q's
+    device and current stream; raises on a missing nvcc or a refused
+    launch."""
+    lib = _build.load_library()
+    B, L, Dh = q.shape[0], seg_ids.shape[1], q.shape[3]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(Dh)
-
-    lib = _build.load_library()
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.medtok_segment_attention(
+        code = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
-            out.data_ptr(), B, H, L, Dh, float(sm_scale),
-            int(q.dtype == torch.bfloat16), stream,
-        )
-    _build.check(code, "segment_attention")
-    packed_segment_attention.launches += 1
+            out.data_ptr(), B, heads, L, Dh, float(sm_scale),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, entry)
+
+
+def packed_segment_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg_ids: torch.Tensor,
+    *, sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Block-diagonal attention (K2), [B, H, L, Dh] in and out.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v, seg_ids)):
+        return packed_segment_attention_reference(q, k, v, seg_ids,
+                                                  sm_scale=sm_scale)
+    heads = _segment_check(q, k, v, seg_ids, heads_dim=1)
+    out = torch.empty_like(q)
+    if out.numel():
+        _segment_launch("medtok_segment_attention", q, k, v, seg_ids, out,
+                        heads, sm_scale)
+        packed_segment_attention.launches += 1
     return out
 
 
-#: launches of the CUDA kernel (CPU calls of the plain version do not count)
+def packed_segment_attention_nt(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg_ids: torch.Tensor,
+    *, sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Block-diagonal attention (K4), [B, L, H, Dh] in and out.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v, seg_ids)):
+        return packed_segment_attention_nt_reference(q, k, v, seg_ids,
+                                                     sm_scale=sm_scale)
+    heads = _segment_check(q, k, v, seg_ids, heads_dim=2)
+    out = torch.empty_like(q)
+    if out.numel():
+        _segment_launch("medtok_segment_attention_nt", q, k, v, seg_ids, out,
+                        heads, sm_scale)
+        packed_segment_attention_nt.launches += 1
+    return out
+
+
+#: launches of the CUDA kernels (CPU calls of the plain versions do not count)
 packed_segment_attention.launches = 0
+packed_segment_attention_nt.launches = 0
 
 
 # --------------------------------------------------------------------- K3 --

@@ -66,6 +66,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EHRTrainer(EHRTrainConfig(), np.zeros((4, 256), np.float32), 2)
 
+    # the A/B scripts run on the card unless given --device
+    from medtok_tpu_torch.scripts import bench_adj, profile_bert
+
+    for script in (bench_adj, profile_bert):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main([])
+
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -84,13 +91,28 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     for entry in ("medtok_flash_fwd", "medtok_flash_dq", "medtok_flash_dkv"):
         with pytest.raises(RuntimeError, match="nvcc was not found"):
             fa._k3_launch(entry, None, None, (), 0.25, 0.0, 0)
+    # so do the launch paths of K2 / K4 and of K5 / K5-lane
+    from medtok_tpu_torch.ops import adj_count as ac
+
+    for entry in ("medtok_segment_attention", "medtok_segment_attention_nt"):
+        with pytest.raises(RuntimeError, match="nvcc was not found"):
+            fa._segment_launch(entry, None, None, None, None, None, 12, None)
+    for entry in ("medtok_adj_count", "medtok_adj_count_onehot"):
+        with pytest.raises(RuntimeError, match="nvcc was not found"):
+            ac._count_launch(entry, None, None, None, None, 4, 16)
     assert not (tmp_path / "build").exists()
 
 
 def test_kernel_sources_are_packaged():
     names = {p.name for p in _build._sources()}
-    assert {"topk_l2.cu", "segment_attention.cu", "flash_attention.cu"} <= names
-    assert {"medtok_flash_fwd", "medtok_flash_dq", "medtok_flash_dkv"} <= set(_build._SIGNATURES)
+    assert {"topk_l2.cu", "segment_attention.cu", "flash_attention.cu",
+            "adj_count.cu"} <= names
+    assert {"medtok_flash_fwd", "medtok_flash_dq", "medtok_flash_dkv",
+            "medtok_segment_attention_nt", "medtok_adj_count",
+            "medtok_adj_count_onehot"} <= set(_build._SIGNATURES)
+    # every registered entry point is defined in a packaged source
+    sources = "".join(p.read_text() for p in _build._sources())
+    assert all(f" {name}(" in sources for name in _build._SIGNATURES)
     assert _build._library_path().parent == _build.BUILD_DIR
     assert "medtok_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
     assert Path(medtok_tpu_torch.__file__).parent / "csrc" == _build.SRC_DIR
