@@ -9,7 +9,13 @@ Phases, each fatal on failure:
   3. hold kernel K1 (top-k codebook sweep) against its plain version at the
      export shapes (4096 x 21000 and the 7000-row region), with a tie case;
   4. hold kernel K2 (packed segment attention) against its plain version at
-     [256, 12, 128, 64] in fp32 and bf16 on a real packing layout;
+     [256, 12, 128, 64] in fp32 and bf16 (bf16 against the fp32 plain
+     version and, element by element, against the bf16 one that rounds the
+     probabilities where the kernel does) on two real packings of the first
+     export group, the whole group (the layout the export launches K2 on)
+     and 80% of it (last rows empty), and at L = 100 and 200 on
+     interleaved, single-token and padded segments; time it on both
+     packings beside scaled_dot_product_attention and its bound;
   5. run the packed full-vocabulary export at the full ModelConfig() width
      (bert-base, 130K-node GCN, 21000 x 64 codebook, bf16) over a synthetic
      heavy-tail vocabulary, counting kernel launches, and hold a small fp32
@@ -31,9 +37,9 @@ Phases, each fatal on failure:
      "highest", bf16 under "default") against the plain versions on the
      CPU on a small batch;
  10. hold kernel K4 (packed segment attention in the [B, L, H, Dh] layout)
-     against its plain version and against K2 on the transposed inputs at
-     [256, 128, 12, 64] on phase 4's packing layout, and time it beside K2
-     with and without the head transposes;
+     against its plain version and against K2 on the transposed inputs (bit
+     for bit) at [256, 128, 12, 64] on phase 4's packings and edge cases,
+     time it as K2, and beside K2 with and without the head transposes;
  11. hold kernels K5 and K5-lane (the dense-adjacency Count) against their
      plain version and a numpy histogram at B=512, Ln=512, Epg=8192 with
      the bench script's edges (bit for bit on binary weights; within 1e-6
@@ -47,7 +53,7 @@ Phases, each fatal on failure:
      call) and the Count A/B (medtok_tpu_torch.scripts.bench_adj, every
      variant within 1e-6 of the histogram).
 Phase 5's profile also reports the device time of the Count build
-(gcn_norm_adj) in the export's tail node buckets.
+(gcn_norm_adj) in the export's tail node buckets and of K2.
 It then prints the card, one JSON line of kernel measurements and, last,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result. fp32 matmuls and
@@ -71,6 +77,7 @@ from pathlib import Path
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+BF16_ULP = 2.0 ** -7    # bf16 keeps 8 significant bits
 
 K = 5
 D = 64
@@ -80,6 +87,9 @@ K3_SLICE = 8            # batch rows per slice of K3's plain version
 # (B, Ln, Epg) of the Count checks: the bench's Ln=512 tail shape, an export
 # bucket, and a dense shape whose cells sum many fractional weights
 K5_SHAPES = ((512, 512, 8192), (512, 128, 1024), (64, 16, 8192))
+# L of the K2 / K4 edge-segment checks: no multiple of the kernels' tiles,
+# one key block and two
+SEGMENT_EDGE_LENGTHS = (100, 200)
 
 
 def log(msg: str) -> None:
@@ -187,11 +197,12 @@ def check_k1(gen, dev) -> dict:
                 library_ms=library_ms)
 
 
-# --------------------------------------------------------------------- K2 --
+# --------------------------------------------------------------- K2 / K4 --
 
-def packed_segments(dataset, dev):
-    """[R, P] int32 segment ids of a real greedy packing of 80% of the
-    first export group, whose last rows stay empty."""
+def packed_segments(dataset, dev, share: float):
+    """[R, P] int32 segment ids of a greedy packing of the first `share` of
+    the first export group: at 1.0 the layout the export's first BERT step
+    launches K2 on; at 0.8 the last rows stay empty."""
     import numpy as np
     import torch
 
@@ -199,137 +210,182 @@ def packed_segments(dataset, dev):
 
     row_len, num_rows, _ = packed_layout(dataset)
     group = export_groups(dataset)[0]
-    _, base, lens = dataset.pack_text_rows(group[: int(0.8 * len(group))],
+    _, base, lens = dataset.pack_text_rows(group[: int(share * len(group))],
                                            row_len=row_len, num_rows=num_rows)
     seg_np = np.zeros(num_rows * row_len, np.int32)
     for c, (b, n) in enumerate(zip(base.tolist(), lens.tolist())):
         seg_np[b:b + n] = c + 1
-    seg = torch.from_numpy(seg_np.reshape(num_rows, row_len)).to(dev)
-    check(bool((seg == 0).all(dim=1).any()), "the packing layout has no all-padding row")
-    return seg
+    return torch.from_numpy(seg_np.reshape(num_rows, row_len)).to(dev)
 
 
 def segment_bound(seg, H: int, Dh: int) -> tuple[float, float, float]:
-    """(bound ms, in-segment FLOP, bytes) of one bf16 K2 / K4 layer: q, k,
-    v read and out written once, QK^T and PV over each segment's pairs."""
-    import torch
-
+    """(bound ms, in-segment FLOP, bytes) of one bf16 K2 / K4 layer: q, k
+    and v read once at the positions that hold a token (a padding query
+    returns 0 and a padding key meets no query, so neither needs its
+    inputs), the output and the segment ids once, and QK^T and PV over the
+    (query, key) pairs of one segment."""
     R, P = seg.shape
-    seg_sizes = torch.bincount(seg.flatten())[1:].double()
-    ops = 4.0 * H * Dh * float((seg_sizes ** 2).sum())
-    nbytes = 4.0 * R * H * P * Dh * 2 + R * P * 4
+    pairs = float(((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0)).sum())
+    ops = 4.0 * H * Dh * pairs
+    nbytes = 3.0 * H * Dh * 2 * float((seg > 0).sum()) + R * H * P * Dh * 2 + R * P * 4
     return max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3, ops, nbytes
 
 
-def check_k2(gen, dev, seg) -> dict:
+def check_bf16_agreement(name: str, out, q, k, v, seg, plain) -> dict:
+    """Hold a bf16 K2 / K4 output to the plain version on the same bf16
+    inputs; both walk blocks of 128 keys and round the probabilities to
+    bf16 before P.V against the running maximum. An element may differ by
+    one bf16 ulp of the plain value plus one ulp of each P.V term,
+    2^-7 * (|want| + sum_j p_j |v_j| / l) + 1e-6: the two sides sum the fp32
+    scores in another order, so a probability's rounding can flip. Under 1%
+    of the elements may differ at all (29.6% did before the kernels and
+    plain versions rounded p). Returns the share that differs and how many
+    differ by more than one ulp of the plain value alone."""
+    want = plain(q, k, v, seg).float()
+    terms = plain(q.float(), k.float(), v.float().abs(), seg)
+    diff = (out.float() - want).abs()
+    beyond_tol = int((diff > BF16_ULP * (want.abs() + terms) + 1e-6).sum())
+    check(beyond_tol == 0, f"{name}: {beyond_tol} elements beyond one bf16 ulp of their terms")
+    share = float((diff > 0).float().mean())
+    check(share < 0.01, f"{name}: {100 * share:.3f}% of the elements differ from the bf16 "
+          f"plain version")
+    return dict(share=share, beyond_ulp=int((diff > BF16_ULP * want.abs() + 1e-6).sum()))
+
+
+def edge_segments(dev, L: int):
+    """[5, L] int32 segment ids that a packing never makes, for the tile
+    skip and the tails: five segments interleaved (seg = i % 5 + 1),
+    single-token segments, runs of 9 ending in 7 positions of padding, a
+    row of padding, and interleaved segments broken by padding."""
     import torch
-    import torch.nn.functional as F
 
-    from medtok_tpu_torch.ops.flash_attention import (
-        packed_segment_attention,
-        packed_segment_attention_reference,
-    )
-
-    pad = seg == 0
-    num_rows, row_len = seg.shape
-    R, H, P, Dh = num_rows, 12, row_len, 64
-    q32, k32, v32 = (torch.randn(R, H, P, Dh, generator=gen, device=dev) for _ in range(3))
-
-    out = packed_segment_attention(q32, k32, v32, seg)
-    ref = packed_segment_attention_reference(q32, k32, v32, seg)
-    err32 = float((out - ref).abs().max())
-    check(err32 <= 1e-5, f"K2 fp32: max error {err32} > 1e-5")
-    check(bool((out.transpose(1, 2)[pad] == 0).all()), "K2 fp32: padding rows not 0")
-
-    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
-    out = packed_segment_attention(q, k, v, seg)
-    ref = packed_segment_attention_reference(q.float(), k.float(), v.float(), seg)
-    err16 = float((out.float() - ref).abs().max())
-    check(out.dtype == torch.bfloat16, "K2 bf16: output dtype")
-    check(err16 <= 2e-2, f"K2 bf16: max error {err16} > 2e-2")
-    check(bool((out.transpose(1, 2)[pad] == 0).all()), "K2 bf16: padding rows not 0")
-    log(f"K2 [{R},{H},{P},{Dh}]: fp32 max err {err32:.3e}, bf16 max err "
-        f"{err16:.3e} vs fp32 plain, {int(pad.all(dim=1).sum())} all-padding rows")
-
-    mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0))[:, None]
-    kernel_ms = cuda_ms(lambda: packed_segment_attention(q, k, v, seg), 20)
-    plain_ms = cuda_ms(lambda: packed_segment_attention_reference(q, k, v, seg), 5)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20)
-    bound_ms, ops, nbytes = segment_bound(seg, H, Dh)
-    log(f"K2 bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"sdpa+mask {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP in-segment)")
-    return dict(name="segment_attention", route="cuda",
-                source="medtok_tpu_torch/csrc/segment_attention.cu",
-                replaces="medtok_tpu/ops/flash_attention.py:740",
-                max_abs_err=err16, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms,
-                bound_by="operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
-                library_ms=library_ms)
+    i = torch.arange(L)
+    zero = torch.zeros_like(i)
+    rows = (i % 5 + 1, i + 1, torch.where(i < L - 7, i // 9 + 1, zero), zero,
+            torch.where(i % 3 == 0, zero, i % 7 + 1))
+    return torch.stack(rows).to(device=dev, dtype=torch.int32)
 
 
-# --------------------------------------------------------------------- K4 --
+def segment_fns(nt: bool):
+    """(name, wrapper, plain version) of K4 (nt) or K2."""
+    from medtok_tpu_torch.ops import flash_attention as fa
 
-def check_k4(gen, dev, seg) -> dict:
-    """K4 against its plain version and against K2 on the transposed
-    inputs, at [256, 128, 12, 64] on the packing layout of phase 4."""
+    if nt:
+        return "K4", fa.packed_segment_attention_nt, fa.packed_segment_attention_nt_reference
+    return "K2", fa.packed_segment_attention, fa.packed_segment_attention_reference
+
+
+def heads_first(*ts):
+    """[B, L, H, Dh] tensors copied to [B, H, L, Dh]."""
+    return [t.transpose(1, 2).contiguous() for t in ts]
+
+
+def check_segment_case(gen, dev, seg, nt: bool, label: str, H: int = 12) -> dict:
+    """K2 (nt False, [B, H, L, Dh]) or K4 (nt True, [B, L, H, Dh]) on one
+    segment layout, from the same random inputs in fp32 and rounded to
+    bf16: fp32 within 1e-5 and bf16 within 2e-2 of the fp32 plain version,
+    bf16 held to the bf16 plain version by check_bf16_agreement, padding
+    rows 0; K4 also bit for bit equal to K2 on the transposed inputs. Logs
+    a line; returns the bf16 inputs and the largest errors."""
     import torch
-    import torch.nn.functional as F
 
-    from medtok_tpu_torch.ops.flash_attention import (
-        packed_segment_attention,
-        packed_segment_attention_nt,
-        packed_segment_attention_nt_reference,
-    )
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
 
+    kernel, fn, plain = segment_fns(nt)
+    name = f"{kernel} {label}"
+    B, L = seg.shape
     pad = seg == 0
-    R, P = seg.shape
-    H, Dh = 12, 64
-
-    def heads_first(*ts):
-        return [t.transpose(1, 2).contiguous() for t in ts]
-
-    errs, k2_diff = {}, {}
+    shape = (B, L, H, D) if nt else (B, H, L, D)
+    q32, k32, v32 = (torch.randn(*shape, generator=gen, device=dev) for _ in range(3))
+    errs = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        q, k, v = (torch.randn(R, P, H, Dh, generator=gen, device=dev).to(dtype)
-                   for _ in range(3))
-        out = packed_segment_attention_nt(q, k, v, seg)
-        ref = packed_segment_attention_nt_reference(q.float(), k.float(), v.float(), seg)
-        name = str(dtype).split(".")[-1]
-        errs[name] = float((out.float() - ref).abs().max())
-        check(out.dtype == dtype and out.shape == q.shape, f"K4 {name}: output {out.dtype} "
-              f"{tuple(out.shape)}")
-        check(errs[name] <= tol, f"K4 {name}: max error {errs[name]} > {tol}")
-        check(bool((out[pad] == 0).all()), f"K4 {name}: padding rows not 0")
-        k2 = packed_segment_attention(*heads_first(q, k, v), seg).transpose(1, 2)
-        k2_diff[name] = float((out.float() - k2.float()).abs().max())
-    log(f"K4 [{R},{P},{H},{Dh}]: fp32 max err {errs['float32']:.3e}, bf16 max err "
-        f"{errs['bfloat16']:.3e} vs fp32 plain; padding rows 0; vs K2 on the transposed "
-        f"inputs: " + ("identical" if not any(k2_diff.values()) else
-                       f"max difference fp32 {k2_diff['float32']:.3e}, "
-                       f"bf16 {k2_diff['bfloat16']:.3e}"))
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        out = fn(q, k, v, seg)
+        tag = str(dtype).split(".")[-1]
+        errs[tag] = float((out.float() - plain(q.float(), k.float(), v.float(), seg))
+                          .abs().max())
+        check(out.dtype == dtype and out.shape == q.shape,
+              f"{name} {tag}: output {out.dtype} {tuple(out.shape)}")
+        check(errs[tag] <= tol, f"{name} {tag}: max error {errs[tag]} > {tol}")
+        check(bool(((out if nt else out.transpose(1, 2))[pad] == 0).all()),
+              f"{name} {tag}: padding rows not 0")
+        if nt:
+            k2 = packed_segment_attention(*heads_first(q, k, v), seg).transpose(1, 2)
+            check(torch.equal(out, k2), f"{name} {tag}: K4 differs from K2 on the "
+                  f"transposed inputs")
+    agree = check_bf16_agreement(f"{name} bf16", out, q, k, v, seg, plain)
+    log(f"{name} {list(shape)}: fp32 max err {errs['float32']:.3e}, bf16 max err "
+        f"{errs['bfloat16']:.3e} vs fp32 plain; bf16 vs bf16 plain: "
+        f"{100 * agree['share']:.4f}% differ, {agree['beyond_ulp']} beyond one ulp of the "
+        f"value, 0 beyond the tolerance; padding rows 0 ({int(pad.all(dim=1).sum())} "
+        f"all-padding rows)" + ("; bit for bit equal to K2 on the transposed inputs"
+                                if nt else ""))
+    return dict(q=q, k=k, v=v, err16=errs["bfloat16"])
+
+
+def segment_times(nt: bool, q, k, v, seg) -> dict:
+    """ms of K2 (nt False) or K4 on bf16 inputs in its layout, of its plain
+    version and of scaled_dot_product_attention with the boolean pair mask
+    on the [B, H, L, Dh] views, and this layout's bound."""
+    import torch.nn.functional as F
+
+    _, fn, plain = segment_fns(nt)
+
+    def heads(t):
+        return t.transpose(1, 2) if nt else t
 
     mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0))[:, None]
-    qt, kt, vt = heads_first(q, k, v)
-    kernel_ms = cuda_ms(lambda: packed_segment_attention_nt(q, k, v, seg), 20)
-    plain_ms = cuda_ms(lambda: packed_segment_attention_nt_reference(q, k, v, seg), 5)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask), 20)
-    k2_ms = cuda_ms(lambda: packed_segment_attention(qt, kt, vt, seg), 20)
-    k2_transposed_ms = cuda_ms(lambda: packed_segment_attention(
-        *heads_first(q, k, v), seg).transpose(1, 2).contiguous(), 20)
-    bound_ms, ops, nbytes = segment_bound(seg, H, Dh)
-    log(f"K4 bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa+mask "
-        f"on the transposed views {library_ms:.4f} ms, bound {bound_ms:.4f} ms; K2 on "
-        f"[B, H, L, Dh] {k2_ms:.4f} ms, K2 with the three input and one output "
-        f"transposes {k2_transposed_ms:.4f} ms")
-    return dict(name="segment_attention_nt", route="cuda",
+    bound_ms, ops, nbytes = segment_bound(seg, q.shape[2 if nt else 1], q.shape[3])
+    return dict(ms=cuda_ms(lambda: fn(q, k, v, seg), 20),
+                plain_ms=cuda_ms(lambda: plain(q, k, v, seg), 5),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v), attn_mask=mask), 20),
+                bound_ms=bound_ms, ops=ops, nbytes=nbytes,
+                bound_by="operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes")
+
+
+def check_segment_kernel(gen, dev, nt: bool, layouts: dict) -> dict:
+    """K2 (phase 4) or K4 (phase 10): checked by check_segment_case on each
+    packing of `layouts` (label -> [R, P] seg ids, the export's first) and
+    on edge_segments at each SEGMENT_EDGE_LENGTHS, then timed on each
+    packing; K4 also beside K2 with and without the head transposes. The
+    kernels line gets the times on the export's packing."""
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+
+    kernel = segment_fns(nt)[0]
+    cases = {label: check_segment_case(gen, dev, seg, nt, label)
+             for label, seg in layouts.items()}
+    err16 = max(c["err16"] for c in cases.values())
+    for L in SEGMENT_EDGE_LENGTHS:
+        edge = check_segment_case(gen, dev, edge_segments(dev, L), nt, f"edge segments L={L}")
+        err16 = max(err16, edge["err16"])
+    times = {}
+    library = "sdpa+mask on the transposed views" if nt else "sdpa+mask"
+    for label, seg in layouts.items():
+        c = cases[label]
+        t = times[label] = segment_times(nt, c["q"], c["k"], c["v"], seg)
+        R, P = seg.shape
+        log(f"{kernel} bf16 on the {label} ({int((seg > 0).sum())} of {R * P} positions hold "
+            f"a token, {int((seg == 0).all(dim=1).sum())} empty rows): kernel {t['ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, library {library} "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['nbytes'] / 1e6:.1f} "
+            f"MB, {t['ops'] / 1e9:.3f} GFLOP in-segment); kernel {t['ms'] / t['bound_ms']:.2f}x "
+            f"the bound, library {t['library_ms'] / t['ms']:.2f}x the kernel")
+    label = next(iter(layouts))
+    if nt:
+        c, seg = cases[label], layouts[label]
+        qt, kt, vt = heads_first(c["q"], c["k"], c["v"])
+        k2_ms = cuda_ms(lambda: packed_segment_attention(qt, kt, vt, seg), 20)
+        k2_transposed_ms = cuda_ms(lambda: packed_segment_attention(
+            *heads_first(c["q"], c["k"], c["v"]), seg).transpose(1, 2).contiguous(), 20)
+        log(f"K4 bf16 on the {label}: K2 on [B, H, L, Dh] {k2_ms:.4f} ms, K2 with the three "
+            f"input and one output transposes {k2_transposed_ms:.4f} ms")
+    site = 654 if nt else 740
+    return dict(name="segment_attention_nt" if nt else "segment_attention", route="cuda",
                 source="medtok_tpu_torch/csrc/segment_attention.cu",
-                replaces="medtok_tpu/ops/flash_attention.py:654",
-                max_abs_err=errs["bfloat16"], ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms,
-                bound_by="operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
-                library_ms=library_ms)
+                replaces=f"medtok_tpu/ops/flash_attention.py:{site}", max_abs_err=err16,
+                **{key: times[label][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")})
 
 
 # --------------------------------------------------------------------- K5 --
@@ -555,6 +611,11 @@ def profile_main_path(model, dataset, dev, first: dict) -> None:
     log(f"profile: Count build (gcn_norm_adj, tail node buckets) gpu span "
         f"{count_us / 1e3:.3f} ms over {sum(e.count for e in count)} calls, "
         f"{100 * count_us / max(kernels, 1.0):.2f}% of the device kernel time")
+    k2 = [e for e in device if "segment_attention" in e.key]
+    check(bool(k2), "profile: no K2 kernel in the export's trace")
+    k2_us = sum(dev_us(e) for e in k2)
+    log(f"profile: K2 device time {k2_us / 1e3:.3f} ms over {sum(e.count for e in k2)} "
+        f"launches, {100 * k2_us / max(kernels, 1.0):.2f}% of the device kernel time")
     for e in sorted(ranges, key=lambda e: (e.device_type == on_gpu, e.key)):
         side = "gpu span" if e.device_type == on_gpu else "host"
         t = dev_us(e) if e.device_type == on_gpu else e.cpu_time_total
@@ -1127,9 +1188,12 @@ def main(argv=None) -> int:
     log(f"data: {len(dataset)} codes, KG {dataset.kg.num_nodes} nodes / "
         f"{len(dataset.kg.edge_src)} edges, built in {time.perf_counter() - t0:.2f} s")
 
-    seg = packed_segments(dataset, dev)
-    k2 = check_k2(gen, dev, seg)
-    k4 = check_k4(gen, dev, seg)
+    packings = {"export packing": packed_segments(dataset, dev, 1.0),
+                "80% packing": packed_segments(dataset, dev, 0.8)}
+    check(bool((packings["80% packing"] == 0).all(dim=1).any()),
+          "the 80% packing has no all-padding row")
+    k2 = check_segment_kernel(gen, dev, False, packings)
+    k4 = check_segment_kernel(gen, dev, True, packings)
     k5 = check_k5(gen, dev)
 
     from medtok_tpu_torch.config import MedTokConfig, ModelConfig

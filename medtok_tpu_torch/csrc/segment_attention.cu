@@ -4,39 +4,68 @@
 // K2 replaces medtok_tpu/ops/flash_attention.py::packed_segment_attention
 // (kernel _flash_seg_kernel): q, k, v, out are [B, H, L, Dh]. K4 replaces
 // packed_segment_attention_nt (kernel _flash_seg_kernel_nt): the same
-// attention with q, k, v, out in the projection layout [B, L, H, Dh]. Both
-// are one kernel templated on the layout: element (b, h, i, d) sits at
+// attention with q, k, v, out in the projection layout [B, L, H, Dh]. Each
+// kernel below is templated on the layout: element (b, h, i, d) sits at
 // b*L*H*Dh + h*head_stride + i*row_stride + d, with (head, row) strides
-// (L*Dh, Dh) for K2 and (Dh, H*Dh) for K4. Dh = 64 is contiguous in both,
-// so the 16-byte vector loads hold. bf16 or fp32; seg is [B, L] int32.
-// Query i of a row attends to key j iff seg_i == seg_j > 0; the softmax of
-// q.k * sm_scale runs in fp32 with a running max and sum, and a query row
-// with no valid key (padding) writes 0.
+// (L*Dh, Dh) for K2 and (Dh, H*Dh) for K4. Dh = 64 is contiguous in both, so
+// a row is one 128-byte (bf16) or 256-byte (fp32) run. seg is [B, L] int32.
+// Query i of a row attends to key j iff seg_i == seg_j > 0; the scores
+// q.k * sm_scale and the softmax run in fp32, and a query row with no valid
+// key (padding) writes 0. As in the TPU kernel, bf16 probabilities are
+// rounded to bf16 before the P.V product, while the row sum l is taken over
+// the unrounded fp32 ones; keys are taken in blocks of 128 (the TPU kernel's
+// block_k), each rounded against the running maximum of the blocks so far,
+// so for L <= 128 that is the row's own maximum.
 //
 // Bound: at the packed BERT shape [256, 12, 128, 64] in bf16 the kernel must
-// read q, k, v and write o, 4 x 50.3 MB per layer (about 60 us at 3.35 TB/s),
-// while the block-diagonal products are at most 12.9 GFLOP, so it is
-// memory-bound; K4 moves the same bytes. This first kernel does the products
-// on fp32 CUDA cores, not tensor cores, and sits above that bound. In K4's
-// layout a thread's q and out rows lie H*Dh apart instead of side by side;
-// the key/value staging still reads whole 128-byte rows.
+// read q, k and v at the positions that hold a token (padding needs none of
+// them) and write all of o, at most 4 x 50.3 MB per layer (about 60 us at
+// 3.35 TB/s), while the block-diagonal products are at most 12.9 GFLOP
+// (under 20 us on the bf16 tensor cores), so it is bound by bytes.
 //
-// Design. One block per (row b, head h, tile of 128 queries); one thread per
-// query keeps its q row and its fp32 accumulator in registers. Keys and values
-// stream through shared memory in tiles of 32, converted to fp32 once; the
-// reads inside the loop are broadcasts (every thread reads the same key). A
-// thread skips keys of other segments, so a warp only pays for keys that one
-// of its queries can see. Segments need not be contiguous: the mask is the
-// segment comparison itself, as in the TPU kernel.
+// bf16 design (segment_attention_mma_kernel). One block of 4 warps per
+// (row b, head h, tile of 64 queries); a warp owns 16 queries. The products
+// run on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 sums): Q's
+// A-fragments are loaded once with ldmatrix and kept in registers, K comes in
+// as the B operand with ldmatrix. The scores of a 128-key block are computed
+// twice, first for the block's exact maximum (quad shuffles), then for P, so
+// that only one 16-key group's scores are live in registers (keeping a whole
+// block's spilled them); the second pass converts its fp32 fragments
+// straight into the bf16 A-fragments of P.V (the rounding point above), with
+// V loaded by ldmatrix.trans. Tile skipping: the keys come in groups of 16;
+// a warp multiplies only the groups whose range of nonzero segment ids meets
+// its queries' range (conservative, so exact for segments that are not
+// contiguous), and the block stages only the groups that one of its warps
+// needs, so a 64-query tile of a packed row reads about its own share of K
+// and V, and a tile of padding reads nothing but its segment ids. Loads are
+// 16-byte cp.async with zero fill past L into rows padded to 72 bf16, so
+// ldmatrix is free of bank conflicts. The key block is not double-buffered:
+// at the packed shape (L = 128) it is the row's only one, and loads overlap
+// products across the blocks resident on an SM instead. The output is staged
+// through the warp's Q rows for coalesced 16-byte stores in either layout.
+// No atomics on the data, so a launch is deterministic. wgmma, TMA and warp
+// specialisation would speed up products that are not the bound here.
+//
+// fp32 path (segment_attention_fp32_kernel), the parity path: it needs exact
+// fp32 products, which the bf16 tensor cores do not give. One block per (row
+// b, head h, tile of 128 queries), one thread per query with its q row and
+// fp32 accumulator in registers; keys and values stream through shared
+// memory in tiles of 32 and a thread skips keys of other segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int DH = 64;    // head width (bert-base: 768 / 12)
+constexpr int DH = 64;            // head width (bert-base: 768 / 12)
+constexpr float MASKED = -1e30f;  // the TPU kernel's finite stand-in for -inf
+
+// ------------------------------------------------------------ fp32 path --
+
 constexpr int QT = 128;   // queries per block (one per thread)
 constexpr int TK = 32;    // keys per staged tile
 
@@ -47,36 +76,17 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store8(float* p, const float* o) {
   reinterpret_cast<float4*>(p)[0] = make_float4(o[0], o[1], o[2], o[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(o[4], o[5], o[6], o[7]);
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* o) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(o[2 * i], o[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
 // kBLHD: the [B, L, H, Dh] layout (K4); otherwise [B, H, L, Dh] (K2)
-template <typename T, bool kBLHD>
+template <bool kBLHD>
 __global__ void __launch_bounds__(QT)
-segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const int* __restrict__ seg,
-                         T* __restrict__ out, int H, int L, float sm_scale) {
+segment_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const int* __restrict__ seg,
+                              float* __restrict__ out, int H, int L, float sm_scale) {
   __shared__ __align__(16) float k_s[TK][DH];
   __shared__ __align__(16) float v_s[TK][DH];
   __shared__ int seg_s[TK];
@@ -114,12 +124,8 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int x = 0; x < 8; ++x) { kb[x] = 0.f; vb[x] = 0.f; }
       }
-      float4* kd = reinterpret_cast<float4*>(&k_s[j][d]);
-      float4* vd = reinterpret_cast<float4*>(&v_s[j][d]);
-      kd[0] = make_float4(kb[0], kb[1], kb[2], kb[3]);
-      kd[1] = make_float4(kb[4], kb[5], kb[6], kb[7]);
-      vd[0] = make_float4(vb[0], vb[1], vb[2], vb[3]);
-      vd[1] = make_float4(vb[4], vb[5], vb[6], vb[7]);
+      store8(&k_s[j][d], kb);
+      store8(&v_s[j][d], vb);
     }
     if (threadIdx.x < TK)
       seg_s[threadIdx.x] = t0 + threadIdx.x < L ? seg_row[t0 + threadIdx.x] : 0;
@@ -169,15 +175,272 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool kBLHD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
-                   void* out, int B, int H, int L, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid(B * H, (L + QT - 1) / QT);
-  segment_attention_kernel<T, kBLHD><<<grid, QT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, static_cast<T*>(out), H, L, scale);
-  return cudaGetLastError();
+// ------------------------------------------------------------ bf16 path --
+
+constexpr int WARPS = 4;
+constexpr int BQ = 16 * WARPS;  // queries per block, 16 per warp
+constexpr int KC = 128;         // keys per block of the online softmax
+constexpr int GK = 16;          // keys per skip group (one P.V k-step)
+constexpr int NG = KC / GK;     // skip groups per key block
+constexpr int SROW = DH + 8;    // padded shared-memory row, in bf16
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool in_range) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(in_range ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 sums
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): a score or output
+// tile's 4 floats are (row g, cols 2t, 2t+1) and (row g+8, the same cols).
+template <bool kBLHD>
+__global__ void __launch_bounds__(32 * WARPS, 4)
+segment_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const int* __restrict__ seg,
+                             __nv_bfloat16* __restrict__ out, int H, int L,
+                             float sm_scale) {
+  __shared__ __align__(16) __nv_bfloat16 q_s[BQ * SROW];  // Q, then the output
+  __shared__ __align__(16) __nv_bfloat16 k_s[KC * SROW];
+  __shared__ __align__(16) __nv_bfloat16 v_s[KC * SROW];
+  __shared__ int kseg_s[KC];
+  __shared__ unsigned staged;  // key groups of this block's key block to load
+
+  const int n_qt = (L + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_qt;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (blockIdx.x % n_qt) * BQ + warp * 16;  // the warp's first query
+  const size_t row_stride = kBLHD ? (size_t)H * DH : (size_t)DH;
+  const size_t head_stride = kBLHD ? (size_t)DH : (size_t)L * DH;
+  const size_t base = (size_t)b * L * H * DH + (size_t)h * head_stride;
+  const int* seg_row = seg + (size_t)b * L;
+  __nv_bfloat16* q_w = q_s + warp * 16 * SROW;
+
+  // the segment ids of the warp's queries and of the first key block, loaded
+  // together; then the range [lo, hi] of the queries' nonzero ones
+  const int my = (lane < 16 && q0 + lane < L) ? seg_row[q0 + lane] : 0;
+  for (int j = threadIdx.x; j < KC; j += 32 * WARPS) kseg_s[j] = j < L ? seg_row[j] : 0;
+  if (threadIdx.x == 0) staged = 0u;
+  int lo = my > 0 ? my : INT_MAX, hi = my;
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) {
+    lo = min(lo, __shfl_xor_sync(FULL, lo, x));
+    hi = max(hi, __shfl_xor_sync(FULL, hi, x));
+  }
+  const bool live = hi > 0;  // else every query is padding: the output is 0
+  const int seg_r[2] = {__shfl_sync(FULL, my, g), __shfl_sync(FULL, my, g + 8)};
+
+  if (live) {  // the warp's 16 Q rows, 8 x 16 bytes each
+    for (int i = lane; i < 16 * 8; i += 32) {
+      const int r = i >> 3, c = (i & 7) * 8, qi = q0 + r;
+      cp_async16(q_w + r * SROW + c, q + base + (size_t)min(qi, L - 1) * row_stride + c,
+                 qi < L);
+    }
+  }
+
+  uint32_t qf[DH / 16][4];  // Q's A-fragments, one per 16-wide k-step
+  float o[DH / 8][4];       // output accumulators, one tile per 8 dims
+  float m_run[2] = {MASKED, MASKED}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int c0 = 0; c0 < L; c0 += KC) {
+    if (c0 > 0) {
+      __syncthreads();  // the previous key block is consumed
+      for (int j = threadIdx.x; j < KC; j += 32 * WARPS)
+        kseg_s[j] = c0 + j < L ? seg_row[c0 + j] : 0;
+      if (threadIdx.x == 0) staged = 0u;
+    }
+    __syncthreads();
+
+    // groups whose nonzero segment range meets the warp's: lane handles keys
+    // 4*lane .. 4*lane+3 of group lane / 4
+    int klo = INT_MAX, khi = 0;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int s = kseg_s[4 * lane + x];
+      if (s > 0) { klo = min(klo, s); khi = max(khi, s); }
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      klo = min(klo, __shfl_xor_sync(FULL, klo, x));
+      khi = max(khi, __shfl_xor_sync(FULL, khi, x));
+    }
+    const unsigned meet = __ballot_sync(FULL, live && klo <= hi && lo <= khi);
+    unsigned groups = 0u;
+#pragma unroll
+    for (int grp = 0; grp < NG; ++grp) groups |= ((meet >> (4 * grp)) & 1u) << grp;
+    if (lane == 0 && groups) atomicOr(&staged, groups);
+    __syncthreads();
+
+    const unsigned need = staged;
+    for (int i = threadIdx.x; i < KC * 8; i += 32 * WARPS) {
+      const int r = i >> 3, c = (i & 7) * 8, kj = c0 + r;
+      if (!((need >> (r / GK)) & 1u)) continue;
+      const size_t off = base + (size_t)min(kj, L - 1) * row_stride + c;
+      cp_async16(k_s + r * SROW + c, k + off, kj < L);
+      cp_async16(v_s + r * SROW + c, v + off, kj < L);
+    }
+    cp_async_wait_all();  // this thread's copies (in the first block, its Q rows too)
+    __syncthreads();
+
+    if (c0 == 0 && live) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldmatrix_x4(qf[kk], q_w + (lane & 15) * SROW + kk * 16 + (lane >> 4) * 8);
+    }
+    if (!groups) continue;  // warp-uniform: no key here meets the warp's queries
+
+    // S = Q K^T of one 16-key group (two 8-key tiles), scaled, and -inf
+    // (exp gives 0) where the pair is masked. Two passes recompute it, so
+    // that only one group's scores are live: the first for the block
+    // maximum, the second for P and P V. The tensor cores give the same bits
+    // both times.
+    auto scores = [&](int grp, float (&s)[2][4]) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[x][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, k_s + (grp * GK + (lane & 7) + ((lane >> 4) << 3)) * SROW +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[0], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[1], qf[kk], kb[2], kb[3]);
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int sr = seg_r[e >> 1];
+          const bool valid = sr > 0 && kseg_s[grp * GK + 8 * x + 2 * t + (e & 1)] == sr;
+          s[x][e] = valid ? s[x][e] * sm_scale : -INFINITY;
+        }
+    };
+
+    float mx[2] = {MASKED, MASKED};
+#pragma unroll
+    for (int grp = 0; grp < NG; ++grp) {
+      if (!((groups >> grp) & 1u)) continue;
+      float s[2][4];
+      scores(grp, s);
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[x][e]);
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      const float m_next = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_next);
+      m_run[r] = m_next;
+    }
+    if (c0 > 0) {
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    }
+
+    // P = exp(S - m) in fp32 for the row sums, rounded to bf16 for P V
+#pragma unroll
+    for (int grp = 0; grp < NG; ++grp) {
+      if (!((groups >> grp) & 1u)) continue;
+      float p[2][4];
+      scores(grp, p);
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[x][e] = expf(p[x][e] - m_run[e >> 1]);
+          rs[e >> 1] += p[x][e];
+        }
+      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+      for (int dn = 0; dn < DH / 16; ++dn) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, v_s + (grp * GK + (lane & 7) + ((lane >> 3) & 1) * 8) * SROW +
+                                  dn * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(FULL, rs[r], 1);
+      rs[r] += __shfl_xor_sync(FULL, rs[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + rs[r];
+    }
+  }
+
+  // O / l, staged in the warp's Q rows, then written as 16-byte row pieces.
+  // A row with no valid key (l == 0) writes 0 without a division: a zero
+  // numerator sends the IEEE division down its slow path, which cost a
+  // packed row's padding more than the whole attention. A warp of padding
+  // writes its zeros straight away.
+  if (live) {
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x0 = 0.f, x1 = 0.f;
+        if (l_run[r] > 0.f) {
+          x0 = o[n][2 * r] / l_run[r];
+          x1 = o[n][2 * r + 1] / l_run[r];
+        }
+        *reinterpret_cast<uint32_t*>(q_w + (g + 8 * r) * SROW + n * 8 + 2 * t) =
+            pack_bf16(x0, x1);
+      }
+    __syncwarp();
+  }
+  for (int i = lane; i < 16 * 8; i += 32) {
+    const int r = i >> 3, c = (i & 7) * 8, qi = q0 + r;
+    if (qi < L)
+      *reinterpret_cast<uint4*>(out + base + (size_t)qi * row_stride + c) =
+          live ? *reinterpret_cast<const uint4*>(q_w + r * SROW + c) : make_uint4(0, 0, 0, 0);
+  }
 }
 
 template <bool kBLHD>
@@ -187,10 +450,20 @@ int dispatch(const void* q, const void* k, const void* v, const void* seg,
   if (B <= 0 || H <= 0 || L <= 0 || Dh != DH) return (int)cudaErrorInvalidValue;
   const int* sp = static_cast<const int*>(seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, s)
-              : launch<float, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, s);
-  return (int)err;
+  if (is_bf16) {
+    const long long blocks = (long long)B * H * ((L + BQ - 1) / BQ);
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    segment_attention_mma_kernel<kBLHD><<<(unsigned)blocks, 32 * WARPS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), sp, static_cast<__nv_bfloat16*>(out), H, L,
+        sm_scale);
+  } else {
+    const dim3 grid(B * H, (L + QT - 1) / QT);
+    segment_attention_fp32_kernel<kBLHD><<<grid, QT, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), sp, static_cast<float*>(out), H, L, sm_scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

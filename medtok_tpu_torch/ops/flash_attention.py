@@ -3,19 +3,30 @@
 **K2**, block-diagonal packed-segment attention (replaces the Pallas kernel
 ``medtok_tpu/ops/flash_attention.py::packed_segment_attention``). q, k, v
 are [B, H, L, Dh] and ``seg_ids`` [B, L] int32 (0 = padding). Query i
-attends to key j iff seg_i == seg_j > 0; the softmax runs in fp32 and a
-query row with no valid key returns 0. Forward only: the one caller is the
-frozen text encoder. On CUDA tensors ``packed_segment_attention`` launches
-``csrc/segment_attention.cu``; on CPU tensors it runs the plain version.
-Bound: at the packed BERT shape [256, 12, 128, 64] in bf16 the layer moves
-4 x 50.3 MB (about 60 us at 3.35 TB/s) for at most 12.9 GFLOP, so it is
+attends to key j iff seg_i == seg_j > 0; the scores q.k * sm_scale and the
+softmax run in fp32 and a query row with no valid key returns 0. The
+softmax walks blocks of 128 keys with a running maximum, as the TPU kernel
+does (its block_k). For bf16 inputs the probabilities are rounded to bf16
+before the P.V product, where the TPU kernel casts them
+(``p.astype(v.dtype)``), and the row sum is taken over the unrounded ones;
+fp32 inputs keep fp32 probabilities. Forward
+only: the one caller is the frozen text encoder. On CUDA tensors
+``packed_segment_attention`` launches ``csrc/segment_attention.cu``, whose
+route follows the dtype: bf16 runs on the tensor cores (``mma.sync``,
+skipping key groups whose segments cannot meet the queries'), fp32 on the
+CUDA cores with exact fp32 products (the parity path). On CPU tensors it
+runs the plain version. Bound: at the packed BERT shape [256, 12, 128, 64]
+in bf16 the layer reads q, k and v at the positions that hold a token
+(padding needs none of them) and writes all of the output, at most
+4 x 50.3 MB (about 60 us at 3.35 TB/s), for at most 12.9 GFLOP, so it is
 memory-bound; the kernel's source note gives its design.
 
 **K4**, ``packed_segment_attention_nt`` (replaces the Pallas kernel
 ``packed_segment_attention_nt``): K2 with q, k, v and the output in the
 projection layout [B, L, H, Dh], a free view of the [B, L, H*Dh] linear
 output, so no head transposes are needed on either side. It is K2's CUDA
-kernel in its [B, L, H, Dh] stride mode: same semantics, same bytes.
+kernel in its [B, L, H, Dh] stride mode: same semantics and rounding
+point, the same two routes by dtype, same bytes.
 
 **K3**, flash attention with a key-padding mask and hashed
 attention-probability dropout, forward plus the dq and dk/dv backward
@@ -55,15 +66,20 @@ from medtok_tpu_torch.ops import _build
 _MASKED = -1e30  # finite stand-in for -inf, as in the TPU kernel
 _M32 = 0xFFFFFFFF
 K3_HEAD_DIM = 16  # the head width K3's kernels take (EHR: 64 / 4 heads)
+SEG_BLOCK_K = 128  # K2 / K4's key block: the TPU kernel's block_k
 
 
 def packed_segment_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg_ids: torch.Tensor,
     *, sm_scale: float | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version: the dense fp32 [B, H, L, L] masked softmax.
-    Rows that are all padding return 0, as the kernel does (the dense BERT
-    path would average them instead)."""
+    """Plain PyTorch version: the dense fp32 [B, H, L, L] masked scores,
+    softmaxed over blocks of SEG_BLOCK_K keys with a running maximum, as
+    the TPU kernel and the CUDA kernel walk them. In each block the
+    probabilities exp(s - running max) are rounded to v's dtype before P V,
+    the row sum is taken over the unrounded ones, and the earlier sums are
+    rescaled by exp(old max - new max). Rows that are all padding return 0,
+    as the kernel does (the dense BERT path would average them instead)."""
     Dh = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(Dh)
@@ -71,11 +87,18 @@ def packed_segment_attention_reference(
     seg = seg_ids.to(torch.int32)
     valid = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0))[:, None]
     s = torch.where(valid, s, _MASKED)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, v.float()) / torch.where(l == 0.0, 1.0, l)
-    return out.to(q.dtype)
+    m = torch.full((*s.shape[:-1], 1), _MASKED, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*s.shape[:-1], Dh, device=s.device)
+    for c0 in range(0, s.shape[-1], SEG_BLOCK_K):
+        block = slice(c0, c0 + SEG_BLOCK_K)
+        m_next = torch.maximum(m, s[..., block].amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.where(valid[..., block], torch.exp(s[..., block] - m_next), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(_as_fp32(p, v), v[..., block, :].float())
+        m = m_next
+    return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
 
 
 def packed_segment_attention_nt_reference(
@@ -83,8 +106,9 @@ def packed_segment_attention_nt_reference(
     *, sm_scale: float | None = None,
 ) -> torch.Tensor:
     """Plain version of K4: K2's dense fp32 masked softmax on the
-    [B, H, L, Dh] views of [B, L, H, Dh] inputs, returned contiguous in
-    [B, L, H, Dh]. Rows that are all padding return 0."""
+    [B, H, L, Dh] views of [B, L, H, Dh] inputs (bf16 probabilities
+    rounded before P V, as there), returned contiguous in [B, L, H, Dh].
+    Rows that are all padding return 0."""
     out = packed_segment_attention_reference(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), seg_ids,
         sm_scale=sm_scale)
