@@ -23,11 +23,17 @@ Phases, each fatal on failure:
   6. answer tokenize / encode / embed requests for three codes;
   7. hold kernel K3 (flash attention forward, dq and dk/dv) against its
      plain version at the EHR shape [256*4, 2003, 16] on an EHR batch's key
-     mask, dropout 0.5, fp32 and bf16: out / lse / dq / dk / dv through
-     autograd, the plain version run in slices of 8 batch rows with the
-     whole batch's dropout bits, and a batch row that has no valid key; time
-     the kernels on that mask and on an all-valid one beside
-     scaled_dot_product_attention;
+     mask, dropout 0.5, with a batch row that has no valid key, the plain
+     version run in slices of 8 batch rows with the whole batch's dropout
+     bits: fp32 out / lse / dq / dk / dv through autograd; bf16 each kernel
+     against its plain version on the same inputs, element by element
+     within one bf16 ulp of each term of its sum (out: and one of its
+     value) and under 1% of the elements differing, two backward passes
+     bitwise equal
+     and equal to the autograd Function's; the same bf16 checks at Lq != Lk,
+     lengths 100 and 700, key masks with holes and with dropout 0; time the
+     kernels on the path's mask and on an all-valid one beside
+     scaled_dot_product_attention and the per-score floors;
   8. train the EHR outcome model at EHRTrainConfig() width (batch 256,
      2003 positions, 4 layers of 4 heads, 64 wide) on the export's
      embeddings_all for one epoch of a few steps and evaluate it on two
@@ -84,6 +90,14 @@ D = 64
 EHR_TRAIN_STEPS = 4     # train batches of one epoch
 EHR_EVAL_BATCHES = 2
 K3_SLICE = 8            # batch rows per slice of K3's plain version
+K3_HEADS = 4
+K3_SEED = 20261016
+# issue slots of CUDA-core work per score in the bf16 backward kernels (the
+# source note of csrc/flash_attention.cu): ex2 and its FFMA, the mask, the
+# hash (one 3-input xor, three xorshifts, two multiplies, the compare), the
+# keep select and scale, t - D, a * (t - D), half a bf16 pair conversion;
+# dkv also scales a~ and converts it
+K3_SLOTS = {"dq": 17, "dkv": 19}
 # (B, Ln, Epg) of the Count checks: the bench's Ln=512 tail shape, an export
 # bucket, and a dense shape whose cells sum many fractional weights
 K5_SHAPES = ((512, 512, 8192), (512, 128, 1024), (64, 16, 8192))
@@ -241,15 +255,43 @@ def check_bf16_agreement(name: str, out, q, k, v, seg, plain) -> dict:
     of the elements may differ at all (29.6% did before the kernels and
     plain versions rounded p). Returns the share that differs and how many
     differ by more than one ulp of the plain value alone."""
-    want = plain(q, k, v, seg).float()
-    terms = plain(q.float(), k.float(), v.float().abs(), seg)
-    diff = (out.float() - want).abs()
-    beyond_tol = int((diff > BF16_ULP * (want.abs() + terms) + 1e-6).sum())
-    check(beyond_tol == 0, f"{name}: {beyond_tol} elements beyond one bf16 ulp of their terms")
-    share = float((diff > 0).float().mean())
-    check(share < 0.01, f"{name}: {100 * share:.3f}% of the elements differ from the bf16 "
-          f"plain version")
-    return dict(share=share, beyond_ulp=int((diff > BF16_ULP * want.abs() + 1e-6).sum()))
+    tally = Bf16Tally()
+    tally.add(out, plain(q, k, v, seg), plain(q.float(), k.float(), v.float().abs(), seg))
+    return tally.check(name)
+
+
+class Bf16Tally:
+    """Counts, over one or more slices, the bf16 elements that differ from
+    the plain version's, that differ by more than one bf16 ulp of the value,
+    and that break the rule: within one ulp of the value plus one of each
+    term of its sum, 2^-7 (|want| + terms) + 1e-6; with value_ulp False
+    (the K3 gradients, whose terms sum to many times the value) within
+    2^-7 terms + 1e-6."""
+
+    def __init__(self, value_ulp: bool = True):
+        self.value_ulp = value_ulp
+        self.n = self.differ = self.beyond_ulp = self.beyond_tol = 0
+        self.max_abs = 0.0
+
+    def add(self, got, want, terms) -> None:
+        want = want.float()
+        diff = (got.float() - want).abs()
+        self.n += diff.numel()
+        self.differ += int((diff > 0).sum())
+        self.beyond_ulp += int((diff > BF16_ULP * want.abs() + 1e-6).sum())
+        value = want.abs() if self.value_ulp else 0.0
+        self.beyond_tol += int((diff > BF16_ULP * (value + terms) + 1e-6).sum())
+        self.max_abs = max(self.max_abs, float(diff.max()) if diff.numel() else 0.0)
+
+    def check(self, name: str) -> dict:
+        """Fails on any element beyond the rule or on 1% or more differing;
+        returns the share that differs and the count beyond one ulp."""
+        check(self.beyond_tol == 0,
+              f"{name}: {self.beyond_tol} elements beyond one bf16 ulp of their terms")
+        share = self.differ / max(self.n, 1)
+        check(share < 0.01, f"{name}: {100 * share:.3f}% of the elements differ from the "
+              f"bf16 plain version")
+        return dict(share=share, beyond_ulp=self.beyond_ulp, max_abs=self.max_abs)
 
 
 def edge_segments(dev, L: int):
@@ -816,13 +858,147 @@ def key_mask_of(batch, dev):
 
 # --------------------------------------------------------------------- K3 --
 
-def _rel_err(got, want) -> float:
-    want = want.float()
-    return float((got.float() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+def sm_clock_hz() -> float:
+    """The card's largest SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def check_k3_fp32(gen, dev, mask, kw) -> dict:
+    """K3 in fp32 through autograd against autograd through the plain
+    version, in slices of K3_SLICE batch rows: out / dq / dk / dv within
+    1e-5 / 1e-4 of the plain version's largest value, lse within 1e-4.
+    Returns the largest absolute errors."""
+    import torch
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    Bf, L = mask.shape
+    H, S = K3_HEADS, K3_SLICE
+    keys = ("out", "lse", "dq", "dk", "dv")
+    q, k, v, do = (torch.randn(Bf, H, L, 16, generator=gen, device=dev) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fa.flash_attention(*leaves, mask, **kw) * do).sum().backward()
+    got = dict(zip(keys, (out, lse, *(t.grad for t in leaves))))
+    diff, scale = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    for b0 in range(0, Bf, S):
+        rows = slice(b0, b0 + S)
+        part = [t[rows].clone().requires_grad_() for t in (q, k, v)]
+        ref, ref_lse = fa.flash_attention_reference(*part, mask[rows], **kw, bh_offset=b0 * H)
+        (ref * do[rows]).sum().backward()
+        want = dict(zip(keys, (ref, ref_lse, *(t.grad for t in part))))
+        for key in keys:
+            w = want[key].detach()
+            diff[key] = max(diff[key], float((got[key][rows] - w).abs().max()))
+            scale[key] = max(scale[key], float(w.abs().max()))
+        del part, ref, ref_lse, want
+    torch.cuda.synchronize()
+    e = {key: diff[key] / scale[key] for key in ("out", "dq", "dk", "dv")}
+    check(e["out"] <= 1e-5, f"K3 float32: out error {e['out']} > 1e-5")
+    check(diff["lse"] <= 1e-4, f"K3 float32: lse error {diff['lse']} > 1e-4")
+    for g in ("dq", "dk", "dv"):
+        check(e[g] <= 1e-4, f"K3 float32: {g} error {e[g]} > 1e-4")
+    check(bool((out[-1] == 0).all() and (lse[-1] == -1e30).all()),
+          "K3 float32: the row with no valid key is not 0 / -1e30")
+    check(all(bool((got[g][-1] == 0).all()) for g in ("dq", "dk", "dv")),
+          "K3 float32: the row with no valid key has non-zero gradients")
+    log(f"K3 float32 [{Bf}*{H}, {L}, 16] dropout {kw['dropout_rate']}, "
+        f"{float(mask.float().mean()):.3f} of the keys valid, plain version in slices of "
+        f"{S} batch rows: errors relative to the plain version's max: out {e['out']:.3e}, "
+        f"dq {e['dq']:.3e}, dk {e['dk']:.3e}, dv {e['dv']:.3e}; lse max abs err "
+        f"{diff['lse']:.3e}; the row with no valid key is 0 with zero gradients")
+    return {"out": diff["out"], "dq": diff["dq"], "dkv": max(diff["dk"], diff["dv"])}
+
+
+def check_k3_bf16(q, k, v, do, mask, kw, label: str) -> dict:
+    """K3's bf16 kernels, each against its plain version on the same inputs
+    (dq and dk/dv on the kernel's own lse and D = dO . out), in slices of
+    K3_SLICE batch rows: every element by Bf16Tally's rule (for the
+    gradients 2^-7 times the sum of their terms' magnitudes, e.g.
+    sm_scale |ds| |k| for dq, + 1e-6), under 1% differing; lse within 1e-4. Two backward passes must be bitwise equal
+    and equal to the gradients through the autograd Function. A batch row
+    whose mask is all False must give 0, lse -1e30 and zero gradients.
+    Returns the largest absolute errors."""
+    import torch
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    Bf, H, Lq, Dh = q.shape
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd = (q, k, v, mask, lse, delta, do)
+    dq = fa.flash_attention_dq(*bwd, **kw)
+    dk, dv = fa.flash_attention_dkv(*bwd, **kw)
+    again = (fa.flash_attention_dq(*bwd, **kw), *fa.flash_attention_dkv(*bwd, **kw))
+    check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+          f"K3 bf16 {label}: two backward passes differ")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*leaves, mask, **kw)
+    o.backward(do)
+    check(torch.equal(o, out) and all(torch.equal(t.grad, g)
+                                      for t, g in zip(leaves, (dq, dk, dv))),
+          f"K3 bf16 {label}: the autograd Function's gradients differ from the kernels'")
+    tallies = {"out": Bf16Tally(), **{key: Bf16Tally(value_ulp=False)
+                                       for key in ("dq", "dk", "dv")}}
+    lse_err = 0.0
+    for b0 in range(0, Bf, K3_SLICE):
+        rows = slice(b0, b0 + K3_SLICE)
+        part = dict(kw, bh_offset=b0 * H)
+        want, want_lse = fa.flash_attention_reference(q[rows], k[rows], v[rows], mask[rows],
+                                                      **part)
+        terms, _ = fa.flash_attention_reference(q[rows].float(), k[rows].float(),
+                                                v[rows].float().abs(), mask[rows], **part)
+        tallies["out"].add(out[rows], want, terms)
+        lse_err = max(lse_err, float((lse[rows] - want_lse).abs().max()))
+        args = [t[rows] for t in bwd]
+        want_dq = fa.flash_attention_dq_reference(*args, **part)
+        want_dk, want_dv = fa.flash_attention_dkv_reference(*args, **part)
+        t_dq, t_dk, t_dv = fa.flash_attention_grad_terms(*args, **part)
+        for key, got, w, t in (("dq", dq, want_dq, t_dq), ("dk", dk, want_dk, t_dk),
+                               ("dv", dv, want_dv, t_dv)):
+            tallies[key].add(got[rows], w, t)
+        del want, terms, want_dq, want_dk, want_dv, t_dq, t_dk, t_dv
+    torch.cuda.synchronize()
+    res = {key: tally.check(f"K3 bf16 {label} {key}") for key, tally in tallies.items()}
+    check(lse_err <= 1e-4, f"K3 bf16 {label}: lse error {lse_err} > 1e-4")
+    empty = ~mask.any(dim=1)
+    check(bool((out[empty] == 0).all() and (lse[empty] == -1e30).all()),
+          f"K3 bf16 {label}: a row with no valid key is not 0 / -1e30")
+    check(all(bool((g[empty] == 0).all()) for g in (dq, dk, dv)),
+          f"K3 bf16 {label}: a row with no valid key has non-zero gradients")
+    log(f"K3 bf16 {label} q [{Bf}*{H}, {Lq}, {Dh}], k/v Lk {k.shape[2]}, dropout "
+        f"{kw['dropout_rate']}, {float(mask.float().mean()):.3f} of the keys valid, "
+        f"{int(empty.sum())} rows with none; vs the bf16 plain version on the same "
+        f"inputs: " + ", ".join(f"{key} {100 * r['share']:.4f}% differ (max abs "
+                                f"{r['max_abs']:.3e}, {r['beyond_ulp']} beyond one ulp of "
+                                f"the value)" for key, r in res.items())
+        + f", 0 beyond the tolerance; lse max abs err {lse_err:.3e}; two backward passes "
+        f"and the autograd Function bitwise equal")
+    return {"out": res["out"]["max_abs"], "dq": res["dq"]["max_abs"],
+            "dkv": max(res["dk"]["max_abs"], res["dv"]["max_abs"])}
+
+
+def k3_edge_masks(dev, B: int, Lk: int):
+    """[B, Lk] key masks the EHR batches never make, for the tile skip and
+    the tails: holes (every third key, and a run of Lk / 2 keys from Lk / 3,
+    so that whole key tiles of dq and key blocks of dkv are skipped between
+    ones that are part valid), a suffix of padding, alternate keys, and the
+    last row with no valid key."""
+    import torch
+
+    j = torch.arange(Lk, device=dev)
+    holes = (j % 3 != 1) & ~((j >= Lk // 3) & (j < Lk // 3 + Lk // 2))
+    rows = [holes, j < (2 * Lk) // 3] + [j % 2 == 0] * (B - 3) + [torch.zeros_like(holes)]
+    return torch.stack(rows)
 
 
 def check_k3(gen, dev, mask_path) -> list[dict]:
-    """Kernels vs plain versions at the EHR shape, then times.
+    """Kernels vs plain versions at the EHR shape, then edge cases through
+    the bf16 route, then times.
     mask_path: the [256, 2003] key mask of an EHR batch of the main path."""
     import torch
     import torch.nn.functional as F
@@ -830,65 +1006,32 @@ def check_k3(gen, dev, mask_path) -> list[dict]:
     from medtok_tpu_torch.ops import flash_attention as fa
 
     Bf, L = mask_path.shape
-    H, Dh, rate, seed = 4, 16, 0.5, 20261016
-    S = K3_SLICE
+    H, Dh, rate = K3_HEADS, 16, 0.5
     mask = mask_path.clone()
     mask[-1] = False                                   # a row with no valid key
-    kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=rate, dropout_seed=seed)
-    tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
-    keys = ("out", "lse", "dq", "dk", "dv")
-    errs = {}
+    kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=rate, dropout_seed=K3_SEED)
     t0 = time.perf_counter()
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, do = (torch.randn(Bf, H, L, Dh, generator=gen, device=dev).to(dtype)
-                       for _ in range(4))
-        out, lse = fa.flash_attention_fwd(q, k, v, mask, **kw)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        (fa.flash_attention(*leaves, mask, dropout_rate=rate, dropout_seed=seed).float()
-         * do.float()).sum().backward()
-        got = dict(zip(keys, (out, lse, *(t.grad for t in leaves))))
-        diff, scale = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
-        for b0 in range(0, Bf, S):
-            rows = slice(b0, b0 + S)
-            part = [t[rows].clone().requires_grad_() for t in (q, k, v)]
-            ref, ref_lse = fa.flash_attention_reference(*part, mask[rows], **kw,
-                                                        bh_offset=b0 * H)
-            (ref.float() * do[rows].float()).sum().backward()
-            want = dict(zip(keys, (ref, ref_lse, *(t.grad for t in part))))
-            for key in keys:
-                w = want[key].detach().float()
-                diff[key] = max(diff[key], float((got[key][rows].float() - w).abs().max()))
-                if key != "lse":
-                    scale[key] = max(scale[key], float(w.abs().max()))
-            del part, ref, ref_lse, want
-        torch.cuda.synchronize()
-        e = {key: diff[key] / scale[key] for key in ("out", "dq", "dk", "dv")}
-        e["lse"] = diff["lse"]
-        name = str(dtype).split(".")[-1]
-        out_tol, grad_tol = tol[dtype]
-        check(e["out"] <= out_tol, f"K3 {name}: out error {e['out']} > {out_tol}")
-        check(e["lse"] <= 1e-4, f"K3 {name}: lse error {e['lse']} > 1e-4")
-        for g in ("dq", "dk", "dv"):
-            check(e[g] <= grad_tol, f"K3 {name}: {g} error {e[g]} > {grad_tol}")
-        check(bool((out[-1] == 0).all() and (lse[-1] == -1e30).all()),
-              f"K3 {name}: the row with no valid key is not 0 / -1e30")
-        check(all(bool((got[g][-1] == 0).all()) for g in ("dq", "dk", "dv")),
-              f"K3 {name}: the row with no valid key has non-zero gradients")
-        errs[name] = {"out": diff["out"], "dq": diff["dq"], "dkv": max(diff["dk"], diff["dv"])}
-        log(f"K3 {name} [{Bf}*{H}, {L}, {Dh}] dropout {rate}, {float(mask.float().mean()):.3f} "
-            f"of the keys valid, plain version in slices of {S} batch rows: errors "
-            f"relative to the plain version's max: out {e['out']:.3e}, dq {e['dq']:.3e}, "
-            f"dk {e['dk']:.3e}, dv {e['dv']:.3e}; lse max abs err {e['lse']:.3e}; "
-            f"max abs err out {diff['out']:.3e}, dq {diff['dq']:.3e}, dk {diff['dk']:.3e}, "
-            f"dv {diff['dv']:.3e}; the row with no valid key is 0 with zero gradients")
-        del q, k, v, do, out, lse, leaves, got
-    log(f"K3 check: {time.perf_counter() - t0:.2f} s")
-
-    # times at the EHR shape in bf16, on the path's mask and on an all-valid one
+    errs = {"float32": check_k3_fp32(gen, dev, mask, kw)}
     bf = torch.bfloat16
     q, k, v, do = (torch.randn(Bf, H, L, Dh, generator=gen, device=dev).to(bf)
                    for _ in range(4))
+    errs["bfloat16"] = check_k3_bf16(q, k, v, do, mask, kw, "EHR shape")
+    del q, k, v, do
+    # Lq != Lk, lengths that are no multiple of 16 or 64, masks with holes
+    for Lq, Lk, p in ((100, 700, rate), (700, 100, rate), (100, 700, 0.0)):
+        B = 4
+        q, do = (torch.randn(B, H, Lq, Dh, generator=gen, device=dev).to(bf) for _ in range(2))
+        k, v = (torch.randn(B, H, Lk, Dh, generator=gen, device=dev).to(bf) for _ in range(2))
+        check_k3_bf16(q, k, v, do, k3_edge_masks(dev, B, Lk), dict(kw, dropout_rate=p),
+                      f"edge Lq={Lq} Lk={Lk}")
+    log(f"K3 check: {time.perf_counter() - t0:.2f} s")
+
+    # times at the EHR shape in bf16, on the path's mask and on an all-valid one
+    q, k, v, do = (torch.randn(Bf, H, L, Dh, generator=gen, device=dev).to(bf)
+                   for _ in range(4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    props = torch.cuda.get_device_properties(dev)
+    clock = sm_clock_hz()
     rows = []
     for label, m in (("path", mask_path), ("all-valid", torch.ones_like(mask_path))):
         out, lse = fa.flash_attention_fwd(q, k, v, m, **kw)
@@ -908,24 +1051,33 @@ def check_k3(gen, dev, mask_path) -> list[dict]:
                 q, k, v, attn_mask=sdpa_mask, dropout_p=p), 10)
             lib[p] = (fwd, cuda_ms(sdpa_fwd_bwd, 10))
         valid_keys = float(m.sum())                    # sum over rows of valid keys
-        pairs = H * L * valid_keys                     # (query, valid key) per head
+        pairs = H * L * valid_keys                     # (query, valid key): the scores
         row = Bf * H * L * Dh * 2                      # one bf16 [B*H, L, Dh] tensor
         vec = Bf * H * L * 4                           # one fp32 [B*H, L] vector
         work = {"fwd": (4 * Dh * pairs, 3 * row + Bf * L + row + vec),
                 "dq": (6 * Dh * pairs, 4 * row + 2 * vec + Bf * L + row),
                 "dkv": (8 * Dh * pairs, 4 * row + 2 * vec + Bf * L + 2 * row)}
+        # one exp a score on the SFU (16 a clock per SM), and the issue
+        # slots of the backward's per-score CUDA-core work (4 warp
+        # instructions a clock per SM)
+        exp_ms = pairs / (props.multi_processor_count * 16 * clock) * 1e3
+        issue_ms = {key: pairs * n / (props.multi_processor_count * 128 * clock) * 1e3
+                    for key, n in K3_SLOTS.items()}
         log(f"K3 bf16 [{Bf}*{H}, {L}, {Dh}] dropout {rate}, {label} mask "
-            f"({valid_keys / (Bf * L):.3f} of the keys valid); library "
-            f"scaled_dot_product_attention with the boolean key mask: no dropout fwd "
+            f"({valid_keys / (Bf * L):.3f} of the keys valid, {pairs / 1e9:.3f}e9 scores); "
+            f"library scaled_dot_product_attention with the boolean key mask: no dropout fwd "
             f"{lib[0.0][0]:.4f} ms, fwd+bwd {lib[0.0][1]:.4f} ms; dropout {rate} fwd "
             f"{lib[rate][0]:.4f} ms, fwd+bwd {lib[rate][1]:.4f} ms (its backward "
-            f"computes dq, dk and dv together)")
+            f"computes dq, dk and dv together); per-score floors at "
+            f"{props.multi_processor_count} SMs and {clock / 1e9:.3f} GHz: exp {exp_ms:.4f} ms, "
+            f"issue dq {issue_ms['dq']:.4f} ms ({K3_SLOTS['dq']} slots), dkv "
+            f"{issue_ms['dkv']:.4f} ms ({K3_SLOTS['dkv']} slots)")
         if label == "path":
             # the plain versions over the whole batch, a slice of S rows at a time
             def sliced(fn, tensors):
                 def run():
-                    for b0 in range(0, Bf, S):
-                        fn(*(t[b0:b0 + S] for t in tensors), **kw, bh_offset=b0 * H)
+                    for b0 in range(0, Bf, K3_SLICE):
+                        fn(*(t[b0:b0 + K3_SLICE] for t in tensors), **kw, bh_offset=b0 * H)
                 return run
 
             plain = {"fwd": cuda_ms(sliced(fa.flash_attention_reference, bwd[:4]), 2),
@@ -951,6 +1103,9 @@ def check_k3(gen, dev, mask_path) -> list[dict]:
                                  bound_by="operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES
                                  else "bytes",
                                  library_ms=lib_ms[key]))
+        log(f"  K3 backward ({label}): dq + dkv {ms['dq'] + ms['dkv']:.4f} ms vs the "
+            f"library's backward {lib_ms['dq']:.4f} ms: "
+            + ("faster" if ms["dq"] + ms["dkv"] < lib_ms["dq"] else "slower"))
     return rows
 
 
@@ -1074,8 +1229,9 @@ def check_ehr_reference(trainer, ehr: dict, dev, n: int = 8) -> None:
     batch = type(first)(*(x[:n] for x in first))
     state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
     table = trainer.model.embedding_table.cpu().numpy()
-    # "default": both sides round q/k/v and the probabilities to bf16, the
-    # kernel against its running max, the plain version against the row max
+    # "default": both sides round q/k/v and the probabilities to bf16 (against
+    # the running max of 512-key blocks), but the fp32 scores and sums come
+    # out of the kernel and of the CPU in another order
     for precision, tol in (("highest", 1e-4), ("default", 2e-2)):
         logits = []
         for where in (dev, torch.device("cpu")):

@@ -1,0 +1,78 @@
+// Warp-level bf16 tensor-core helpers shared by the attention kernels
+// (segment_attention.cu, flash_attention.cu): 16- and 4-byte cp.async with
+// zero fill, ldmatrix, and mma.sync m16n8k16 with fp32 sums.
+//
+// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): an A fragment
+// (16 x 16, row-major) is 4 registers of 2 bf16, (row g, cols 2t, 2t+1),
+// (row g+8, the same cols), (row g, cols 2t+8, 2t+9), (row g+8, those); a
+// B fragment (16 x 8) is (rows 2t, 2t+1, col g) and (rows 2t+8, 2t+9, col
+// g); a C fragment (16 x 8, fp32) is (row g, cols 2t, 2t+1) and (row g+8,
+// the same cols). So the C fragments of two neighbouring 8-wide tiles,
+// rounded to bf16 pairs, are the A fragment of a product over their 16
+// columns.
+
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool in_range) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(in_range ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool in_range) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(in_range ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 sums
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+}  // namespace

@@ -59,6 +59,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int DH = 64;            // head width (bert-base: 768 / 12)
@@ -183,47 +185,9 @@ constexpr int KC = 128;         // keys per block of the online softmax
 constexpr int GK = 16;          // keys per skip group (one P.V k-step)
 constexpr int NG = KC / GK;     // skip groups per key block
 constexpr int SROW = DH + 8;    // padded shared-memory row, in bf16
-constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned FULL = FULL_MASK;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool in_range) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(in_range ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to bf16 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): a score or output
-// tile's 4 floats are (row g, cols 2t, 2t+1) and (row g+8, the same cols).
+// Fragment layout of m16n8k16: see mma_bf16.cuh.
 template <bool kBLHD>
 __global__ void __launch_bounds__(32 * WARPS, 4)
 segment_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,

@@ -3,8 +3,9 @@
 Each ``.cu`` file is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``. The library lands in
-``medtok_tpu_torch/_build/`` under a name keyed by a hash of the sources and
-flags, so an unchanged tree reuses it and a changed one rebuilds.
+``medtok_tpu_torch/_build/`` under a name keyed by a hash of the sources,
+the headers they include (``*.cuh``) and the flags, so an unchanged tree
+reuses it and a changed one rebuilds.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``,
 launches on that stream and returns ``cudaGetLastError()``; ``check`` turns a
@@ -95,7 +96,7 @@ def _sources() -> list[Path]:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmedtok_kernels_{h.hexdigest()[:16]}.so"

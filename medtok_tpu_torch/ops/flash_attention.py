@@ -47,12 +47,19 @@ on CPU tensors. Semantics, as in the TPU kernel:
   drawn there reaches the kernels without a host sync);
 - a query row with no valid key returns 0 and the finite lse -1e30, and
   gets zero gradients;
-- bf16 inputs are multiplied in fp32 with fp32 sums, and the probabilities
+- bf16 inputs are multiplied exactly with fp32 sums, and the probabilities
   (forward) and ds / dropped probabilities (backward) round to bf16 before
-  their products, where the TPU kernel casts them.
+  their products, where the TPU kernel casts them. The forward walks blocks
+  of K3_BLOCK_K = 512 keys with a running maximum and rounds each block's
+  probabilities against it, as the TPU kernel does at the block_k the EHR
+  encoder calls it with; the backward recomputes exp(s - lse) with no
+  running maximum.
 
 Nothing quadratic is saved: the backward recomputes the probabilities from
-the saved lse and the keep bits from the hash.
+the saved lse and the keep bits from the hash. The dtype picks the route:
+the bf16 backward runs on the tensor cores (``mma.sync``; key tiles with no
+valid key are never staged), fp32 on the CUDA cores with exact fp32
+products (the parity path); the forward runs on the CUDA cores in both.
 """
 
 from __future__ import annotations
@@ -66,7 +73,32 @@ from medtok_tpu_torch.ops import _build
 _MASKED = -1e30  # finite stand-in for -inf, as in the TPU kernel
 _M32 = 0xFFFFFFFF
 K3_HEAD_DIM = 16  # the head width K3's kernels take (EHR: 64 / 4 heads)
+K3_BLOCK_K = 512  # K3's key block: the TPU kernel's default block_k
 SEG_BLOCK_K = 128  # K2 / K4's key block: the TPU kernel's block_k
+
+
+def _block_softmax_pv(s, valid, v, block_k: int, keep=None):
+    """The TPU kernels' online softmax and P V over blocks of block_k keys:
+    (acc, l, m) from the fp32 masked scores s [.., Lq, Lk] and v
+    [.., Lk, Dh]. In each block the probabilities exp(s - running max)
+    (0 where ``valid`` is False) are summed into l unrounded, multiplied by
+    ``keep`` (the dropout scale) when given, rounded to v's dtype and
+    multiplied into v; the earlier sums are rescaled by exp(old max - new
+    max). The running maximum m is a stabiliser and carries no gradient."""
+    m = torch.full((*s.shape[:-1], 1), _MASKED, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*s.shape[:-1], v.shape[-1], device=s.device)
+    for c0 in range(0, s.shape[-1], block_k):
+        block = slice(c0, c0 + block_k)
+        m_next = torch.maximum(m, s[..., block].detach().amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.where(valid[..., block], torch.exp(s[..., block] - m_next), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if keep is not None:
+            p = p * keep[..., block]
+        acc = acc * alpha + torch.matmul(_as_fp32(p, v), v[..., block, :].float())
+        m = m_next
+    return acc, l, m
 
 
 def packed_segment_attention_reference(
@@ -86,18 +118,7 @@ def packed_segment_attention_reference(
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     seg = seg_ids.to(torch.int32)
     valid = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0))[:, None]
-    s = torch.where(valid, s, _MASKED)
-    m = torch.full((*s.shape[:-1], 1), _MASKED, device=s.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(*s.shape[:-1], Dh, device=s.device)
-    for c0 in range(0, s.shape[-1], SEG_BLOCK_K):
-        block = slice(c0, c0 + SEG_BLOCK_K)
-        m_next = torch.maximum(m, s[..., block].amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_next)
-        p = torch.where(valid[..., block], torch.exp(s[..., block] - m_next), 0.0)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(_as_fp32(p, v), v[..., block, :].float())
-        m = m_next
+    acc, l, _ = _block_softmax_pv(torch.where(valid, s, _MASKED), valid, v, SEG_BLOCK_K)
     return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
 
 
@@ -269,6 +290,13 @@ def flash_attention_reference(
     the hashed dropout on the numerator. Returns (out [B, H, Lq, Dh] in q's
     dtype, lse [B, H, Lq] fp32). Differentiable by autograd.
 
+    The softmax walks blocks of K3_BLOCK_K keys with a running maximum, as
+    the TPU kernel does at its default block_k (the EHR encoder's): in each
+    block the probabilities exp(s - running max) are rounded to v's dtype
+    before P V, the row sum is taken over the unrounded ones, and the
+    earlier sums are rescaled by exp(old max - new max). For Lk <= 512 the
+    running maximum is the row maximum.
+
     ``bh_offset``: the batch*head index of q's first row in the batch whose
     dropout bits it takes, so that a slice of batch rows [b0, b1) with
     bh_offset b0*H gets the bits the whole batch gets (the plain versions'
@@ -279,14 +307,12 @@ def flash_attention_reference(
     valid = _key_valid(key_mask, k)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     s = torch.where(valid, s, _MASKED)
-    m = s.detach().amax(dim=-1, keepdim=True)   # a stabiliser: no gradient
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
+    keep = None
     if dropout_rate > 0.0:
-        p = p * _keep_scale(s.shape, dropout_rate, dropout_seed, q.device, bh_offset)
+        keep = _keep_scale(s.shape, dropout_rate, dropout_seed, q.device, bh_offset)
+    acc, l, m = _block_softmax_pv(s, valid, v, K3_BLOCK_K, keep)
     safe_l = torch.where(l == 0.0, 1.0, l)
-    out = torch.matmul(_as_fp32(p, v), v.float()) / safe_l
-    return out.to(q.dtype), (m + torch.log(safe_l)).squeeze(-1)
+    return (acc / safe_l).to(q.dtype), (m + torch.log(safe_l)).squeeze(-1)
 
 
 def _bwd_terms(q, k, v, key_mask, lse, delta, do, sm_scale, dropout_rate,
@@ -324,6 +350,21 @@ def flash_attention_dkv_reference(q, k, v, key_mask, lse, delta, do, *,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_grad_terms(q, k, v, key_mask, lse, delta, do, *,
+                               sm_scale: float, dropout_rate: float = 0.0,
+                               dropout_seed=0, bh_offset: int = 0):
+    """The sums of the magnitudes of the terms of dQ, dK and dV, fp32:
+    sm_scale |ds| |K|, sm_scale |ds|^T |Q| and |ã|^T |dO|. A term whose
+    bf16 rounding flips moves its sum by at most one bf16 ulp of the term,
+    so these scale the tolerance of a bf16 gradient."""
+    ds, a_drop = _bwd_terms(q, k, v, key_mask, lse, delta, do, sm_scale,
+                            dropout_rate, dropout_seed, bh_offset)
+    ds, a_drop = ds.abs(), a_drop.abs()
+    return (sm_scale * torch.matmul(ds, k.float().abs()),
+            sm_scale * torch.matmul(ds.transpose(-1, -2), q.float().abs()),
+            torch.matmul(a_drop.transpose(-1, -2), do.float().abs()))
+
+
 def _k3_device(tensors) -> str:
     """'cpu' when every tensor is on the CPU; 'cuda' when all are on one
     CUDA device; otherwise raises."""
@@ -349,6 +390,8 @@ def _k3_check(q, k, v, key_mask, extra=()):
     B, H, Lq, Dh = q.shape
     if Dh != K3_HEAD_DIM:
         raise ValueError(f"K3 takes head width {K3_HEAD_DIM}, got {Dh}")
+    if Lq < 1 or k.shape[2] < 1:
+        raise ValueError(f"K3 takes Lq, Lk >= 1, got {Lq}, {k.shape[2]}")
     if key_mask.shape != (B, k.shape[2]) or key_mask.dtype != torch.bool:
         raise ValueError(f"key_mask must be [B, Lk] = [{B}, {k.shape[2]}] bool, "
                          f"got {key_mask.dtype} {tuple(key_mask.shape)}")

@@ -14,9 +14,13 @@ from medtok_tpu_torch.ops import flash_attention as fa
 # fp32: both sides compute in fp32 and differ only in summation order.
 # bf16: both sides round the inputs, the probabilities (forward) and ds /
 # the dropped probabilities (backward) to bf16 (8-bit mantissa, relative
-# step 2**-8), but at different points of the online softmax (the TPU
-# kernel against a running max per 32-key block, the plain version against
-# the row max), so values of order 1 differ by a few bf16 steps.
+# step 2**-8). The plain version rounds the forward's probabilities against
+# the running max of 512-key blocks, the TPU kernel's default block_k;
+# here the Pallas kernel is called with block_k=32, so that L=67 spans
+# three blocks, and rounds against the running max of each 32-key block
+# while the plain version's one block uses the row max. So values of order
+# 1 differ by a few bf16 steps. At the default blocks the two agree within
+# one bf16 ulp of each term (tests/test_torch_flash3_bf16.py).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
