@@ -26,14 +26,14 @@ Phases, each fatal on failure:
      mask, dropout 0.5, with a batch row that has no valid key, the plain
      version run in slices of 8 batch rows with the whole batch's dropout
      bits: fp32 out / lse / dq / dk / dv through autograd; bf16 each kernel
-     against its plain version on the same inputs, element by element
-     within one bf16 ulp of each term of its sum (out: and one of its
-     value) and under 1% of the elements differing, two backward passes
-     bitwise equal
-     and equal to the autograd Function's; the same bf16 checks at Lq != Lk,
-     lengths 100 and 700, key masks with holes and with dropout 0; time the
-     kernels on the path's mask and on an all-valid one beside
-     scaled_dot_product_attention and the per-score floors;
+     (all three on the tensor cores) against its plain version on the same
+     inputs, element by element within one bf16 ulp of each term of its sum
+     (out: and one of its value) and under 1% of the elements differing,
+     two backward passes bitwise equal and equal to the autograd
+     Function's; the same bf16 checks at Lq != Lk, lengths 100 and 700, key
+     masks with holes and with dropout 0; time the kernels on the path's
+     mask and on an all-valid one beside scaled_dot_product_attention and
+     the per-score floors (exp, and the issue slots of K3_SLOTS);
   8. train the EHR outcome model at EHRTrainConfig() width (batch 256,
      2003 positions, 4 layers of 4 heads, 64 wide) on the export's
      embeddings_all for one epoch of a few steps and evaluate it on two
@@ -57,7 +57,20 @@ Phases, each fatal on failure:
      kernel launches: the packed-BERT probe
      (medtok_tpu_torch.scripts.profile_bert, K2 and K4 12 per kernel-leg
      call) and the Count A/B (medtok_tpu_torch.scripts.bench_adj, every
-     variant within 1e-6 of the histogram).
+     variant within 1e-6 of the histogram);
+ 13. the widths (run right after the build): ROADMAP Queue 3's three
+     witnesses (K3 on [1, 1, 1, 32] bf16 and K2 on [1, 1, 1, 8] bf16 return
+     v, K1 on z [1, 16] against 5 codewords gives the plain version's
+     indices; width 264 raises), then each kernel against its plain version
+     at other widths, in both dtypes where it has both routes, by the
+     checks of phases 3, 4, 7 and 10: K3 fwd / dq / dkv at head widths 8,
+     12, 32, 64, 128, 256; K2 and K4 at 8, 16, 32, 128, 256; K1 at 16, 32,
+     100, 128, 256 (widths that are no built width run zero-padded);
+ 14. the model-level witnesses: EHRTrainer(EHRTrainConfig(num_heads=2))
+     (head width 32) trains two steps on the card with 4 launches of each
+     K3 kernel a step, and an fp32 export at the verify recipe's widths
+     (text hidden 32 / 4 heads, codebook 90 x 16) on the card is held to
+     the plain versions on the CPU by phase 5's tie-gap rule.
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets and of K2.
 It then prints the card, one JSON line of kernel measurements and, last,
@@ -92,12 +105,18 @@ EHR_EVAL_BATCHES = 2
 K3_SLICE = 8            # batch rows per slice of K3's plain version
 K3_HEADS = 4
 K3_SEED = 20261016
-# issue slots of CUDA-core work per score in the bf16 backward kernels (the
-# source note of csrc/flash_attention.cu): ex2 and its FFMA, the mask, the
-# hash (one 3-input xor, three xorshifts, two multiplies, the compare), the
-# keep select and scale, t - D, a * (t - D), half a bf16 pair conversion;
-# dkv also scales a~ and converts it
-K3_SLOTS = {"dq": 17, "dkv": 19}
+# issue slots of CUDA-core work per score in the bf16 kernels (the source
+# note of csrc/flash_attention.cu): ex2 and its FFMA, the mask, the hash (one
+# 3-input xor, three xorshifts, two multiplies, the compare), the keep select
+# and scale, half a bf16 pair conversion; the forward adds the l sum and
+# pass 0's scale and maximum, dq t - D and a * (t - D), dkv also scales a~
+# and converts it
+K3_SLOTS = {"fwd": 15.5, "dq": 17, "dkv": 19}
+# head widths of the width phase (each kernel against its plain version);
+# widths that are no built width are zero-padded by the wrappers
+K3_WIDTHS = (8, 12, 32, 64, 128, 256)
+SEGMENT_WIDTHS = (8, 16, 32, 128, 256)
+K1_WIDTHS = (16, 32, 100, 128, 256)
 # (B, Ln, Epg) of the Count checks: the bench's Ln=512 tail shape, an export
 # bucket, and a dense shape whose cells sum many fractional weights
 K5_SHAPES = ((512, 512, 8192), (512, 128, 1024), (64, 16, 8192))
@@ -134,44 +153,62 @@ def check(cond: bool, what: str) -> None:
 
 # --------------------------------------------------------------------- K1 --
 
+def unit_rows(gen, dev, *shape):
+    """Random rows of unit length, as the quantizer's normalized inputs."""
+    import torch
+
+    from medtok_tpu_torch.ops import vq
+
+    return vq.l2_normalize(torch.randn(*shape, generator=gen, device=dev))
+
+
+def check_k1_case(z, e, label: str) -> float:
+    """K1 on z against the codebook rows e, held to the plain version: rows
+    without a near tie (gaps > 1e-5) identical, rows whose k-th gap exceeds
+    1e-5 set-equal, values within 1e-5. Returns the largest value error."""
+    import torch
+
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    B = z.shape[0]
+    vals, idx = fused_topk_l2(z, e, k=K)
+    torch.cuda.synchronize()
+    pv, pi = vq.topk_smallest(vq.squared_distance(z, e), K + 1)
+    gaps = pv[:, 1:] - pv[:, :-1]                  # [B, K]
+    clean = (gaps > 1e-5).all(dim=1)               # no near tie anywhere
+    boundary_ok = gaps[:, K - 1] > 1e-5            # no tie at the k-th
+    check(torch.equal(idx[clean].long(), pi[clean, :K]),
+          f"K1 {label}: indices differ from the plain version on clean rows")
+    same_set = (torch.sort(idx.long(), dim=1).values
+                == torch.sort(pi[:, :K], dim=1).values).all(dim=1)
+    check(bool(same_set[boundary_ok].all()),
+          f"K1 {label}: index sets differ where the k-th gap exceeds 1e-5")
+    ordered = (idx.long() == pi[:, :K]).all(dim=1)
+    err = float((vals - pv[:, :K]).abs().max())
+    check(err <= 1e-5, f"K1 {label}: value error {err} > 1e-5")
+    log(f"K1 {label} B={B} N={e.shape[0]} D={e.shape[1]}: {int(clean.sum())}/{B} rows "
+        f"without near ties identical, {int(boundary_ok.sum())} rows with "
+        f"the boundary gap > 1e-5 set-equal ({int(ordered[boundary_ok].sum())} "
+        f"of them in the same order), {int(ordered.sum())}/{B} rows identical "
+        f"overall, max |value err| {err:.3e}")
+    return err
+
+
 def check_k1(gen, dev) -> dict:
     import torch
 
     from medtok_tpu_torch.ops import vq
     from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2, fused_topk_l2_reference
 
-    def unit(*shape):
-        return vq.l2_normalize(torch.randn(*shape, generator=gen, device=dev))
-
     B, N = 4096, 21000
-    z, cb = unit(B, D), unit(N, D)
-    result = {}
-    for label, e in (("full", cb), ("region", vq.region_slice(cb, "graph"))):
-        vals, idx = fused_topk_l2(z, e, k=K)
-        torch.cuda.synchronize()
-        pv, pi = vq.topk_smallest(vq.squared_distance(z, e), K + 1)
-        gaps = pv[:, 1:] - pv[:, :-1]                  # [B, K]
-        clean = (gaps > 1e-5).all(dim=1)               # no near tie anywhere
-        boundary_ok = gaps[:, K - 1] > 1e-5            # no tie at the k-th
-        check(torch.equal(idx[clean].long(), pi[clean, :K]),
-              f"K1 {label}: indices differ from the plain version on clean rows")
-        same_set = (torch.sort(idx.long(), dim=1).values
-                    == torch.sort(pi[:, :K], dim=1).values).all(dim=1)
-        check(bool(same_set[boundary_ok].all()),
-              f"K1 {label}: index sets differ where the k-th gap exceeds 1e-5")
-        ordered = (idx.long() == pi[:, :K]).all(dim=1)
-        err = float((vals - pv[:, :K]).abs().max())
-        check(err <= 1e-5, f"K1 {label}: value error {err} > 1e-5")
-        log(f"K1 {label} B={B} N={e.shape[0]}: {int(clean.sum())}/{B} rows "
-            f"without near ties identical, {int(boundary_ok.sum())} rows with "
-            f"the boundary gap > 1e-5 set-equal ({int(ordered[boundary_ok].sum())} "
-            f"of them in the same order), {int(ordered.sum())}/{B} rows identical "
-            f"overall, max |value err| {err:.3e}")
-        result[label] = dict(err=err, n=e.shape[0])
+    z, cb = unit_rows(gen, dev, B, D), unit_rows(gen, dev, N, D)
+    result = {label: dict(err=check_k1_case(z, e, label), n=e.shape[0])
+              for label, e in (("full", cb), ("region", vq.region_slice(cb, "graph")))}
 
     # exact ties: every codeword twice -> the lower copy ranks first
     N0 = N // 2
-    base = unit(N0, D)
+    base = unit_rows(gen, dev, N0, D)
     e = torch.cat([base, base])
     vals, idx = fused_topk_l2(z, e, k=K)
     idx = idx.long()
@@ -322,7 +359,8 @@ def heads_first(*ts):
     return [t.transpose(1, 2).contiguous() for t in ts]
 
 
-def check_segment_case(gen, dev, seg, nt: bool, label: str, H: int = 12) -> dict:
+def check_segment_case(gen, dev, seg, nt: bool, label: str, H: int = 12,
+                       Dh: int = D) -> dict:
     """K2 (nt False, [B, H, L, Dh]) or K4 (nt True, [B, L, H, Dh]) on one
     segment layout, from the same random inputs in fp32 and rounded to
     bf16: fp32 within 1e-5 and bf16 within 2e-2 of the fp32 plain version,
@@ -337,7 +375,7 @@ def check_segment_case(gen, dev, seg, nt: bool, label: str, H: int = 12) -> dict
     name = f"{kernel} {label}"
     B, L = seg.shape
     pad = seg == 0
-    shape = (B, L, H, D) if nt else (B, H, L, D)
+    shape = (B, L, H, Dh) if nt else (B, H, L, Dh)
     q32, k32, v32 = (torch.randn(*shape, generator=gen, device=dev) for _ in range(3))
     errs = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -695,7 +733,8 @@ def tie_gaps(tok, w, ref_tok, ref_w):
     return np.asarray(gaps)
 
 
-def check_reference(model, dataset, dev, n_codes: int = 64) -> None:
+def check_reference(model, dataset, dev, n_codes: int = 64,
+                    label: str = "fp32 reference") -> None:
     """A small fp32 export with the kernels on the card against the same
     export with the plain versions on the CPU. Token rows may differ only
     where the reference's picks are tied to within 1e-5 (docs/PARITY.md);
@@ -731,10 +770,10 @@ def check_reference(model, dataset, dev, n_codes: int = 64) -> None:
         (float(np.abs(got["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]
                       - want["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]).max())
          for p in range(4) if rows_equal[:, p].any()), default=0.0)
-    check(max_gap <= 1e-5, f"fp32 reference: token rows differ beyond a tie "
+    check(max_gap <= 1e-5, f"{label}: token rows differ beyond a tie "
           f"(gaps {gaps.tolist()} > 1e-5)")
-    check(emb_err <= 1e-4, f"fp32 reference: embedding error {emb_err} > 1e-4")
-    log(f"fp32 reference ({n_codes} codes, kernels on the card vs plain on the "
+    check(emb_err <= 1e-4, f"{label}: embedding error {emb_err} > 1e-4")
+    log(f"{label} ({n_codes} codes, kernels on the card vs plain on the "
         f"CPU): {int((~rows_equal).sum())}/{rows_equal.size} token rows differ, "
         f"max tie gap {max_gap:.3e}; embedding max err {emb_err:.3e} on the "
         f"other rows")
@@ -867,11 +906,11 @@ def sm_clock_hz() -> float:
     return float(out[0]) * 1e6
 
 
-def check_k3_fp32(gen, dev, mask, kw) -> dict:
+def check_k3_fp32(gen, dev, mask, kw, Dh: int = 16) -> dict:
     """K3 in fp32 through autograd against autograd through the plain
-    version, in slices of K3_SLICE batch rows: out / dq / dk / dv within
-    1e-5 / 1e-4 of the plain version's largest value, lse within 1e-4.
-    Returns the largest absolute errors."""
+    version, in slices of K3_SLICE batch rows, at head width Dh: out / dq /
+    dk / dv within 1e-5 / 1e-4 of the plain version's largest value, lse
+    within 1e-4. Returns the largest absolute errors."""
     import torch
 
     from medtok_tpu_torch.ops import flash_attention as fa
@@ -879,7 +918,7 @@ def check_k3_fp32(gen, dev, mask, kw) -> dict:
     Bf, L = mask.shape
     H, S = K3_HEADS, K3_SLICE
     keys = ("out", "lse", "dq", "dk", "dv")
-    q, k, v, do = (torch.randn(Bf, H, L, 16, generator=gen, device=dev) for _ in range(4))
+    q, k, v, do = (torch.randn(Bf, H, L, Dh, generator=gen, device=dev) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, mask, **kw)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     (fa.flash_attention(*leaves, mask, **kw) * do).sum().backward()
@@ -906,7 +945,7 @@ def check_k3_fp32(gen, dev, mask, kw) -> dict:
           "K3 float32: the row with no valid key is not 0 / -1e30")
     check(all(bool((got[g][-1] == 0).all()) for g in ("dq", "dk", "dv")),
           "K3 float32: the row with no valid key has non-zero gradients")
-    log(f"K3 float32 [{Bf}*{H}, {L}, 16] dropout {kw['dropout_rate']}, "
+    log(f"K3 float32 [{Bf}*{H}, {L}, {Dh}] dropout {kw['dropout_rate']}, "
         f"{float(mask.float().mean()):.3f} of the keys valid, plain version in slices of "
         f"{S} batch rows: errors relative to the plain version's max: out {e['out']:.3e}, "
         f"dq {e['dq']:.3e}, dk {e['dk']:.3e}, dv {e['dv']:.3e}; lse max abs err "
@@ -1070,8 +1109,8 @@ def check_k3(gen, dev, mask_path) -> list[dict]:
             f"{lib[rate][0]:.4f} ms, fwd+bwd {lib[rate][1]:.4f} ms (its backward "
             f"computes dq, dk and dv together); per-score floors at "
             f"{props.multi_processor_count} SMs and {clock / 1e9:.3f} GHz: exp {exp_ms:.4f} ms, "
-            f"issue dq {issue_ms['dq']:.4f} ms ({K3_SLOTS['dq']} slots), dkv "
-            f"{issue_ms['dkv']:.4f} ms ({K3_SLOTS['dkv']} slots)")
+            + ", ".join(f"issue {key} {issue_ms[key]:.4f} ms ({n} slots)"
+                        for key, n in K3_SLOTS.items()))
         if label == "path":
             # the plain versions over the whole batch, a slice of S rows at a time
             def sliced(fn, tensors):
@@ -1093,7 +1132,8 @@ def check_k3(gen, dev, mask_path) -> list[dict]:
             log(f"  K3-{key} ({label}): kernel {ms[key]:.4f} ms, "
                 + (f"plain {plain[key]:.4f} ms, " if label == "path" else "")
                 + f"library {lib_ms[key]:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
+                f"{ms[key] / max(exp_ms, issue_ms[key]):.2f}x its per-score floor")
             if label == "path":
                 rows.append(dict(name=name, route="cuda",
                                  source="medtok_tpu_torch/csrc/flash_attention.cu",
@@ -1105,7 +1145,9 @@ def check_k3(gen, dev, mask_path) -> list[dict]:
                                  library_ms=lib_ms[key]))
         log(f"  K3 backward ({label}): dq + dkv {ms['dq'] + ms['dkv']:.4f} ms vs the "
             f"library's backward {lib_ms['dq']:.4f} ms: "
-            + ("faster" if ms["dq"] + ms["dkv"] < lib_ms["dq"] else "slower"))
+            + ("faster" if ms["dq"] + ms["dkv"] < lib_ms["dq"] else "slower")
+            + f"; K3-fwd {ms['fwd']:.4f} ms vs the library's forward {lib_ms['fwd']:.4f} "
+            f"ms: " + ("faster" if ms["fwd"] < lib_ms["fwd"] else "slower"))
     return rows
 
 
@@ -1297,6 +1339,210 @@ def run_slice3() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- widths --
+
+def width_masks(dev, Lk: int):
+    """[3, Lk] key masks for the width phase: holes (k3_edge_masks' first
+    row), a row whose first 512-key block is all padding (K3-fwd skips the
+    block whole), and a row with no valid key."""
+    import torch
+
+    j = torch.arange(Lk, device=dev)
+    return torch.stack([k3_edge_masks(dev, 3, Lk)[0], j >= 520,
+                        torch.zeros_like(j, dtype=torch.bool)])
+
+
+def check_widths(gen, dev) -> None:
+    """Each kernel against its plain version at head / embedding widths
+    other than the path's, in both dtypes where it has both routes: K3 fwd /
+    dq / dkv at K3_WIDTHS (fp32 through autograd at L = 600 as
+    check_k3_fp32, bf16 by check_k3_bf16 at Lq = 300 against Lk = 1100,
+    dropout 0.5), K2 and K4 at SEGMENT_WIDTHS (check_segment_case on
+    edge_segments at L = 300), K1 at K1_WIDTHS (check_k1_case on 512 rows
+    against 3000 codewords and their last third). Widths that are no built
+    width run padded, and every call must launch its kernel."""
+    import torch
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    for f in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv,
+              fa.packed_segment_attention, fa.packed_segment_attention_nt, fused_topk_l2):
+        f.launches = 0
+    for Dh in K3_WIDTHS:
+        kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=0.5, dropout_seed=K3_SEED)
+        check_k3_fp32(gen, dev, width_masks(dev, 600), kw, Dh=Dh)
+        B, H, Lq, Lk = 3, 2, 300, 1100
+        q, do = (torch.randn(B, H, Lq, Dh, generator=gen, device=dev).to(bf) for _ in range(2))
+        k, v = (torch.randn(B, H, Lk, Dh, generator=gen, device=dev).to(bf) for _ in range(2))
+        check_k3_bf16(q, k, v, do, width_masks(dev, Lk), kw, f"width Dh={Dh}")
+    for Dh in SEGMENT_WIDTHS:
+        for nt in (False, True):
+            check_segment_case(gen, dev, edge_segments(dev, 300), nt,
+                               f"width Dh={Dh}, edge segments L=300", H=2, Dh=Dh)
+    for Dk in K1_WIDTHS:
+        z, cb = unit_rows(gen, dev, 512, Dk), unit_rows(gen, dev, 3000, Dk)
+        for label, e in (("full", cb), ("region", vq.region_slice(cb, "graph"))):
+            check_k1_case(z, e, f"width D={Dk} {label}")
+    launches = {f.__name__: f.launches
+                for f in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv,
+                          fa.packed_segment_attention, fa.packed_segment_attention_nt,
+                          fused_topk_l2)}
+    check(all(n > 0 for n in launches.values()), f"width phase: a kernel never ran: {launches}")
+    log(f"width phase: {time.perf_counter() - t0:.2f} s, launches {launches}")
+    width_times(gen, dev)
+
+
+def width_times(gen, dev) -> None:
+    """Device times of each kernel at every width of the width phase, both
+    dtypes: K3 fwd / dq / dkv at [16*4, 2003, Dh] all-valid, dropout 0.5;
+    K2 and K4 at [256, 12, 128, Dh] on edge_segments rows; K1 at z [4096,
+    D] against 21000 codewords."""
+    import torch
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        for Dh in K3_WIDTHS:
+            kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=0.5, dropout_seed=K3_SEED)
+            q, k, v, do = (torch.randn(16, 4, 2003, Dh, generator=gen, device=dev).to(dtype)
+                           for _ in range(4))
+            m = torch.ones(16, 2003, dtype=torch.bool, device=dev)
+            out, lse = fa.flash_attention_fwd(q, k, v, m, **kw)
+            bwd = (q, k, v, m, lse, (do.float() * out.float()).sum(-1), do)
+            ms = [cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, m, **kw), 3),
+                  cuda_ms(lambda: fa.flash_attention_dq(*bwd, **kw), 3),
+                  cuda_ms(lambda: fa.flash_attention_dkv(*bwd, **kw), 3)]
+            log(f"width times K3 {tag} [16*4, 2003, {Dh}] all-valid: fwd {ms[0]:.4f} ms, "
+                f"dq {ms[1]:.4f} ms, dkv {ms[2]:.4f} ms")
+            del q, k, v, do, out, lse, bwd
+        seg = edge_segments(dev, 128).repeat(52, 1)[:256].contiguous()
+        for Dh in SEGMENT_WIDTHS:
+            q, k, v = (torch.randn(256, 12, 128, Dh, generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            k2 = cuda_ms(lambda: fa.packed_segment_attention(q, k, v, seg), 5)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            k4 = cuda_ms(lambda: fa.packed_segment_attention_nt(qt, kt, vt, seg), 5)
+            log(f"width times K2 / K4 {tag} [256, 12, 128, {Dh}] on edge segments: K2 "
+                f"{k2:.4f} ms, K4 {k4:.4f} ms")
+            del q, k, v, qt, kt, vt
+    for Dk in K1_WIDTHS:
+        z, cb = unit_rows(gen, dev, 4096, Dk), unit_rows(gen, dev, 21000, Dk)
+        log(f"width times K1 z [4096, {Dk}] x e [21000, {Dk}], k={K}: "
+            f"{cuda_ms(lambda: fused_topk_l2(z, cb, k=K), 5):.4f} ms")
+
+
+def check_width_witnesses(dev) -> None:
+    """The three smallest inputs that raised while each kernel took one
+    width (ROADMAP Queue 3): K3 on [1, 1, 1, 32] bf16 and K2 on [1, 1, 1, 8]
+    bf16 with seg [[1]] return v (one valid key), K1 on z [1, 16] against 5
+    codewords returns the plain version's 5 indices; each launches its
+    kernel. A width above 256 raises, naming the limit."""
+    import torch
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2, fused_topk_l2_reference
+
+    g = torch.Generator(device=dev).manual_seed(K3_SEED)
+    q, k, v = (torch.randn(1, 1, 1, 32, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention(q, k, v)
+    check(torch.equal(out, v) and fa.flash_attention_fwd.launches == before + 1,
+          f"witness: flash_attention on [1, 1, 1, 32] gave {out.flatten()[:4].tolist()}, "
+          f"not v")
+    q, k, v = (torch.randn(1, 1, 1, 8, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    seg = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    before = fa.packed_segment_attention.launches
+    out = fa.packed_segment_attention(q, k, v, seg)
+    check(torch.equal(out, v) and fa.packed_segment_attention.launches == before + 1,
+          "witness: packed_segment_attention on [1, 1, 1, 8] did not return v")
+    z, e = unit_rows(g, dev, 1, 16), unit_rows(g, dev, 5, 16)
+    before = fused_topk_l2.launches
+    _, idx = fused_topk_l2(z, e, k=K)
+    _, want = fused_topk_l2_reference(z, e, K)
+    check(torch.equal(idx, want) and fused_topk_l2.launches == before + 1,
+          f"witness: K1 on z [1, 16], codebook [5, 16] gave {idx.tolist()}, want "
+          f"{want.tolist()}")
+    wide = torch.zeros(1, 1, 1, 264, device=dev)
+    for name, call in (("K3", lambda: fa.flash_attention(wide, wide, wide)),
+                       ("K2", lambda: fa.packed_segment_attention(wide, wide, wide, seg)),
+                       ("K1", lambda: fused_topk_l2(wide[0, 0], wide[0, 0], k=1))):
+        try:
+            call()
+        except ValueError as err:
+            check("256" in str(err), f"witness: {name} at width 264 raised {err!r}")
+        else:
+            raise AssertionError(f"witness: {name} took width 264")
+    log(f"width witnesses: K3 [1, 1, 1, 32] and K2 [1, 1, 1, 8] return v, K1 z [1, 16] "
+        f"against 5 codewords gives {idx.tolist()[0]} as the plain version does; width "
+        f"264 raises in K3, K2 and K1")
+
+
+def check_ehr_heads(table, ehr: dict, dev, n: int = 32) -> None:
+    """EHRTrainer(EHRTrainConfig(num_heads=2)) (head width 32) trains two
+    steps on n samples of an eval batch with K3: 4 launches of each K3
+    kernel a step, finite losses."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(EHRTrainConfig(), num_heads=2)
+    trainer = EHRTrainer(cfg, table, 2, device=dev)
+    check(trainer.use_flash, "EHR num_heads=2: K3 was not picked on the card")
+    first = ehr["eval"][0]
+    batch = type(first)(*(x[:n] for x in first))
+    for f in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv):
+        f.launches = 0
+    losses = [float(trainer.train_step(batch)[0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = k3_counts()
+    want = dict.fromkeys(("fwd", "dq", "dkv"), 2 * cfg.num_layers)
+    check(counts == want, f"EHR num_heads=2: K3 launches {counts} != {want}")
+    check(all(map(np.isfinite, losses)), f"EHR num_heads=2: losses {losses}")
+    log(f"EHR num_heads=2 (head width {cfg.input_dim // cfg.num_heads}): two train "
+        f"steps on {n} samples, losses {losses}, K3 launches {counts}")
+
+
+def check_small_export(dataset, dev, gen) -> None:
+    """The verify recipe's widths (text hidden 32 / 4 heads: K2 at head
+    width 8; codebook 90 x 16: K1 at width 16; graph 8/16/16): a small fp32
+    export with the kernels on the card against the plain versions on the
+    CPU by check_reference's tie-gap rule, K1 and K2 launched."""
+    from medtok_tpu_torch.config import (
+        GraphEncoderConfig,
+        ModelConfig,
+        QuantizerConfig,
+        TextEncoderConfig,
+    )
+    from medtok_tpu_torch.models.layers import init_random_
+    from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    cfg = ModelConfig(
+        text=TextEncoderConfig(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64),
+        graph=GraphEncoderConfig(in_channels=8, hidden_channels=16, out_channels=16),
+        quantizer=QuantizerConfig(codebook_size=90, codebook_embed_dim=16))
+    model = init_random_(MultimodalTokenizer(cfg, device=dev), gen).eval()
+    fused_topk_l2.launches = 0
+    packed_segment_attention.launches = 0
+    check_reference(model, dataset, dev, label="verify-recipe widths, fp32")
+    launches = {"topk_l2": fused_topk_l2.launches,
+                "segment_attention": packed_segment_attention.launches}
+    check(all(n > 0 for n in launches.values()),
+          f"verify-recipe widths: a kernel never ran on the card: {launches}")
+    log(f"verify-recipe widths export: launches {launches}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1336,6 +1582,8 @@ def main(argv=None) -> int:
                 or line.startswith("=="):
             log(f"  {line.strip()}")
 
+    check_width_witnesses(dev)
+    check_widths(gen, dev)
     k1 = check_k1(gen, dev)
 
     t0 = time.perf_counter()
@@ -1374,6 +1622,8 @@ def main(argv=None) -> int:
     k3_launches, trainer = run_ehr(table, ehr, dev)
     check_ehr_reference(trainer, ehr, dev)
     del trainer
+    check_ehr_heads(table, ehr, dev)
+    check_small_export(dataset, dev, gen)
     slice3 = run_slice3()
 
     k1["launches"] = launches["topk_l2"]

@@ -7,8 +7,11 @@
 // attention with q, k, v, out in the projection layout [B, L, H, Dh]. Each
 // kernel below is templated on the layout: element (b, h, i, d) sits at
 // b*L*H*Dh + h*head_stride + i*row_stride + d, with (head, row) strides
-// (L*Dh, Dh) for K2 and (Dh, H*Dh) for K4. Dh = 64 is contiguous in both, so
-// a row is one 128-byte (bf16) or 256-byte (fp32) run. seg is [B, L] int32.
+// (L*Dh, Dh) for K2 and (Dh, H*Dh) for K4. Dh is contiguous in both, so a
+// row is one run of 2*Dh (bf16) or 4*Dh (fp32) bytes. Each kernel is also
+// templated on Dh and built at 16, 32, 64, 128 and 256 (bert-base: 64); the
+// wrapper zero-pads any other width up to the next one, which changes no
+// score and no kept column. seg is [B, L] int32.
 // Query i of a row attends to key j iff seg_i == seg_j > 0; the scores
 // q.k * sm_scale and the softmax run in fp32, and a query row with no valid
 // key (padding) writes 0. As in the TPU kernel, bf16 probabilities are
@@ -38,10 +41,12 @@
 // contiguous), and the block stages only the groups that one of its warps
 // needs, so a 64-query tile of a packed row reads about its own share of K
 // and V, and a tile of padding reads nothing but its segment ids. Loads are
-// 16-byte cp.async with zero fill past L into rows padded to 72 bf16, so
-// ldmatrix is free of bank conflicts. The key block is not double-buffered:
-// at the packed shape (L = 128) it is the row's only one, and loads overlap
-// products across the blocks resident on an SM instead. The output is staged
+// 16-byte cp.async with zero fill past L into rows padded to Dh + 8 bf16,
+// so ldmatrix is free of bank conflicts at every width; Q, K and V live in
+// dynamic shared memory (46 KB a block at Dh = 64, 169 KB at Dh = 256).
+// The key block is not double-buffered: at the packed shape (L = 128) it is
+// the row's only one, and loads overlap products across the blocks resident
+// on an SM instead. The output is staged
 // through the warp's Q rows for coalesced 16-byte stores in either layout.
 // No atomics on the data, so a launch is deterministic. wgmma, TMA and warp
 // specialisation would speed up products that are not the bound here.
@@ -49,8 +54,9 @@
 // fp32 path (segment_attention_fp32_kernel), the parity path: it needs exact
 // fp32 products, which the bf16 tensor cores do not give. One block per (row
 // b, head h, tile of 128 queries), one thread per query with its q row and
-// fp32 accumulator in registers; keys and values stream through shared
-// memory in tiles of 32 and a thread skips keys of other segments.
+// fp32 accumulator in registers (at Dh = 256 they spill to local memory);
+// keys and values stream through shared memory in tiles of 32 (16 at Dh =
+// 256) and a thread skips keys of other segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,13 +69,15 @@
 
 namespace {
 
-constexpr int DH = 64;            // head width (bert-base: 768 / 12)
 constexpr float MASKED = -1e30f;  // the TPU kernel's finite stand-in for -inf
 
 // ------------------------------------------------------------ fp32 path --
 
 constexpr int QT = 128;   // queries per block (one per thread)
-constexpr int TK = 32;    // keys per staged tile
+
+// keys per staged tile: two fp32 tiles of at most 32 KB
+template <int DH>
+__host__ __device__ constexpr int tk_rows() { return DH <= 128 ? 32 : 16; }
 
 __device__ __forceinline__ void load8(const float* p, float* o) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -84,11 +92,12 @@ __device__ __forceinline__ void store8(float* p, const float* o) {
 }
 
 // kBLHD: the [B, L, H, Dh] layout (K4); otherwise [B, H, L, Dh] (K2)
-template <bool kBLHD>
+template <int DH, bool kBLHD>
 __global__ void __launch_bounds__(QT)
 segment_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const int* __restrict__ seg,
                               float* __restrict__ out, int H, int L, float sm_scale) {
+  constexpr int TK = tk_rows<DH>();
   __shared__ __align__(16) float k_s[TK][DH];
   __shared__ __align__(16) float v_s[TK][DH];
   __shared__ int seg_s[TK];
@@ -184,21 +193,31 @@ constexpr int BQ = 16 * WARPS;  // queries per block, 16 per warp
 constexpr int KC = 128;         // keys per block of the online softmax
 constexpr int GK = 16;          // keys per skip group (one P.V k-step)
 constexpr int NG = KC / GK;     // skip groups per key block
-constexpr int SROW = DH + 8;    // padded shared-memory row, in bf16
 constexpr unsigned FULL = FULL_MASK;
 
-// Fragment layout of m16n8k16: see mma_bf16.cuh.
-template <bool kBLHD>
-__global__ void __launch_bounds__(32 * WARPS, 4)
+// dynamic shared memory of a block: Q (then the output), K and V in rows
+// padded to DH + 8 bf16
+template <int DH>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return (size_t)(BQ + 2 * KC) * (DH + 8) * 2;
+}
+
+// Fragment layout of m16n8k16: see mma_bf16.cuh. Up to Dh = 64 four blocks
+// share an SM (at most 128 registers a thread); wider heads take more.
+template <int DH, bool kBLHD>
+__global__ void __launch_bounds__(32 * WARPS, DH <= 64 ? 4 : 1)
 segment_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              const int* __restrict__ seg,
                              __nv_bfloat16* __restrict__ out, int H, int L,
                              float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[BQ * SROW];  // Q, then the output
-  __shared__ __align__(16) __nv_bfloat16 k_s[KC * SROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[KC * SROW];
+  constexpr int SROW = DH + 8;    // padded shared-memory row, in bf16
+  constexpr int CH = DH / 8;      // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ * SROW]: Q, then the output
+  __nv_bfloat16* k_s = q_s + BQ * SROW;       // [KC * SROW]
+  __nv_bfloat16* v_s = k_s + KC * SROW;       // [KC * SROW]
   __shared__ int kseg_s[KC];
   __shared__ unsigned staged;  // key groups of this block's key block to load
 
@@ -228,9 +247,9 @@ segment_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const bool live = hi > 0;  // else every query is padding: the output is 0
   const int seg_r[2] = {__shfl_sync(FULL, my, g), __shfl_sync(FULL, my, g + 8)};
 
-  if (live) {  // the warp's 16 Q rows, 8 x 16 bytes each
-    for (int i = lane; i < 16 * 8; i += 32) {
-      const int r = i >> 3, c = (i & 7) * 8, qi = q0 + r;
+  if (live) {  // the warp's 16 Q rows, CH x 16 bytes each
+    for (int i = lane; i < 16 * CH; i += 32) {
+      const int r = i / CH, c = (i % CH) * 8, qi = q0 + r;
       cp_async16(q_w + r * SROW + c, q + base + (size_t)min(qi, L - 1) * row_stride + c,
                  qi < L);
     }
@@ -274,8 +293,8 @@ segment_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     const unsigned need = staged;
-    for (int i = threadIdx.x; i < KC * 8; i += 32 * WARPS) {
-      const int r = i >> 3, c = (i & 7) * 8, kj = c0 + r;
+    for (int i = threadIdx.x; i < KC * CH; i += 32 * WARPS) {
+      const int r = i / CH, c = (i % CH) * 8, kj = c0 + r;
       if (!((need >> (r / GK)) & 1u)) continue;
       const size_t off = base + (size_t)min(kj, L - 1) * row_stride + c;
       cp_async16(k_s + r * SROW + c, k + off, kj < L);
@@ -399,41 +418,62 @@ segment_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     __syncwarp();
   }
-  for (int i = lane; i < 16 * 8; i += 32) {
-    const int r = i >> 3, c = (i & 7) * 8, qi = q0 + r;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = (i % CH) * 8, qi = q0 + r;
     if (qi < L)
       *reinterpret_cast<uint4*>(out + base + (size_t)qi * row_stride + c) =
           live ? *reinterpret_cast<const uint4*>(q_w + r * SROW + c) : make_uint4(0, 0, 0, 0);
   }
 }
 
+template <int DH, bool kBLHD>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
+                   int B, int H, int L, float sm_scale, int is_bf16, cudaStream_t s) {
+  if (is_bf16) {
+    const long long blocks = (long long)B * H * ((L + BQ - 1) / BQ);
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    constexpr size_t smem = mma_smem_bytes<DH>();
+    if (smem > 48 * 1024) {  // above 48 KB only after raising the kernel's limit
+      const cudaError_t e = cudaFuncSetAttribute(segment_attention_mma_kernel<DH, kBLHD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    segment_attention_mma_kernel<DH, kBLHD><<<(unsigned)blocks, 32 * WARPS, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out), H, L,
+        sm_scale);
+  } else {
+    const dim3 grid(B * H, (L + QT - 1) / QT);
+    segment_attention_fp32_kernel<DH, kBLHD><<<grid, QT, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg, static_cast<float*>(out), H, L, sm_scale);
+  }
+  return cudaGetLastError();
+}
+
+// Dh: one of the widths the kernels are built at (16, 32, 64, 128, 256)
 template <bool kBLHD>
 int dispatch(const void* q, const void* k, const void* v, const void* seg,
              void* out, int B, int H, int L, int Dh, float sm_scale,
              int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || Dh != DH) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   const int* sp = static_cast<const int*>(seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const long long blocks = (long long)B * H * ((L + BQ - 1) / BQ);
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    segment_attention_mma_kernel<kBLHD><<<(unsigned)blocks, 32 * WARPS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), sp, static_cast<__nv_bfloat16*>(out), H, L,
-        sm_scale);
-  } else {
-    const dim3 grid(B * H, (L + QT - 1) / QT);
-    segment_attention_fp32_kernel<kBLHD><<<grid, QT, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), sp, static_cast<float*>(out), H, L, sm_scale);
+  switch (Dh) {
+    case 16: return (int)launch<16, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, is_bf16, s);
+    case 32: return (int)launch<32, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, is_bf16, s);
+    case 64: return (int)launch<64, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, is_bf16, s);
+    case 128: return (int)launch<128, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, is_bf16, s);
+    case 256: return (int)launch<256, kBLHD>(q, k, v, sp, out, B, H, L, sm_scale, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K2. q, k, v, out: [B, H, L, Dh] contiguous, 16-byte aligned, bf16
-// (is_bf16=1) or fp32; seg: [B, L] int32. Dh must be 64.
+// (is_bf16=1) or fp32; seg: [B, L] int32. Dh: 16, 32, 64, 128 or 256.
 extern "C" int medtok_segment_attention(const void* q, const void* k,
                                         const void* v, const void* seg,
                                         void* out, int B, int H, int L, int Dh,

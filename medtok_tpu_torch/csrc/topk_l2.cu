@@ -1,12 +1,15 @@
 // Kernel K1: codebook distance sweep with a running top-k, for Hopper (sm_90a).
 //
 // Replaces medtok_tpu/ops/vq_pallas.py::fused_topk_l2 (kernel _topk_kernel,
-// selection _scan_topk). For z [B, 64] against a codebook slice e [N, 64]
+// selection _scan_topk). For z [B, D] against a codebook slice e [N, D]
 // (both fp32) it returns the k smallest d = (|z|^2 + |e|^2) - 2 z.e per row,
 // ordered by (value, index) so that ties go to the lowest index, without
-// ever writing the [B, N] distance matrix out.
+// ever writing the [B, N] distance matrix out. The sweep is templated on
+// the width D and built at 16, 32, 64, 128 and 256 (the export's codebook:
+// 64); the wrapper zero-pads any other width up to the next one, which adds
+// exact zeros to every sum. k is 1 to 8.
 //
-// Bound: 2*B*N*64 fp32 operations against a few MB of data (the 21000x64
+// Bound: 2*B*N*D fp32 operations against a few MB of data (the 21000x64
 // codebook is 5.4 MB), so the sweep is bound by the fp32 CUDA-core rate. The
 // dot products use fp32 FMA only: TF32 tensor-core math would round the
 // inputs to 10 mantissa bits and change which codewords are nearest.
@@ -19,7 +22,9 @@
 // Inside a block, 256 threads (16 x 16) compute a 64 x 128 distance tile per
 // staged codebook tile; each thread owns 4 rows x 8 columns (columns
 // tx + 16*c, which keeps the float4 shared-memory reads free of bank
-// conflicts with the 68-float padded row stride). Each thread keeps a
+// conflicts with the D + 4 float padded row stride). The z and codebook tiles
+// take (64 + 128) x (D + 4) floats of dynamic shared memory: 52 KB at D =
+// 64, 200 KB at D = 256 (one block an SM). Each thread keeps a
 // register top-k per row over the columns it owns. It visits its columns in
 // ascending index order, so a strict "<" insert keeps the lower index ahead
 // on equal values. At the end of the split, the 16 per-thread lists of a row
@@ -33,8 +38,6 @@
 
 namespace {
 
-constexpr int D = 64;          // embedding width taken by the kernel
-constexpr int LD = D + 4;      // padded shared-memory row stride (floats)
 constexpr int TB = 64;         // z rows per block
 constexpr int TN = 128;        // codebook rows per staged tile
 constexpr int THREADS = 256;   // 16 x 16
@@ -81,11 +84,13 @@ __device__ __forceinline__ void insert_lex(float (&bv)[K], int (&bi)[K],
   }
 }
 
-template <int K>
+// D: the embedding width; LD = D + 4 is the padded shared-memory row stride
+template <int K, int D>
 __global__ void __launch_bounds__(THREADS)
 topk_partial_kernel(const float* __restrict__ z, const float* __restrict__ e,
                     int B, int N, int tiles_per_split,
                     float* __restrict__ part_v, int* __restrict__ part_i) {
+  constexpr int LD = D + 4;
   extern __shared__ __align__(16) float smem[];
   float* z_s = smem;               // [TB][LD]
   float* e_s = z_s + TB * LD;      // [TN][LD]
@@ -233,19 +238,19 @@ topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part
   }
 }
 
-template <int K>
+template <int K, int D>
 cudaError_t launch(const float* z, const float* e, int B, int N, int n_splits,
                    int tiles_per_split, float* part_v, int* part_i,
                    float* vals, int* idx, cudaStream_t stream) {
-  const size_t sweep = sizeof(float) * ((TB + TN) * LD + TB + TN);
+  const size_t sweep = sizeof(float) * ((TB + TN) * (D + 4) + TB + TN);
   const size_t merge = (sizeof(float) + sizeof(int)) * TB * 16 * K;
   const size_t smem = sweep > merge ? sweep : merge;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      topk_partial_kernel<K, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((B + TB - 1) / TB, n_splits);
-  topk_partial_kernel<K><<<grid, THREADS, smem, stream>>>(
+  topk_partial_kernel<K, D><<<grid, THREADS, smem, stream>>>(
       z, e, B, N, tiles_per_split, part_v, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -254,19 +259,37 @@ cudaError_t launch(const float* z, const float* e, int B, int N, int n_splits,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_k(int k, const float* z, const float* e, int B, int N, int n_splits,
+                     int tiles_per_split, float* pv, int* pi, float* ov, int* oi,
+                     cudaStream_t s) {
+  switch (k) {
+    case 1: return launch<1, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    case 2: return launch<2, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    case 3: return launch<3, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    case 4: return launch<4, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    case 5: return launch<5, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    case 6: return launch<6, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    case 7: return launch<7, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    case 8: return launch<8, D>(z, e, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Codebook tile width, so the wrapper can size the splits.
 extern "C" int medtok_topk_tile_n() { return TN; }
 
 // z [B, dim] and e [N, dim] fp32 row-major on the device (e may point into a
-// larger codebook: a region is a pointer offset plus a row count).
+// larger codebook: a region is a pointer offset plus a row count); dim is
+// 16, 32, 64, 128 or 256 and k is 1 to 8.
 // part_v/part_i hold [n_splits, B, k]; vals/idx receive [B, k].
 extern "C" int medtok_topk_l2(const void* z, const void* e, int B, int N,
                               int dim, int k, int n_splits, int tiles_per_split,
                               void* part_v, void* part_i, void* vals, void* idx,
                               void* stream) {
-  if (dim != D || B <= 0 || N <= 0 || n_splits <= 0 || tiles_per_split <= 0)
+  if (B <= 0 || N <= 0 || n_splits <= 0 || tiles_per_split <= 0)
     return (int)cudaErrorInvalidValue;
   const float* zf = static_cast<const float*>(z);
   const float* ef = static_cast<const float*>(e);
@@ -276,15 +299,12 @@ extern "C" int medtok_topk_l2(const void* z, const void* e, int B, int N,
   int* oi = static_cast<int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (k) {
-    case 1: err = launch<1>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
-    case 2: err = launch<2>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
-    case 3: err = launch<3>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
-    case 4: err = launch<4>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
-    case 5: err = launch<5>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
-    case 6: err = launch<6>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
-    case 7: err = launch<7>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
-    case 8: err = launch<8>(zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
+  switch (dim) {
+    case 16: err = launch_k<16>(k, zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
+    case 32: err = launch_k<32>(k, zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
+    case 64: err = launch_k<64>(k, zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
+    case 128: err = launch_k<128>(k, zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
+    case 256: err = launch_k<256>(k, zf, ef, B, N, n_splits, tiles_per_split, pv, pi, ov, oi, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;

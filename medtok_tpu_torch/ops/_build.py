@@ -10,6 +10,13 @@ reuses it and a changed one rebuilds.
 Every C entry point takes its pointers and the CUDA stream as ``void*``,
 launches on that stream and returns ``cudaGetLastError()``; ``check`` turns a
 non-zero code into an exception.
+
+Every kernel with a head or embedding width is built at the widths in
+``KERNEL_WIDTHS``; a wrapper zero-pads a narrower input up to the next one
+(``kernel_width``, ``pad_width``) and cuts the output back (``cut_width``).
+Zero columns add exact zeros to every dot product and squared norm, so the
+padded launch computes the same scores; the output columns that come from
+the zero columns are cut off.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
+import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -152,6 +162,33 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
         return _lib
+
+
+#: the widths the kernels are built at, narrowest first
+KERNEL_WIDTHS = (16, 32, 64, 128, 256)
+
+
+def kernel_width(width: int, what: str) -> int:
+    """The narrowest width in KERNEL_WIDTHS that holds ``width``; raises,
+    naming the limit, for a width outside 1..256."""
+    for w in KERNEL_WIDTHS:
+        if 1 <= width <= w:
+            return w
+    raise ValueError(f"the kernels take {what} 1 to {KERNEL_WIDTHS[-1]}, got {width}")
+
+
+def pad_width(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with its last dimension zero-padded to ``width`` (x itself, no
+    copy, when it is that wide already)."""
+    if x.shape[-1] == width:
+        return x
+    return F.pad(x, (0, width - x.shape[-1]))
+
+
+def cut_width(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The first ``width`` columns of x's last dimension, contiguous (x
+    itself when it is that wide)."""
+    return x if x.shape[-1] == width else x[..., :width].contiguous()
 
 
 def check(code: int, what: str) -> None:

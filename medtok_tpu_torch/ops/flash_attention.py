@@ -57,9 +57,17 @@ on CPU tensors. Semantics, as in the TPU kernel:
 
 Nothing quadratic is saved: the backward recomputes the probabilities from
 the saved lse and the keep bits from the hash. The dtype picks the route:
-the bf16 backward runs on the tensor cores (``mma.sync``; key tiles with no
-valid key are never staged), fp32 on the CUDA cores with exact fp32
-products (the parity path); the forward runs on the CUDA cores in both.
+in bf16 all three kernels run on the tensor cores (``mma.sync``; key tiles
+with no valid key are never staged, and the forward walks each 512-key
+block twice, for its maximum and then for P.V), in fp32 on the CUDA cores
+with exact fp32 products (the parity path).
+
+**Widths.** K2, K4 and K3 take head widths 1 to 256: each kernel is built
+at 16, 32, 64, 128 and 256, and the wrapper zero-pads q, k, v (and dO) up
+to the next of those and cuts the outputs back. Zero columns change no
+score, so the results are those of the true width; ``sm_scale`` defaults
+to 1/sqrt(Dh) of the true width, as the JAX functions take it. A width
+above 256 raises.
 """
 
 from __future__ import annotations
@@ -72,7 +80,6 @@ from medtok_tpu_torch.ops import _build
 
 _MASKED = -1e30  # finite stand-in for -inf, as in the TPU kernel
 _M32 = 0xFFFFFFFF
-K3_HEAD_DIM = 16  # the head width K3's kernels take (EHR: 64 / 4 heads)
 K3_BLOCK_K = 512  # K3's key block: the TPU kernel's default block_k
 SEG_BLOCK_K = 128  # K2 / K4's key block: the TPU kernel's block_k
 
@@ -136,14 +143,21 @@ def packed_segment_attention_nt_reference(
     return out.transpose(1, 2).contiguous()
 
 
+def _device_of(tensors, what: str) -> str:
+    """'cpu' when every tensor is on the CPU; 'cuda' when all are on one
+    CUDA device; otherwise raises."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return "cpu"
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} must be on one CUDA device (or all on the CPU)")
+    return "cuda"
+
+
 def _segment_check(q, k, v, seg_ids, heads_dim: int) -> int:
     """Raise on anything K2 / K4 does not take; returns the head count,
     read from dimension ``heads_dim`` of q (1 for K2's [B, H, L, Dh], 2
     for K4's [B, L, H, Dh])."""
-    tensors = (q, k, v, seg_ids)
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
-        raise ValueError("q, k, v and seg_ids must be on one CUDA device "
-                         "(or all on the CPU)")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one 4-D shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -153,8 +167,7 @@ def _segment_check(q, k, v, seg_ids, heads_dim: int) -> int:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, Dh = q.shape[0], q.shape[3]
     L = q.shape[3 - heads_dim]
-    if Dh != 64:
-        raise ValueError(f"the kernel takes head width 64, got {Dh}")
+    _build.kernel_width(Dh, "head width")
     if seg_ids.shape != (B, L) or seg_ids.dtype != torch.int32:
         raise ValueError(f"seg_ids must be [B, L] = [{B}, {L}] int32, got "
                          f"{seg_ids.dtype} {tuple(seg_ids.shape)}")
@@ -165,14 +178,12 @@ def _segment_check(q, k, v, seg_ids, heads_dim: int) -> int:
 
 
 def _segment_launch(entry: str, q, k, v, seg_ids, out, heads: int,
-                    sm_scale: float | None) -> None:
+                    sm_scale: float) -> None:
     """Build the library if needed and launch K2 or K4 (``entry``) on q's
-    device and current stream; raises on a missing nvcc or a refused
-    launch."""
+    device and current stream, at q's width (one the kernels are built at);
+    raises on a missing nvcc or a refused launch."""
     lib = _build.load_library()
     B, L, Dh = q.shape[0], seg_ids.shape[1], q.shape[3]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(Dh)
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
@@ -180,6 +191,22 @@ def _segment_launch(entry: str, q, k, v, seg_ids, out, heads: int,
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, entry)
+
+
+def _segment_run(entry: str, q, k, v, seg_ids, heads: int,
+                 sm_scale: float | None) -> torch.Tensor:
+    """K2 or K4 (``entry``) on q, k, v zero-padded to the next width the
+    kernel is built at, with sm_scale from the true width; returns the
+    output cut back to it."""
+    Dh = q.shape[3]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(Dh)
+    width = _build.kernel_width(Dh, "head width")
+    qp, kp, vp = (_build.pad_width(t, width) for t in (q, k, v))
+    out = torch.empty_like(qp)
+    if out.numel():
+        _segment_launch(entry, qp, kp, vp, seg_ids, out, heads, sm_scale)
+    return _build.cut_width(out, Dh)
 
 
 def packed_segment_attention(
@@ -190,14 +217,12 @@ def packed_segment_attention(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    if all(t.device.type == "cpu" for t in (q, k, v, seg_ids)):
+    if _device_of((q, k, v, seg_ids), "q, k, v and seg_ids") == "cpu":
         return packed_segment_attention_reference(q, k, v, seg_ids,
                                                   sm_scale=sm_scale)
     heads = _segment_check(q, k, v, seg_ids, heads_dim=1)
-    out = torch.empty_like(q)
+    out = _segment_run("medtok_segment_attention", q, k, v, seg_ids, heads, sm_scale)
     if out.numel():
-        _segment_launch("medtok_segment_attention", q, k, v, seg_ids, out,
-                        heads, sm_scale)
         packed_segment_attention.launches += 1
     return out
 
@@ -210,14 +235,12 @@ def packed_segment_attention_nt(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    if all(t.device.type == "cpu" for t in (q, k, v, seg_ids)):
+    if _device_of((q, k, v, seg_ids), "q, k, v and seg_ids") == "cpu":
         return packed_segment_attention_nt_reference(q, k, v, seg_ids,
                                                      sm_scale=sm_scale)
     heads = _segment_check(q, k, v, seg_ids, heads_dim=2)
-    out = torch.empty_like(q)
+    out = _segment_run("medtok_segment_attention_nt", q, k, v, seg_ids, heads, sm_scale)
     if out.numel():
-        _segment_launch("medtok_segment_attention_nt", q, k, v, seg_ids, out,
-                        heads, sm_scale)
         packed_segment_attention_nt.launches += 1
     return out
 
@@ -365,20 +388,9 @@ def flash_attention_grad_terms(q, k, v, key_mask, lse, delta, do, *,
             torch.matmul(a_drop.transpose(-1, -2), do.float().abs()))
 
 
-def _k3_device(tensors) -> str:
-    """'cpu' when every tensor is on the CPU; 'cuda' when all are on one
-    CUDA device; otherwise raises."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return "cpu"
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("K3's tensors must be on one CUDA device (or all on "
-                         "the CPU)")
-    return "cuda"
-
-
-def _k3_check(q, k, v, key_mask, extra=()):
-    """Raise on anything K3's kernels do not take."""
+def _k3_check(q, k, v, key_mask, extra=()) -> int:
+    """Raise on anything K3's kernels do not take; returns the width the
+    kernels run at (the head width padded up to one they are built at)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q [B, H, Lq, Dh] and k, v [B, H, Lk, Dh] expected, "
@@ -388,8 +400,7 @@ def _k3_check(q, k, v, key_mask, extra=()):
         raise ValueError(f"q, k, v must all be bfloat16 or all float32, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, H, Lq, Dh = q.shape
-    if Dh != K3_HEAD_DIM:
-        raise ValueError(f"K3 takes head width {K3_HEAD_DIM}, got {Dh}")
+    width = _build.kernel_width(Dh, "head width")
     if Lq < 1 or k.shape[2] < 1:
         raise ValueError(f"K3 takes Lq, Lk >= 1, got {Lq}, {k.shape[2]}")
     if key_mask.shape != (B, k.shape[2]) or key_mask.dtype != torch.bool:
@@ -400,6 +411,7 @@ def _k3_check(q, k, v, key_mask, extra=()):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if B * H * max(Lq, k.shape[2]) >= 2**31:
         raise ValueError("K3's index arithmetic takes fewer than 2**31 rows")
+    return width
 
 
 def _seed_on(seed, device) -> torch.Tensor:
@@ -417,8 +429,8 @@ def _k3_launch(entry: str, q, k, tensors, sm_scale: float, dropout_rate: float,
                dropout_seed) -> None:
     """Build the library if needed and launch ``entry`` on q's device and
     current stream, with the pointers of ``tensors`` and the shapes and
-    scalars every K3 entry takes; raises on a missing nvcc or a refused
-    launch."""
+    scalars every K3 entry takes, at q's width (one the kernels are built
+    at); raises on a missing nvcc or a refused launch."""
     lib = _build.load_library()
     B, H, Lq, Dh = q.shape
     drop = dropout_rate > 0.0
@@ -437,18 +449,19 @@ def flash_attention_fwd(q, k, v, key_mask, *, sm_scale: float,
                         dropout_rate: float = 0.0, dropout_seed=0):
     """K3's forward, (out, lse). CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise."""
-    if _k3_device((q, k, v, key_mask)) == "cpu":
+    if _device_of((q, k, v, key_mask), "K3's tensors") == "cpu":
         return flash_attention_reference(q, k, v, key_mask, sm_scale=sm_scale,
                                          dropout_rate=dropout_rate,
                                          dropout_seed=dropout_seed)
-    _k3_check(q, k, v, key_mask)
-    out = torch.empty_like(q)
+    width = _k3_check(q, k, v, key_mask)
+    qp, kp, vp = (_build.pad_width(t, width) for t in (q, k, v))
+    out = torch.empty_like(qp)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if out.numel():
-        _k3_launch("medtok_flash_fwd", q, k, (q, k, v, key_mask, out, lse),
+        _k3_launch("medtok_flash_fwd", qp, kp, (qp, kp, vp, key_mask, out, lse),
                    sm_scale, dropout_rate, dropout_seed)
         flash_attention_fwd.launches += 1
-    return out, lse
+    return _build.cut_width(out, q.shape[3]), lse
 
 
 def _bwd_extra(q, lse, delta, do):
@@ -467,17 +480,18 @@ def flash_attention_dq(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
     """K3-dq: the gradient of q, from the saved lse and delta = sum(dO * O).
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     tensors = (q, k, v, key_mask, lse, delta, do)
-    if _k3_device(tensors) == "cpu":
+    if _device_of(tensors, "K3's tensors") == "cpu":
         return flash_attention_dq_reference(*tensors, sm_scale=sm_scale,
                                             dropout_rate=dropout_rate,
                                             dropout_seed=dropout_seed)
-    _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
-    dq = torch.empty_like(q)
+    width = _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
+    qp, kp, vp, dop = (_build.pad_width(t, width) for t in (q, k, v, do))
+    dq = torch.empty_like(qp)
     if dq.numel():
-        _k3_launch("medtok_flash_dq", q, k, (*tensors, dq), sm_scale,
-                   dropout_rate, dropout_seed)
+        _k3_launch("medtok_flash_dq", qp, kp, (qp, kp, vp, key_mask, lse, delta, dop, dq),
+                   sm_scale, dropout_rate, dropout_seed)
         flash_attention_dq.launches += 1
-    return dq
+    return _build.cut_width(dq, q.shape[3])
 
 
 def flash_attention_dkv(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
@@ -485,17 +499,20 @@ def flash_attention_dkv(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
     """K3-dkv: the gradients of k and v. CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     tensors = (q, k, v, key_mask, lse, delta, do)
-    if _k3_device(tensors) == "cpu":
+    if _device_of(tensors, "K3's tensors") == "cpu":
         return flash_attention_dkv_reference(*tensors, sm_scale=sm_scale,
                                              dropout_rate=dropout_rate,
                                              dropout_seed=dropout_seed)
-    _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    width = _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
+    qp, kp, vp, dop = (_build.pad_width(t, width) for t in (q, k, v, do))
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     if dk.numel():
-        _k3_launch("medtok_flash_dkv", q, k, (*tensors, dk, dv), sm_scale,
+        _k3_launch("medtok_flash_dkv", qp, kp,
+                   (qp, kp, vp, key_mask, lse, delta, dop, dk, dv), sm_scale,
                    dropout_rate, dropout_seed)
         flash_attention_dkv.launches += 1
-    return dk, dv
+    Dh = q.shape[3]
+    return _build.cut_width(dk, Dh), _build.cut_width(dv, Dh)
 
 
 #: launches of each CUDA kernel (CPU calls of the plain versions do not count)
