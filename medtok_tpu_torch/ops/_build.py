@@ -51,10 +51,12 @@ _K3_TAIL = [_I, _I, _I, _I, _I, _F, _F, _U, _P, _I, _P]
 # C signatures of the entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     # z, e, n_rows_z, n_codes, dim, k, n_splits, tiles_per_split,
-    # part_vals, part_idx, vals, idx, stream
-    "medtok_topk_l2": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # scratch, part_vals, part_idx, vals, idx, stream
+    "medtok_topk_l2": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
                        ctypes.c_int),
-    "medtok_topk_tile_n": ([], ctypes.c_int),
+    # z rows a block, codebook rows a tile, at a built width
+    "medtok_topk_tile_b": ([_I], ctypes.c_int),
+    "medtok_topk_tile_n": ([_I], ctypes.c_int),
     # q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream
     "medtok_segment_attention": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),

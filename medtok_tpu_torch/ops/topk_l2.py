@@ -14,9 +14,15 @@ of those (z and the codebook are copied then; zero columns add exact zeros
 to every distance). k is 1 to 8: the kernel keeps its top-k in registers,
 and no CLI sets ``QuantizerConfig.top_k`` (default 5).
 
-Bound: 2*B*N*D fp32 operations over a 5.4 MB codebook at the export's
-shape, so the fp32 CUDA-core rate bounds it (TF32 would break exact
-indices); the kernel's source note says how its design meets that.
+Precision and bound: the kernel runs on the tensor cores in 3xTF32 (each
+fp32 value split into a TF32 hi and lo, z.e summed as hi.hi + hi.lo +
+lo.hi in fp32). One TF32 product keeps 10 mantissa bits and would change
+which codewords are nearest; 3xTF32 keeps about 22, so a distance between
+unit rows is off by at most about 1.5e-6, under the 1e-5 gap within which
+two distances count as tied. The sweep is bound by its 2*B*N*D operations:
+at the export's shape (z [4096, 64], e [21000, 64]) three TF32 products
+take at least 0.0667 ms on an H100's tensor cores, fp32 FMAs on its CUDA
+cores 0.1643 ms. The kernel's source note gives its design.
 """
 
 from __future__ import annotations
@@ -28,10 +34,6 @@ import torch
 from medtok_tpu_torch.ops import _build
 from medtok_tpu_torch.ops.vq import squared_distance, topk_smallest
 
-# z rows per block of the kernel; the wrapper sizes the codebook splits so
-# that each SM gets several blocks
-_ROWS_PER_BLOCK = 64
-_BLOCKS_PER_SM = 4
 _MAX_K = 8
 
 
@@ -64,6 +66,15 @@ def _check(z: torch.Tensor, codebook: torch.Tensor, k: int) -> int:
     return width
 
 
+def split_plan(row_blocks: int, tiles: int, sms: int) -> tuple[int, int]:
+    """(splits, tiles per split) of the codebook's ``tiles``: as many splits
+    as fill one wave of ``row_blocks`` x splits blocks, one block an SM (a
+    block's shared memory takes the SM), at least one tile each."""
+    splits = max(1, min(tiles, sms // row_blocks))
+    per = math.ceil(tiles / splits)
+    return math.ceil(tiles / per), per
+
+
 def fused_topk_l2(
     z: torch.Tensor, codebook: torch.Tensor, *, k: int = 5
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -84,25 +95,27 @@ def fused_topk_l2(
                 torch.empty((0, k), dtype=torch.int32, device=z.device))
 
     lib = _build.load_library()
-    tiles = math.ceil(N / lib.medtok_topk_tile_n())
     sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-    row_blocks = math.ceil(B / _ROWS_PER_BLOCK)
-    splits = max(1, min(tiles, math.ceil(_BLOCKS_PER_SM * sms / row_blocks)))
-    per_split = math.ceil(tiles / splits)
-    splits = math.ceil(tiles / per_split)
+    splits, per_split = split_plan(math.ceil(B / lib.medtok_topk_tile_b(width)),
+                                   math.ceil(N / lib.medtok_topk_tile_n(width)), sms)
 
     dev = z.device
-    part_v = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
+    # the split kernel's hi and lo of z and the codebook, |e|^2 with one +inf
+    # after it, |z|^2
+    scratch = torch.empty(2 * (B + N) * width + B + N + 1, dtype=torch.float32, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    part_v, part_i = vals, idx  # one split: the sweep writes vals / idx itself
+    if splits > 1:
+        part_v = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
     zp, ep = _build.pad_width(z, width), _build.pad_width(codebook, width)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.medtok_topk_l2(
             zp.data_ptr(), ep.data_ptr(), B, N, width, k, splits, per_split,
-            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), stream,
+            scratch.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), stream,
         )
     _build.check(code, "topk_l2")
     fused_topk_l2.launches += 1
