@@ -54,9 +54,13 @@ Phases, each fatal on failure:
      plain version and a numpy histogram at B=512, Ln=512, Epg=8192 with
      the bench script's edges (bit for bit on binary weights; within 1e-6
      and identical across two launches on fractional ones), at an export
-     shape (Ln=128, Epg=1024) and at a dense shape (B=64, Ln=16, Epg=8192,
+     shape (Ln=128, Epg=1024), at a dense shape (B=64, Ln=16, Epg=8192,
      about 24 edges per Count cell, where a sum in another order or
-     precision would show);
+     precision would show) and on K5_EDGE_CASES (every edge in one
+     128 x 128 tile at Epg=65536, indices outside [0, Ln), zero weights
+     between used slots, Ln = 1, 200 and 1000); time both at the first
+     shape beside index_put_, split K5-lane's two launches by device time
+     under torch.profiler and log its one-hot product floor;
  12. run the slice-3 entry points at their full default shapes, counting
      kernel launches: the packed-BERT probe
      (medtok_tpu_torch.scripts.profile_bert, K2 and K4 12 per kernel-leg
@@ -126,6 +130,17 @@ K1_WIDTHS = (16, 32, 100, 128, 256)
 # (B, Ln, Epg) of the Count checks: the bench's Ln=512 tail shape, an export
 # bucket, and a dense shape whose cells sum many fractional weights
 K5_SHAPES = ((512, 512, 8192), (512, 128, 1024), (64, 16, 8192))
+# (label, B, Ln, Epg, k5_edges options) of the Count's edge cases: every
+# edge in one 128 x 128 tile (more than a kernel's list takes at once),
+# indices outside [0, Ln), zero weights inside the used slots, and node
+# counts of one tile or none (Epg no multiple of the kernels' chunks)
+K5_EDGE_CASES = (("one tile", 4, 512, 65536, {"hi": 128}),
+                 ("out of range", 64, 512, 8192, {"out_of_range": True}),
+                 ("zeros inside", 64, 512, 8192, {"zero_every": 3}),
+                 ("Ln=1", 512, 1, 64, {}),
+                 ("Ln=200", 64, 200, 3000, {}),
+                 ("Ln=1000", 16, 1000, 20000, {}))
+K5_SEED = 20261017
 # L of the K2 / K4 edge-segment checks: no multiple of the kernels' tiles,
 # one key block and two
 SEGMENT_EDGE_LENGTHS = (100, 200)
@@ -499,10 +514,46 @@ def check_segment_kernel(gen, dev, nt: bool, layouts: dict) -> dict:
 
 # --------------------------------------------------------------------- K5 --
 
-def check_k5(gen, dev) -> list[dict]:
-    """K5 and K5-lane against their plain version and the numpy histogram
-    at the bench's tail shape, an export shape and a dense shape; times at
-    the first."""
+def k5_edges(rng, B: int, Ln: int, Epg: int, hi: int | None = None, zero_every: int = 0,
+             out_of_range: bool = False):
+    """Edges for the Count's edge cases: indices uniform in [0, hi or Ln),
+    weight 1 on the first 3/4 of each graph's slots and 0 after; zero
+    weights also every zero_every-th slot; out_of_range moves a sixth of
+    the indices outside [0, Ln). Flat src, dst int32 and w fp32."""
+    import numpy as np
+
+    hi = Ln if hi is None else hi
+    src = rng.integers(0, hi, (B, Epg)).astype(np.int32)
+    dst = rng.integers(0, hi, (B, Epg)).astype(np.int32)
+    w = np.ones((B, Epg), np.float32)
+    w[:, 3 * Epg // 4:] = 0.0
+    if zero_every:
+        w[:, ::zero_every] = 0.0
+    if out_of_range:
+        far = np.array([-1, Ln, -(2 ** 31), 2 ** 31 - 1, 2 * Ln], np.int64)
+        for a in (src, dst):
+            bad = rng.random((B, Epg)) < 1 / 6
+            a[bad] = rng.choice(far, int(bad.sum())).astype(np.int32)
+    return src.reshape(-1), dst.reshape(-1), w.reshape(-1)
+
+
+def k5_histogram(src, dst, w, B: int, Ln: int):
+    """numpy Count of binary weights: edges of weight != 0 with both ends
+    in [0, Ln), [B, Ln, Ln] fp32."""
+    import numpy as np
+
+    b = np.repeat(np.arange(B), src.shape[0] // B)
+    ok = (w != 0) & (src >= 0) & (src < Ln) & (dst >= 0) & (dst < Ln)
+    truth = np.zeros((B, Ln, Ln), np.float32)
+    np.add.at(truth, (b[ok], dst[ok], src[ok]), 1.0)
+    return truth
+
+
+def check_k5_case(gen, dev, label: str, es, ed, ew, truth, B: int, Ln: int) -> dict:
+    """K5 and K5-lane on one set of edges: the binary Count bit for bit
+    equal to the plain version and the histogram; fractional weights
+    within 1e-6 of the largest count, two launches identical. Returns the
+    fractional max abs error by kernel name."""
     import torch
 
     from medtok_tpu_torch.ops.adj_count import (
@@ -510,70 +561,115 @@ def check_k5(gen, dev) -> list[dict]:
         adj_count_onehot,
         adj_count_reference,
     )
+
+    plain = adj_count_reference(es, ed, ew, B, Ln)
+    check(torch.equal(plain, truth), f"K5 plain version != histogram ({label})")
+    wf = ew * torch.rand(ew.shape, generator=gen, device=dev)   # fractional
+    plain_f = adj_count_reference(es, ed, wf, B, Ln)
+    scale = float(plain_f.abs().max())
+    errs = {}
+    for fn in (adj_count, adj_count_onehot):
+        name = fn.__name__
+        got = fn(es, ed, ew, B, Ln)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"{name} {label}: binary Count differs from the histogram")
+        first, second = fn(es, ed, wf, B, Ln), fn(es, ed, wf, B, Ln)
+        err = float((first - plain_f).abs().max())
+        check(err <= 1e-6 * scale, f"{name} {label}: fractional error {err} > 1e-6 "
+              f"of the largest count {scale}")
+        check(torch.equal(first, second), f"{name} {label}: two launches differ")
+        errs[name] = err
+        log(f"K5 {name} {label}: binary Count equal to the plain version and the histogram "
+            f"bit for bit (largest count {float(truth.max()):.0f}); fractional max abs err "
+            f"{err:.3e} (largest count {scale:.3f}), two launches identical")
+        del got, first, second
+    return errs
+
+
+def lane_products(es, ed, ew, B: int, Ln: int) -> tuple[float, int]:
+    """K5-lane's one-hot products on these edges: each kept edge (bf16
+    weight != 0, both ends inside Count) is multiplied in its 16-row slab
+    of its 128 x 128 tile, 2 * 16 * 128 FLOP, each slab's run padded to 16
+    edges (exact while no tile keeps more than the kernel's LIST_CAP, 4096
+    edges, so that its list is sorted once). Returns (FLOP, padded edges)."""
+    import torch
+
+    ti = tj = 128
+    tiles_j = -(-Ln // tj)
+    tiles = -(-Ln // ti) * tiles_j
+    b = torch.arange(B, device=es.device).repeat_interleave(es.shape[0] // B)
+    keep = ((ew.to(torch.bfloat16) != 0) & (es >= 0) & (es < Ln) & (ed >= 0) & (ed < Ln))
+    s, d, b = es[keep].long(), ed[keep].long(), b[keep]
+    key = ((b * tiles + (d // ti) * tiles_j + s // tj) * (ti // 16)) + (d % ti) // 16
+    cnt = torch.bincount(key, minlength=B * tiles * (ti // 16))
+    padded = int(((cnt + 15) // 16 * 16).sum())
+    return 2.0 * 16 * tj * padded, padded
+
+
+def check_k5(gen, dev) -> list[dict]:
+    """K5 and K5-lane against their plain version and the numpy histogram
+    at the bench's tail shape, an export shape, a dense shape and the edge
+    cases of K5_EDGE_CASES; times at the first."""
+    import numpy as np
+    import torch
+
     from medtok_tpu_torch.scripts.bench_adj import draw_edges, histogram
 
-    kernels = (adj_count, adj_count_onehot)
     frac_err = {}
-    for B, Ln, Epg in K5_SHAPES:
-        src, dst, w, ne = draw_edges(B, Ln, Epg)
-        truth = torch.from_numpy(histogram(src, dst, ne, Ln)).to(dev)
+    cases = [(f"B={B} Ln={Ln} Epg={Epg}", B, Ln, Epg, None) for B, Ln, Epg in K5_SHAPES]
+    cases += [(label, B, Ln, Epg, opts) for label, B, Ln, Epg, opts in K5_EDGE_CASES]
+    rng = np.random.default_rng(K5_SEED)
+    for label, B, Ln, Epg, opts in cases:
+        if opts is None:   # the bench script's draw
+            src, dst, w, ne = draw_edges(B, Ln, Epg)
+            truth = histogram(src, dst, ne, Ln)
+        else:
+            src, dst, w = k5_edges(rng, B, Ln, Epg, **opts)
+            truth = k5_histogram(src, dst, w, B, Ln)
+            label = f"{label} (B={B} Ln={Ln} Epg={Epg})"
         es, ed, ew = (torch.from_numpy(a.reshape(-1)).to(dev) for a in (src, dst, w))
-        plain = adj_count_reference(es, ed, ew, B, Ln)
-        check(torch.equal(plain, truth), f"K5 plain version != histogram at Ln={Ln}")
-        wf = ew * torch.rand(ew.shape, generator=gen, device=dev)   # fractional
-        plain_f = adj_count_reference(es, ed, wf, B, Ln)
-        scale = float(plain_f.abs().max())
-        for fn in kernels:
-            name = fn.__name__
-            got = fn(es, ed, ew, B, Ln)
-            torch.cuda.synchronize()
-            check(torch.equal(got, plain) and torch.equal(got, truth),
-                  f"{name} B={B} Ln={Ln} Epg={Epg}: binary Count differs from the histogram")
-            first, second = fn(es, ed, wf, B, Ln), fn(es, ed, wf, B, Ln)
-            err = float((first - plain_f).abs().max())
-            check(err <= 1e-6 * scale, f"{name} Ln={Ln}: fractional error {err} > 1e-6 "
-                  f"of the largest count {scale}")
-            check(torch.equal(first, second), f"{name} Ln={Ln}: two launches differ")
+        truth = torch.from_numpy(truth).to(dev)
+        for name, err in check_k5_case(gen, dev, label, es, ed, ew, truth, B, Ln).items():
             frac_err[name] = max(frac_err.get(name, 0.0), err)
-            log(f"K5 {name} B={B} Ln={Ln} Epg={Epg}: binary Count equal to the plain "
-                f"version and the histogram bit for bit (largest count "
-                f"{float(truth.max()):.0f}); fractional max abs err {err:.3e} "
-                f"(largest count {scale:.3f}), two launches identical")
-            del got, first, second
-        if (B, Ln, Epg) == K5_SHAPES[0]:
-            times = k5_times(es, ed, ew, B, Ln, Epg, plain)
+        if (B, Ln, Epg) == K5_SHAPES[0] and opts is None:
+            times = k5_times(es, ed, ew, B, Ln, Epg)
             nnz = int((ew != 0).sum())
-        del truth, plain, plain_f
+            flops, padded = lane_products(es, ed, ew, B, Ln)
+        del truth, es, ed, ew
 
     B, Ln, Epg = K5_SHAPES[0]
     # The function reads the edges, writes Count and adds once per edge of
-    # weight != 0: the bound of both kernels. K5-lane's one-hot products
-    # (Ln^2 MACs per edge at the bf16 peak) are a floor of its design only.
+    # weight != 0: the bound of both kernels. K5-lane's one-hot products are
+    # a floor of its design only.
     nbytes = 12.0 * B * Epg + 4.0 * B * Ln * Ln
     bound_ms = max(nnz / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if nnz / PEAK_FP32 > nbytes / PEAK_BYTES else "bytes"
-    onehot_floor_ms = 2.0 * Ln * Ln * nnz / PEAK_BF16 * 1e3
     rows = []
-    for fn, lib, site in ((adj_count, "index_put", 154),
-                          (adj_count_onehot, "onehot_bmm", 205)):
-        name = fn.__name__
+    for name, site in (("adj_count", 154), ("adj_count_onehot", 205)):
         log(f"K5 {name} B={B} Ln={Ln} Epg={Epg}: kernel {times[name]:.4f} ms, plain "
-            f"{times['plain']:.4f} ms, library {lib} {times[lib]:.4f} ms, bound "
+            f"{times['plain']:.4f} ms, library index_put_ {times['index_put']:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {nnz} edges of "
             f"weight != 0)")
         rows.append(dict(name=name, route="cuda", source="medtok_tpu_torch/csrc/adj_count.cu",
                          replaces=f"scripts/bench_adj.py:{site}",
                          max_abs_err=frac_err[name], ms=times[name], plain_ms=times["plain"],
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=times[lib]))
-    log(f"K5 adj_count_onehot design floor: {2.0 * Ln * Ln * nnz / 1e9:.1f} GFLOP of "
-        f"one-hot products at the bf16 peak, {onehot_floor_ms:.4f} ms (not a bound of "
-        f"the function)")
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=times["index_put"]))
+    log(f"K5 adj_count_onehot: one-hot method's yardstick, the chunked bf16 one-hot bmm "
+        f"(every edge against every node) {times['onehot_bmm']:.4f} ms")
+    log(f"K5 adj_count_onehot launches, device time per call under torch.profiler: "
+        f"bucket pre-pass (adj_bucket_kernel) {times['bucket_kernel']:.4f} ms, products "
+        f"(adj_count_onehot_kernel) {times['product_kernel']:.4f} ms")
+    log(f"K5 adj_count_onehot product floor: {padded} padded kept edges x 2 x 16 x 128 = "
+        f"{flops / 1e9:.2f} GFLOP of one-hot products at the bf16 peak, "
+        f"{flops / PEAK_BF16 * 1e3:.4f} ms (not a bound of the function; every edge in "
+        f"every tile would be {2.0 * Ln * Ln * nnz / 1e9:.1f} GFLOP)")
     return rows
 
 
-def k5_times(es, ed, ew, B: int, Ln: int, Epg: int, plain) -> dict:
+def k5_times(es, ed, ew, B: int, Ln: int, Epg: int) -> dict:
     """ms of both kernels, the plain version, one index_put_ Count and the
-    chunked bf16 one-hot bmm (one-hots under 1 GiB a side); the two library
+    chunked bf16 one-hot bmm (one-hots under 1 GiB a side), and K5-lane's
+    two launches by their device time under torch.profiler; the two library
     calls must give the plain version's Count."""
     import torch
 
@@ -584,6 +680,7 @@ def k5_times(es, ed, ew, B: int, Ln: int, Epg: int, plain) -> dict:
     )
 
     dev = es.device
+    plain = adj_count_reference(es, ed, ew, B, Ln)
     b = torch.arange(B, device=dev).repeat_interleave(Epg)
     idx = (b, ed.long(), es.long())
     w16 = ew.to(torch.bfloat16)
@@ -606,8 +703,24 @@ def k5_times(es, ed, ew, B: int, Ln: int, Epg: int, plain) -> dict:
 
     for lib in (index_put, onehot_bmm):
         check(torch.equal(lib(), plain), f"library {lib.__name__} != the plain Count")
-    return {"adj_count": cuda_ms(lambda: adj_count(es, ed, ew, B, Ln), 20),
-            "adj_count_onehot": cuda_ms(lambda: adj_count_onehot(es, ed, ew, B, Ln), 5),
+    # K5-lane's two launches, each by its device time under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            adj_count_onehot(es, ed, ew, B, Ln)
+        torch.cuda.synchronize()
+    split = {}
+    for key, name in (("bucket_kernel", "adj_bucket_kernel"),
+                      ("product_kernel", "adj_count_onehot_kernel")):
+        us = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+        check(us > 0, f"the profile shows no {name}")
+        split[key] = us / 1e3 / calls
+    return {**split,
+            "adj_count": cuda_ms(lambda: adj_count(es, ed, ew, B, Ln), 20),
+            "adj_count_onehot": cuda_ms(lambda: adj_count_onehot(es, ed, ew, B, Ln), 20),
             "plain": cuda_ms(lambda: adj_count_reference(es, ed, ew, B, Ln), 5),
             "index_put": cuda_ms(index_put, 5),
             "onehot_bmm": cuda_ms(onehot_bmm, 5)}

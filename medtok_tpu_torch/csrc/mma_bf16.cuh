@@ -1,6 +1,7 @@
 // Warp-level bf16 tensor-core helpers shared by the attention kernels
-// (segment_attention.cu, flash_attention.cu): 16- and 4-byte cp.async with
-// zero fill, ldmatrix, and mma.sync m16n8k16 with fp32 sums.
+// (segment_attention.cu, flash_attention.cu) and K5-lane (adj_count.cu):
+// 16- and 4-byte cp.async with zero fill, ldmatrix, and mma.sync m16n8k16
+// with fp32 sums.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): an A fragment
 // (16 x 16, row-major) is 4 registers of 2 bf16, (row g, cols 2t, 2t+1),

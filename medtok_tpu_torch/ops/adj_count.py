@@ -12,17 +12,21 @@ first, as the JAX package's one-hot Count does
 
 - ``adj_count`` (K5) launches the CUDA-core kernel of ``csrc/adj_count.cu``:
   one thread per destination row adds its edges' weights in edge order.
-- ``adj_count_onehot`` (K5-lane) launches the tensor-core kernel: bf16
-  one-hot tiles built in shared memory, multiplied with WMMA into fp32.
+- ``adj_count_onehot`` (K5-lane) launches two kernels: a stable counting
+  sort of each graph's kept edges by 128 x 128 Count tile into scratch the
+  wrapper allocates, then one block per (graph, tile) that sorts its
+  tile's edges by 16-row slab and multiplies each slab's bf16 one-hots,
+  built in registers, with ``mma.sync`` into fp32. So each edge is
+  multiplied only in its own tile's slab: 2 * 16 * 128 FLOP an edge
+  instead of 2 * Ln * Ln.
 
 Both are exact for binary weights and give identical bits on every launch
 for any weights (no atomics). On CPU tensors both run the plain version
 ``adj_count_reference``, the ``index_put_(accumulate=True)`` Count that
-``models/layers.py::gcn_norm_adj`` builds. Bound: the function moves the
-edges in and Count out and does one add per edge, so bytes bound both
-kernels. K5-lane's own method costs more: 2*Ln*Ln*E one-hot MACs, a floor of
-its design at the bf16 tensor-core peak, not a bound of the function (the
-source note has the numbers at the Ln=512 tail shape).
+``models/layers.py::gcn_norm_adj`` builds. An index outside [0, Ln) adds
+nothing, in the kernels and the plain version alike. Bound: the function
+moves the edges in and Count out and does one add per edge, so bytes bound
+both kernels (the source note has the numbers at the Ln=512 tail shape).
 """
 
 from __future__ import annotations
@@ -37,29 +41,33 @@ def adj_count_reference(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                         num_nodes: int) -> torch.Tensor:
     """Plain version: the bf16-rounded weights scattered into a zero
     [B, Ln, Ln] fp32 Count by ``index_put_(accumulate=True)``, which is
-    deterministic on CUDA (a sorted reduction, one fp32 sum per cell)."""
+    deterministic on CUDA (a sorted reduction, one fp32 sum per cell). An
+    edge with an index outside [0, Ln) matches no one-hot row in the JAX
+    Count, so it adds nothing here: it is sent to cell (0, 0) with weight 0."""
     E = edge_src.shape[0]
     if E % batch:
         raise ValueError("edge array must be per-graph chunked")
     dev = edge_src.device
     b = torch.arange(batch, device=dev).repeat_interleave(E // batch)
     count = torch.zeros((batch, num_nodes, num_nodes), dtype=torch.float32, device=dev)
-    w = edge_weight.to(torch.bfloat16).float()
-    return count.index_put_((b, edge_dst.long(), edge_src.long()), w, accumulate=True)
+    inside = ((torch.minimum(edge_src, edge_dst) >= 0)
+              & (torch.maximum(edge_src, edge_dst) < num_nodes))
+    w = torch.where(inside, edge_weight.to(torch.bfloat16).float(), 0.0)
+    return count.index_put_((b, edge_dst.where(inside, 0).long(),
+                             edge_src.where(inside, 0).long()), w, accumulate=True)
 
 
 def _count_launch(entry: str, edge_src, edge_dst, edge_weight, out,
-                  batch: int, num_nodes: int) -> None:
-    """Build the library if needed and launch ``entry`` on the edges'
-    device and current stream; raises on a missing nvcc or a refused
-    launch."""
+                  batch: int, num_nodes: int, scratch=()) -> None:
+    """Launch ``entry`` on the edges' device and current stream, with the
+    scratch tensors' pointers after ``out``; raises on a refused launch."""
     lib = _build.load_library()
     dev = edge_src.device
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(
             edge_src.data_ptr(), edge_dst.data_ptr(), edge_weight.data_ptr(),
-            out.data_ptr(), batch, num_nodes, edge_src.shape[0] // batch,
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), *(t.data_ptr() for t in scratch), batch, num_nodes,
+            edge_src.shape[0] // batch, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, entry)
 
 
@@ -86,14 +94,14 @@ def _count_out(edge_src, edge_dst, edge_weight, batch: int,
 
 
 def _count(entry: str, edge_src, edge_dst, edge_weight, batch: int,
-           num_nodes: int) -> tuple[torch.Tensor, bool]:
+           num_nodes: int, scratch=lambda: ()) -> tuple[torch.Tensor, bool]:
     """The Count by the plain version on CPU tensors, else by the kernel
-    ``entry`` (raising on anything it does not take); the flag says whether
-    the kernel was launched."""
+    ``entry`` (raising on anything it does not take) with the tensors that
+    ``scratch()`` allocates; the flag says whether the kernel was launched."""
     if all(t.device.type == "cpu" for t in (edge_src, edge_dst, edge_weight)):
         return adj_count_reference(edge_src, edge_dst, edge_weight, batch, num_nodes), False
     out = _count_out(edge_src, edge_dst, edge_weight, batch, num_nodes)
-    _count_launch(entry, edge_src, edge_dst, edge_weight, out, batch, num_nodes)
+    _count_launch(entry, edge_src, edge_dst, edge_weight, out, batch, num_nodes, scratch())
     return out, True
 
 
@@ -110,11 +118,18 @@ def adj_count(edge_src: torch.Tensor, edge_dst: torch.Tensor,
 def adj_count_onehot(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                      edge_weight: torch.Tensor, batch: int,
                      num_nodes: int) -> torch.Tensor:
-    """Count (K5-lane, bf16 one-hot products on the tensor cores), fp32
-    [B, Ln, Ln]. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    """Count (K5-lane, bf16 one-hot products of each tile's own edges on the
+    tensor cores), fp32 [B, Ln, Ln]. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    def scratch():
+        """Each graph's kept edges bucketed by tile, and each tile's start."""
+        dev = edge_src.device
+        tiles = _build.load_library().medtok_adj_lane_tiles(num_nodes)
+        return (torch.empty(edge_src.shape[0], dtype=torch.int32, device=dev),
+                torch.empty(batch * (tiles + 1), dtype=torch.int32, device=dev))
+
     out, launched = _count("medtok_adj_count_onehot", edge_src, edge_dst,
-                           edge_weight, batch, num_nodes)
+                           edge_weight, batch, num_nodes, scratch)
     adj_count_onehot.launches += launched
     return out
 
