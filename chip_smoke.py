@@ -53,14 +53,16 @@ Phases, each fatal on failure:
  11. hold kernels K5 and K5-lane (the dense-adjacency Count) against their
      plain version and a numpy histogram at B=512, Ln=512, Epg=8192 with
      the bench script's edges (bit for bit on binary weights; within 1e-6
-     and identical across two launches on fractional ones), at an export
+     and identical across two launches on fractional ones, K5's bit for
+     bit numpy's edge-order fp32 np.add.at), at an export
      shape (Ln=128, Epg=1024), at a dense shape (B=64, Ln=16, Epg=8192,
      about 24 edges per Count cell, where a sum in another order or
      precision would show) and on K5_EDGE_CASES (every edge in one
      128 x 128 tile at Epg=65536, indices outside [0, Ln), zero weights
      between used slots, Ln = 1, 200 and 1000); time both at the first
-     shape beside index_put_, split K5-lane's two launches by device time
-     under torch.profiler and log its one-hot product floor;
+     shape beside index_put_, split each one's two launches (the shared
+     bucket pre-pass, then K5's tile adds or K5-lane's products) by device
+     time under torch.profiler and log K5-lane's one-hot product floor;
  12. run the slice-3 entry points at their full default shapes, counting
      kernel launches: the packed-BERT probe
      (medtok_tpu_torch.scripts.profile_bert, K2 and K4 12 per kernel-leg
@@ -537,22 +539,28 @@ def k5_edges(rng, B: int, Ln: int, Epg: int, hi: int | None = None, zero_every: 
     return src.reshape(-1), dst.reshape(-1), w.reshape(-1)
 
 
-def k5_histogram(src, dst, w, B: int, Ln: int):
-    """numpy Count of binary weights: edges of weight != 0 with both ends
-    in [0, Ln), [B, Ln, Ln] fp32."""
+def k5_edge_order(es, ed, w, B: int, Ln: int):
+    """numpy Count summed in edge order in fp32: np.add.at of the bf16
+    weights of the kept edges (bf16 weight != 0, both ends in [0, Ln)) on a
+    zero float32 array, the sums K5 takes; on binary weights, the
+    histogram. [B, Ln, Ln] fp32 on the edges' device."""
     import numpy as np
+    import torch
 
-    b = np.repeat(np.arange(B), src.shape[0] // B)
-    ok = (w != 0) & (src >= 0) & (src < Ln) & (dst >= 0) & (dst < Ln)
-    truth = np.zeros((B, Ln, Ln), np.float32)
-    np.add.at(truth, (b[ok], dst[ok], src[ok]), 1.0)
-    return truth
+    src, dst = es.cpu().numpy().astype(np.int64), ed.cpu().numpy().astype(np.int64)
+    w16 = w.to(torch.bfloat16).float().cpu().numpy()
+    b = np.repeat(np.arange(B, dtype=np.int64), src.shape[0] // B)
+    ok = (w16 != 0) & (src >= 0) & (src < Ln) & (dst >= 0) & (dst < Ln)
+    count = np.zeros(B * Ln * Ln, np.float32)
+    np.add.at(count, (b[ok] * Ln + dst[ok]) * Ln + src[ok], w16[ok])
+    return torch.from_numpy(count.reshape(B, Ln, Ln)).to(es.device)
 
 
 def check_k5_case(gen, dev, label: str, es, ed, ew, truth, B: int, Ln: int) -> dict:
     """K5 and K5-lane on one set of edges: the binary Count bit for bit
     equal to the plain version and the histogram; fractional weights
-    within 1e-6 of the largest count, two launches identical. Returns the
+    within 1e-6 of the largest count, two launches identical, and K5's bit
+    for bit the edge-order fp32 sum of numpy's np.add.at. Returns the
     fractional max abs error by kernel name."""
     import torch
 
@@ -578,10 +586,15 @@ def check_k5_case(gen, dev, label: str, es, ed, ew, truth, B: int, Ln: int) -> d
         check(err <= 1e-6 * scale, f"{name} {label}: fractional error {err} > 1e-6 "
               f"of the largest count {scale}")
         check(torch.equal(first, second), f"{name} {label}: two launches differ")
+        order = ""
+        if fn is adj_count:
+            check(torch.equal(first, k5_edge_order(es, ed, wf, B, Ln)),
+                  f"{name} {label}: fractional Count is not the edge-order fp32 sum bit for bit")
+            order = ", bit for bit numpy's edge-order fp32 np.add.at"
         errs[name] = err
         log(f"K5 {name} {label}: binary Count equal to the plain version and the histogram "
             f"bit for bit (largest count {float(truth.max()):.0f}); fractional max abs err "
-            f"{err:.3e} (largest count {scale:.3f}), two launches identical")
+            f"{err:.3e} (largest count {scale:.3f}){order}, two launches identical")
         del got, first, second
     return errs
 
@@ -613,7 +626,7 @@ def check_k5(gen, dev) -> list[dict]:
     import numpy as np
     import torch
 
-    from medtok_tpu_torch.scripts.bench_adj import draw_edges, histogram
+    from medtok_tpu_torch.scripts.bench_adj import draw_edges
 
     frac_err = {}
     cases = [(f"B={B} Ln={Ln} Epg={Epg}", B, Ln, Epg, None) for B, Ln, Epg in K5_SHAPES]
@@ -621,14 +634,12 @@ def check_k5(gen, dev) -> list[dict]:
     rng = np.random.default_rng(K5_SEED)
     for label, B, Ln, Epg, opts in cases:
         if opts is None:   # the bench script's draw
-            src, dst, w, ne = draw_edges(B, Ln, Epg)
-            truth = histogram(src, dst, ne, Ln)
+            src, dst, w, _ = draw_edges(B, Ln, Epg)
         else:
             src, dst, w = k5_edges(rng, B, Ln, Epg, **opts)
-            truth = k5_histogram(src, dst, w, B, Ln)
             label = f"{label} (B={B} Ln={Ln} Epg={Epg})"
         es, ed, ew = (torch.from_numpy(a.reshape(-1)).to(dev) for a in (src, dst, w))
-        truth = torch.from_numpy(truth).to(dev)
+        truth = k5_edge_order(es, ed, ew, B, Ln)   # binary weights: the histogram
         for name, err in check_k5_case(gen, dev, label, es, ed, ew, truth, B, Ln).items():
             frac_err[name] = max(frac_err.get(name, 0.0), err)
         if (B, Ln, Epg) == K5_SHAPES[0] and opts is None:
@@ -656,9 +667,9 @@ def check_k5(gen, dev) -> list[dict]:
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=times["index_put"]))
     log(f"K5 adj_count_onehot: one-hot method's yardstick, the chunked bf16 one-hot bmm "
         f"(every edge against every node) {times['onehot_bmm']:.4f} ms")
-    log(f"K5 adj_count_onehot launches, device time per call under torch.profiler: "
-        f"bucket pre-pass (adj_bucket_kernel) {times['bucket_kernel']:.4f} ms, products "
-        f"(adj_count_onehot_kernel) {times['product_kernel']:.4f} ms")
+    for (name, launch), ms in times["split"].items():
+        log(f"K5 {name} launch {launch}: {ms:.4f} ms of device time per call under "
+            f"torch.profiler")
     log(f"K5 adj_count_onehot product floor: {padded} padded kept edges x 2 x 16 x 128 = "
         f"{flops / 1e9:.2f} GFLOP of one-hot products at the bf16 peak, "
         f"{flops / PEAK_BF16 * 1e3:.4f} ms (not a bound of the function; every edge in "
@@ -668,9 +679,10 @@ def check_k5(gen, dev) -> list[dict]:
 
 def k5_times(es, ed, ew, B: int, Ln: int, Epg: int) -> dict:
     """ms of both kernels, the plain version, one index_put_ Count and the
-    chunked bf16 one-hot bmm (one-hots under 1 GiB a side), and K5-lane's
-    two launches by their device time under torch.profiler; the two library
-    calls must give the plain version's Count."""
+    chunked bf16 one-hot bmm (one-hots under 1 GiB a side), and under
+    "split" each kernel's two launches by their device time under
+    torch.profiler, keyed (kernel, launch); the two library calls must give
+    the plain version's Count."""
     import torch
 
     from medtok_tpu_torch.ops.adj_count import (
@@ -703,22 +715,23 @@ def k5_times(es, ed, ew, B: int, Ln: int, Epg: int) -> dict:
 
     for lib in (index_put, onehot_bmm):
         check(torch.equal(lib(), plain), f"library {lib.__name__} != the plain Count")
-    # K5-lane's two launches, each by its device time under the profiler
+    # each kernel's two launches, by their device time under the profiler
     from torch.profiler import ProfilerActivity, profile
 
     calls = 10
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            adj_count_onehot(es, ed, ew, B, Ln)
-        torch.cuda.synchronize()
     split = {}
-    for key, name in (("bucket_kernel", "adj_bucket_kernel"),
-                      ("product_kernel", "adj_count_onehot_kernel")):
-        us = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
-        check(us > 0, f"the profile shows no {name}")
-        split[key] = us / 1e3 / calls
-    return {**split,
+    for fn, second in ((adj_count, "adj_count_tile_kernel"),
+                       (adj_count_onehot, "adj_count_onehot_kernel")):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(es, ed, ew, B, Ln)
+            torch.cuda.synchronize()
+        for name in ("adj_bucket_kernel", second):
+            us = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+            check(us > 0, f"the profile of {fn.__name__} shows no {name}")
+            split[fn.__name__, name] = us / 1e3 / calls
+    return {"split": split,
             "adj_count": cuda_ms(lambda: adj_count(es, ed, ew, B, Ln), 20),
             "adj_count_onehot": cuda_ms(lambda: adj_count_onehot(es, ed, ew, B, Ln), 20),
             "plain": cuda_ms(lambda: adj_count_reference(es, ed, ew, B, Ln), 5),

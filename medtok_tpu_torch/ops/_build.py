@@ -63,11 +63,10 @@ _SIGNATURES = {
     # as medtok_segment_attention, q/k/v/out in [B, L, H, Dh]
     "medtok_segment_attention_nt": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
-    # src, dst, w, out, B, Ln, Epg, stream
-    "medtok_adj_count": ([_P, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
     # src, dst, w, out, lists, offsets (scratch), B, Ln, Epg, stream
+    "medtok_adj_count": ([_P] * 6 + [_I, _I, _I, _P], ctypes.c_int),
     "medtok_adj_count_onehot": ([_P] * 6 + [_I, _I, _I, _P], ctypes.c_int),
-    # K5-lane's Count tiles per graph at Ln nodes
+    # Count tiles per graph at Ln nodes (K5 and K5-lane)
     "medtok_adj_lane_tiles": ([_I], ctypes.c_int),
     # q, k, v, mask, out, lse, *K3_TAIL
     "medtok_flash_fwd": ([_P] * 6 + _K3_TAIL, ctypes.c_int),

@@ -10,20 +10,25 @@ carry 0). The result is fp32 [B, Ln, Ln]. Each weight is rounded to bf16
 first, as the JAX package's one-hot Count does
 (``medtok_tpu/models/layers.py::gcn_norm_adj``).
 
-- ``adj_count`` (K5) launches the CUDA-core kernel of ``csrc/adj_count.cu``:
-  one thread per destination row adds its edges' weights in edge order.
-- ``adj_count_onehot`` (K5-lane) launches two kernels: a stable counting
-  sort of each graph's kept edges by 128 x 128 Count tile into scratch the
-  wrapper allocates, then one block per (graph, tile) that sorts its
-  tile's edges by 16-row slab and multiplies each slab's bf16 one-hots,
-  built in registers, with ``mma.sync`` into fp32. So each edge is
-  multiplied only in its own tile's slab: 2 * 16 * 128 FLOP an edge
-  instead of 2 * Ln * Ln.
+Both launch two kernels of ``csrc/adj_count.cu``. The first, shared, is a
+stable counting sort of each graph's kept edges by 128 x 128 Count tile
+into scratch the wrapper allocates. The second gives each (graph, tile) one
+block that reads only its tile's edges:
+
+- ``adj_count`` (K5, CUDA cores) adds them into an fp32 tile in shared
+  memory, one fp32 add per edge in edge order, then writes the tile once.
+  Its Count is bit for bit the sequential edge-order fp32 sum of the bf16
+  weights.
+- ``adj_count_onehot`` (K5-lane) sorts its tile's edges by 16-row slab and
+  multiplies each slab's bf16 one-hots, built in registers, with
+  ``mma.sync`` into fp32: 2 * 16 * 128 FLOP an edge instead of
+  2 * Ln * Ln.
 
 Both are exact for binary weights and give identical bits on every launch
-for any weights (no atomics). On CPU tensors both run the plain version
-``adj_count_reference``, the ``index_put_(accumulate=True)`` Count that
-``models/layers.py::gcn_norm_adj`` builds. An index outside [0, Ln) adds
+for any weights (no atomic decides a slot or a sum's order). On CPU
+tensors both run the plain version ``adj_count_reference``, the
+``index_put_(accumulate=True)`` Count that ``models/layers.py::gcn_norm_adj``
+builds. An index outside [0, Ln) adds
 nothing, in the kernels and the plain version alike. Bound: the function
 moves the edges in and Count out and does one add per edge, so bytes bound
 both kernels (the source note has the numbers at the Ln=512 tail shape).
@@ -94,21 +99,27 @@ def _count_out(edge_src, edge_dst, edge_weight, batch: int,
 
 
 def _count(entry: str, edge_src, edge_dst, edge_weight, batch: int,
-           num_nodes: int, scratch=lambda: ()) -> tuple[torch.Tensor, bool]:
+           num_nodes: int) -> tuple[torch.Tensor, bool]:
     """The Count by the plain version on CPU tensors, else by the kernel
-    ``entry`` (raising on anything it does not take) with the tensors that
-    ``scratch()`` allocates; the flag says whether the kernel was launched."""
+    ``entry`` (raising on anything it does not take) with the scratch of the
+    bucket pre-pass: each graph's kept edges bucketed by tile, and each
+    tile's start. The flag says whether the kernel was launched."""
     if all(t.device.type == "cpu" for t in (edge_src, edge_dst, edge_weight)):
         return adj_count_reference(edge_src, edge_dst, edge_weight, batch, num_nodes), False
     out = _count_out(edge_src, edge_dst, edge_weight, batch, num_nodes)
-    _count_launch(entry, edge_src, edge_dst, edge_weight, out, batch, num_nodes, scratch())
+    dev = edge_src.device
+    tiles = _build.load_library().medtok_adj_lane_tiles(num_nodes)
+    scratch = (torch.empty(edge_src.shape[0], dtype=torch.int32, device=dev),
+               torch.empty(batch * (tiles + 1), dtype=torch.int32, device=dev))
+    _count_launch(entry, edge_src, edge_dst, edge_weight, out, batch, num_nodes, scratch)
     return out, True
 
 
 def adj_count(edge_src: torch.Tensor, edge_dst: torch.Tensor,
               edge_weight: torch.Tensor, batch: int, num_nodes: int) -> torch.Tensor:
-    """Count (K5, CUDA cores), fp32 [B, Ln, Ln]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    """Count (K5, edge-order fp32 adds of each tile's own edges on the CUDA
+    cores), fp32 [B, Ln, Ln]. CPU tensors take the plain version; CUDA
+    tensors launch the kernels or raise."""
     out, launched = _count("medtok_adj_count", edge_src, edge_dst, edge_weight,
                            batch, num_nodes)
     adj_count.launches += launched
@@ -120,16 +131,9 @@ def adj_count_onehot(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                      num_nodes: int) -> torch.Tensor:
     """Count (K5-lane, bf16 one-hot products of each tile's own edges on the
     tensor cores), fp32 [B, Ln, Ln]. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
-    def scratch():
-        """Each graph's kept edges bucketed by tile, and each tile's start."""
-        dev = edge_src.device
-        tiles = _build.load_library().medtok_adj_lane_tiles(num_nodes)
-        return (torch.empty(edge_src.shape[0], dtype=torch.int32, device=dev),
-                torch.empty(batch * (tiles + 1), dtype=torch.int32, device=dev))
-
+    CUDA tensors launch the kernels or raise."""
     out, launched = _count("medtok_adj_count_onehot", edge_src, edge_dst,
-                           edge_weight, batch, num_nodes, scratch)
+                           edge_weight, batch, num_nodes)
     adj_count_onehot.launches += launched
     return out
 
