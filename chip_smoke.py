@@ -80,7 +80,25 @@ Phases, each fatal on failure:
      (head width 32) trains two steps on the card with 4 launches of each
      K3 kernel a step, and an fp32 export at the verify recipe's widths
      (text hidden 32 / 4 heads, codebook 90 x 16) on the card is held to
-     the plain versions on the CPU by phase 5's tie-gap rule.
+     the plain versions on the CPU by phase 5's tie-gap rule;
+ 15. train the tokenizer at ModelConfig() width through Trainer.fit with
+     TrainConfig(packed_text=True, global_batch_size=1024) over
+     epoch_batches of phase 5's dataset (edge dropout on): a warm-up step,
+     5 timed steps over batches collated in advance (the step alone: ms/step,
+     peak memory), 5 timed steps of fit drawing from epoch_batches (end to
+     end: codes/s with the collate inside the clock), each with 6 K1 and 12
+     K2 launches a step, the host batch build timed apart, one profiled step split by
+     part (frozen BERT forward; text_mapped, GCN, cross-attention, the K1
+     sweeps and their recomputes, losses: forward and backward;
+     clip + Adam + EMA); fail on a non-finite loss, usage outside (0, 1], a
+     changed BERT parameter, a trainable tensor that did not move, or two
+     forward + backward passes from one state and generator state whose
+     gradients are not bitwise equal; K1 on the six sweeps' inputs of the
+     warm-up step and K2 on the training packing, each held to its plain
+     version as in phases 3 and 4; then one fp32 train step at the
+     verify recipe's widths on the card against the plain versions on the
+     CPU (token rows by the tie-gap rule, loss terms within 1e-5, gradients
+     within 1e-4 of the largest).
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
@@ -1744,6 +1762,370 @@ def check_small_export(dataset, dev, gen) -> None:
     log(f"verify-recipe widths export: launches {launches}")
 
 
+# -------------------------------------------------------------- training --
+
+TRAIN_BATCH = 1024
+TRAIN_TIMED_STEPS = 5
+TRAIN_SWEEPS = 6        # K1 sweeps a step: shared text / graph, 4 specific
+K1_KERNELS = ("tf32_split_kernel", "topk_tf32_kernel", "topk_merge_kernel")
+
+
+def train_breakdown(prof) -> tuple[dict, dict]:
+    """Device time of one profiled train step by part, as {"forward": {part:
+    Counter(kernel name -> us)}, "backward": {...}}. Each kernel is matched
+    to the runtime call that launched it (one CUDA correlation id) and so to
+    a place on the host timeline: inside a train.* range, it is that part's
+    forward (the optimizer range is clip + Adam + EMA); inside an autograd
+    node's evaluation, it is the backward of the part whose forward op
+    created the node (matched by sequence number), and a launch between
+    nodes (the engine's sums of gradients that meet at one tensor) is
+    "backward / sums"; anything else (the batch's copies) is "outside".
+    Also the device ms of K1, K2, all kernels, and copies."""
+    import bisect
+    import collections
+    import re
+
+    import torch
+
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = list(prof.events())
+    host = [e for e in events if e.device_type == cpu]
+    runtime = {e.id: e for e in host if re.match(r"cu(da)?[A-Z]", e.name)}
+    # device events that are kernels or copies, not the device-side spans
+    # of record_function ranges (train.*, gcn_norm_adj)
+    kernels = [e for e in events if e.device_type == gpu
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("train.") and e.name != "gcn_norm_adj"]
+
+    def intervals(evs):
+        evs = sorted(evs, key=lambda e: e.time_range.start)
+        return [e.time_range.start for e in evs], evs
+
+    def containing(table, t):
+        starts, evs = table
+        k = bisect.bisect_right(starts, t) - 1
+        return evs[k] if k >= 0 and t <= evs[k].time_range.end else None
+
+    ranges = intervals(e for e in host
+                       if e.name.startswith("train.") and e.name != "train.backward")
+    nodes = intervals(e for e in host
+                      if e.name.startswith("autograd::engine::evaluate_function"))
+    backward = intervals(e for e in host if e.name == "train.backward")
+    seq_part = {}
+    for e in host:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            r = containing(ranges, e.time_range.start)
+            if r is not None:
+                seq_part.setdefault(e.sequence_nr, r.name[len("train."):])
+    parts = {"forward": collections.defaultdict(collections.Counter),
+             "backward": collections.defaultdict(collections.Counter)}
+    for k in kernels:
+        launch = runtime.get(k.id)
+        t = launch.time_range.start if launch is not None else None
+        r = containing(ranges, t) if t is not None else None
+        node = containing(nodes, t) if t is not None else None
+        if r is not None:
+            side, part = "forward", r.name[len("train."):]
+        elif node is not None:
+            side, part = "backward", seq_part.get(node.sequence_nr, "unmatched node")
+        elif t is not None and containing(backward, t) is not None:
+            side, part = "backward", "sums"
+        else:
+            side, part = "forward", "outside" if launch is not None else "no launch found"
+        parts[side][part][k.name] += k.time_range.end - k.time_range.start
+    totals = {
+        "K1": sum(e.device_time_total for e in kernels
+                  if any(n in e.name for n in K1_KERNELS)) / 1e3,
+        "K2": sum(e.device_time_total for e in kernels if "segment_attention" in e.name) / 1e3,
+        "copies": sum(e.device_time_total for e in kernels
+                      if e.name.startswith("Memcpy")) / 1e3,
+        "all": sum(e.device_time_total for e in kernels) / 1e3,
+    }
+    return parts, totals
+
+
+def train_batches(dataset, cfg, n: int) -> tuple[list, list]:
+    """The first n batches of epoch_batches (edge dropout on) and the host
+    ms each took to collate."""
+    from medtok_tpu_torch.data.dataset import epoch_batches
+
+    it = epoch_batches(dataset, batch_size=cfg.train.global_batch_size,
+                       seed=cfg.train.global_seed)
+    batches, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        batches.append(next(it))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return batches, ms
+
+
+def check_train_determinism(trainer, state, batch, cfg) -> None:
+    """Two forward + backward passes from one state and one generator state
+    (the usage FIFO put back in between) give bitwise equal losses, usage
+    FIFOs and gradients."""
+    import torch
+
+    from medtok_tpu_torch.train.trainer import _loss_fn, trainable_parameters
+
+    model = trainer.model.train()
+    q = model.quantize
+    params = [p for _, p in trainable_parameters(model)]
+    tb, packed = batch.to(trainer.device), trainer.pack(batch).to(trainer.device)
+    usage = (q.codebook_used.clone(), q.usage_counts.clone())
+    gen_state = state.generator.get_state()
+    runs = []
+    for _ in range(2):
+        q.codebook_used.copy_(usage[0])
+        q.usage_counts.copy_(usage[1])
+        state.generator.set_state(gen_state)
+        for p in params:
+            p.grad = None
+        loss, _ = _loss_fn(model, tb, cfg, packed=packed, generator=state.generator)
+        loss.backward()
+        runs.append([loss.detach(), q.codebook_used.clone(), q.usage_counts.clone()]
+                    + [p.grad.clone() for p in params])
+    for p in params:
+        p.grad = None
+    q.codebook_used.copy_(usage[0])
+    q.usage_counts.copy_(usage[1])
+    names = ["loss", "codebook_used", "usage_counts"] + [
+        n for n, _ in trainable_parameters(model)]
+    differ = [n for n, a, b in zip(names, *runs) if not torch.equal(a, b)]
+    check(not differ, f"training: two passes from one state differ in {differ}")
+    log(f"training: two forward + backward passes from one state and one generator "
+        f"state: loss, usage FIFO and all {len(params)} gradients bitwise equal")
+
+
+def run_training(dataset, dev, gen) -> dict:
+    """Trainer.fit at ModelConfig() width, packed text, batch 1024, over
+    epoch_batches of the export's dataset: a warm-up step that records K1's
+    inputs, TRAIN_TIMED_STEPS steps over batches collated in advance (the
+    step alone), TRAIN_TIMED_STEPS steps of fit drawing from epoch_batches
+    (end to end), each with K1 / K2 counted, a profiled step, the checks,
+    then K1 and K2 against their plain versions at the training shapes.
+    Returns the end-to-end run's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from medtok_tpu_torch.config import MedTokConfig, ModelConfig, TrainConfig
+    from medtok_tpu_torch.data.dataset import epoch_batches
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.train.trainer import Trainer, trainable_parameters
+
+    cfg = MedTokConfig(model=ModelConfig(), data=dataset.cfg,
+                       train=TrainConfig(packed_text=True, global_batch_size=TRAIN_BATCH))
+    T = TRAIN_TIMED_STEPS
+    batches, collate_ms = train_batches(dataset, cfg, T + 3)
+    logged = []
+    trainer = Trainer(cfg, device=dev, log_fn=lambda step, m: logged.append(m))
+    model = trainer.model
+    state = trainer.init_state()
+    pack_ms = []
+    for b in batches:
+        t0 = time.perf_counter()
+        trainer.pack(b)
+        pack_ms.append(1e3 * (time.perf_counter() - t0))
+    bert0 = [p.detach().clone() for p in model.text_model.parameters()]
+    train0 = {n: p.detach().clone() for n, p in trainable_parameters(model)}
+    n_train = sum(p.numel() for p in train0.values())
+    n_bert = sum(p.numel() for p in bert0)
+    log(f"training: ModelConfig() width, {n_train / 1e6:.3f} M trainable fp32 "
+        f"parameters, frozen BERT {n_bert / 1e6:.1f} M ({cfg.model.compute_dtype}); "
+        f"batch {TRAIN_BATCH}, packed rows of {cfg.train.packed_row_len}, "
+        f"{trainer.pack_rows} rows a batch (1.3 x the first batch's tokens)")
+    for i, b in enumerate(batches):
+        tokens = int(np.asarray(b.attention_mask).sum())
+        log(f"  batch {i}: (Lt, Ln, Epg) = ({b.input_ids.shape[1]}, {b.node_ids.shape[1]}, "
+            f"{b.edge_src.shape[0] // TRAIN_BATCH}), {tokens} text tokens, "
+            f"{int(b.edge_weight_aug.sum())} of {int(b.edge_weight.sum())} edges kept "
+            f"in the augmented view")
+
+    # the warm-up step records K1's inputs as training gives them (the
+    # region sweeps read their rows in place, as views of the codebook)
+    k1_inputs = []
+    distance_topk = vq.distance_topk
+
+    def recorded(z_n, e_n, k, **kw):
+        k1_inputs.append((z_n.detach(), e_n.detach(), k))
+        return distance_topk(z_n, e_n, k, **kw)
+
+    vq.distance_topk = recorded
+    try:
+        state = trainer.fit(state, batches[:1])                # warm-up
+    finally:
+        vq.distance_topk = distance_topk
+    n_layers = cfg.model.text.num_layers
+    want = {"topk_l2": TRAIN_SWEEPS * T, "segment_attention": n_layers * T}
+
+    def timed_fit(state, batches, **kw):
+        fused_topk_l2.launches = 0
+        packed_segment_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.fit(state, batches, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"topk_l2": fused_topk_l2.launches,
+                    "segment_attention": packed_segment_attention.launches}
+        check(launches == want, f"training: launches {launches} != {want} "
+              f"({TRAIN_SWEEPS} K1 and {n_layers} K2 a step)")
+        return state, wall, launches
+
+    # the step alone, over batches collated in advance (pack + copies + step)
+    torch.cuda.reset_peak_memory_stats()
+    state, step_wall, _ = timed_fit(state, batches[1:1 + T])
+    peak = torch.cuda.max_memory_allocated()
+    # end to end, as a user runs it: Trainer.fit drawing from epoch_batches,
+    # the collate with its edge dropout inside the clock
+    epoch = epoch_batches(dataset, batch_size=TRAIN_BATCH, seed=cfg.train.global_seed,
+                          epoch=1)
+    state, wall, launches = timed_fit(state, epoch, max_steps=state.step + T)
+    check(state.step == 1 + 2 * T and len(logged) == 1 + 2 * T,
+          "training: steps not taken")
+    for m in logged:
+        check(all(np.isfinite(v) for v in m.values()), f"training: non-finite metric {m}")
+        for key in ("codebook_usage_shared", "codebook_usage_text", "codebook_usage_graph"):
+            check(0.0 < m[key] <= 1.0, f"training: {key} = {m[key]} outside (0, 1]")
+    log(f"training end to end: Trainer.fit over epoch_batches, {T} steps in {wall:.3f} s: "
+        f"{1e3 * wall / T:.3f} ms/step, {TRAIN_BATCH * T / wall:.1f} codes/s (collate with "
+        f"edge dropout + pack + copies + step); launches {launches}")
+    log(f"training step alone: {T} steps over batches collated in advance in "
+        f"{step_wall:.3f} s: {1e3 * step_wall / T:.3f} ms/step, "
+        f"{TRAIN_BATCH * T / step_wall:.1f} codes/s (pack + copies + step); "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"training: host batch build {np.mean(collate_ms):.1f} ms collate (edge dropout "
+        f"included) + {np.mean(pack_ms):.1f} ms packing per batch of {TRAIN_BATCH}")
+    log("training: losses " + ", ".join(f"{m['loss']:.4f}" for m in logged)
+        + "; usage shared / text / graph "
+        + f"{logged[-1]['codebook_usage_shared']:.4f} / "
+        + f"{logged[-1]['codebook_usage_text']:.4f} / {logged[-1]['codebook_usage_graph']:.4f}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = trainer.fit(state, batches[1 + T:2 + T])
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0)
+    parts, totals = train_breakdown(prof)
+    log(f"profile: one train step {prof_wall:.3f} ms wall; device kernels "
+        f"{totals['all']:.3f} ms ({100 * totals['all'] / prof_wall:.1f}% of wall), "
+        f"copies {totals['copies']:.3f} ms; K1 {totals['K1']:.3f} ms, K2 "
+        f"{totals['K2']:.3f} ms")
+    for name in sorted(set(parts["forward"]) | set(parts["backward"])):
+        fk, bk = parts["forward"][name], parts["backward"][name]
+        f, b = sum(fk.values()) / 1e3, sum(bk.values()) / 1e3
+        log(f"  {name:15s} forward {f:9.3f} ms  backward {b:9.3f} ms  "
+            f"({100 * (f + b) / max(totals['all'], 1e-9):.1f}% of the device time)")
+        for side, counter in (("fwd", fk), ("bwd", bk)):
+            for kname, us in counter.most_common(3):
+                log(f"      {side} {us / 1e3:8.3f} ms  {kname[:90]}")
+    on_gpu = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.key_averages() if e.device_type == on_gpu
+              and not e.key.startswith("train.") and e.key != "gcn_norm_adj"]
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  device {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:90]}")
+
+    check_train_determinism(trainer, state, batches[-1], cfg)
+    for p, p0 in zip(model.text_model.parameters(), bert0):
+        check(torch.equal(p, p0), "training: a frozen BERT parameter changed")
+    still = [n for n, p in trainable_parameters(model) if torch.equal(p, train0[n])]
+    check(not still, f"training: parameters that did not move: {still}")
+    log(f"training: after {state.step} steps the BERT is bit for bit where it "
+        f"started and all {len(train0)} trainable tensors moved")
+
+    # the kernels against their plain versions at the shapes training gives
+    # them: K1's six sweeps of the warm-up step, K2 on the training packing
+    check(len(k1_inputs) == TRAIN_SWEEPS, f"training: {len(k1_inputs)} K1 sweeps recorded")
+    for i, (z, e, k) in enumerate(k1_inputs):
+        check_k1_case(z, e, f"training sweep {i}", k=k)
+    seg = trainer.pack(batches[0]).to(dev).seg_ids
+    check_segment_case(gen, dev, seg, False, "training packing",
+                       H=cfg.model.text.num_heads,
+                       Dh=cfg.model.text.hidden_size // cfg.model.text.num_heads)
+    return launches
+
+
+def check_train_reference(dataset, dev, n_codes: int = 64) -> None:
+    """One packed fp32 train step at the verify recipe's widths (text 32 / 4
+    heads: K2 at head width 8; codebook 90 x 16: K1 at width 16; graph
+    8 / 16 / 16; cross-attention dropout 0), kernels on the card against
+    the plain versions on the CPU from one state: token rows by phase 5's
+    tie-gap rule, the 22 loss terms within 1e-5, each gradient within 1e-4
+    of its largest (the key bias, whose exact gradient is 0, within 1e-5 of
+    the key weight's)."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.config import (
+        GraphEncoderConfig,
+        ModelConfig,
+        QuantizerConfig,
+        TextEncoderConfig,
+    )
+    from medtok_tpu_torch.data.packing import pack_code_batch
+    from medtok_tpu_torch.models.layers import init_random_
+    from medtok_tpu_torch.models.tokenizer_model import PATH_ORDER, MultimodalTokenizer
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.train.losses import assemble_losses
+    from medtok_tpu_torch.train.trainer import packed_rows_budget, trainable_parameters
+
+    cfg = ModelConfig(
+        text=TextEncoderConfig(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64),
+        graph=GraphEncoderConfig(in_channels=8, hidden_channels=16, out_channels=16),
+        quantizer=QuantizerConfig(codebook_size=90, codebook_embed_dim=16,
+                                  cross_attn_dropout=0.0),
+        compute_dtype="float32")
+    batch = dataset.make_batch(list(range(n_codes)), aug_seed=1)
+    am = np.asarray(batch.attention_mask)
+    packed = pack_code_batch(np.asarray(batch.input_ids), am,
+                             num_rows=packed_rows_budget(am, 128), row_len=128)
+    cpu = torch.device("cpu")
+    ref = init_random_(MultimodalTokenizer(cfg, param_dtype=torch.float32),
+                       torch.Generator().manual_seed(3))
+    card = MultimodalTokenizer(cfg, param_dtype=torch.float32, device=dev)
+    card.load_state_dict(ref.state_dict())
+    res = []
+    for model, where in ((card, dev), (ref, cpu)):
+        fused_topk_l2.launches = 0
+        packed_segment_attention.launches = 0
+        out = model.train().forward_train(batch.to(where), packed=packed.to(where))
+        total, metrics = assemble_losses(out)
+        total.backward()
+        toks = torch.stack([out[f"{p}_tokens"] for p in PATH_ORDER], 1).cpu().numpy()
+        w = torch.stack([out[f"{p}_tokens_weights"] for p in PATH_ORDER], 1)
+        res.append(dict(tok=toks, w=w.detach().cpu().numpy(),
+                        metrics={k: float(v.detach()) for k, v in metrics.items()},
+                        grads={n: p.grad.cpu().numpy() for n, p in trainable_parameters(model)},
+                        launches={"topk_l2": fused_topk_l2.launches,
+                                  "segment_attention": packed_segment_attention.launches}))
+    launches = res[0]["launches"]
+    check(launches == {"topk_l2": TRAIN_SWEEPS, "segment_attention": 2},
+          f"training reference: launches {launches}")
+    got, want = res
+    gaps = tie_gaps(got["tok"], got["w"], want["tok"], want["w"])
+    max_gap = float(gaps.max(initial=0.0))
+    check(max_gap <= 1e-5, f"training reference: token rows differ beyond a tie ({gaps})")
+    metric_err = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-6)
+                     for k, v in want["metrics"].items())
+    check(metric_err <= 1e-5, f"training reference: loss terms off by {metric_err:.3e}")
+    grad_err = 0.0
+    for name, g in want["grads"].items():
+        if name.endswith("k_proj.bias"):
+            scale = np.abs(want["grads"][name.replace("bias", "weight")]).max()
+            check(max(np.abs(g).max(), np.abs(got["grads"][name]).max()) <= 1e-5 * scale,
+                  f"training reference: {name} is not noise around 0")
+            continue
+        grad_err = max(grad_err, float(np.abs(got["grads"][name] - g).max() / np.abs(g).max()))
+    check(grad_err <= 1e-4, f"training reference: gradients off by {grad_err:.3e} of the largest")
+    log(f"training reference ({n_codes} codes, fp32, kernels on the card vs plain on the "
+        f"CPU): {int((got['tok'] != want['tok']).any(-1).sum())} token rows differ (max "
+        f"tie gap {max_gap:.3e}), loss terms within {metric_err:.3e}, gradients within "
+        f"{grad_err:.3e} of the largest; launches {launches}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1826,6 +2208,9 @@ def main(argv=None) -> int:
     check_ehr_heads(table, ehr, dev)
     check_small_export(dataset, dev, gen)
     slice3 = run_slice3()
+    train_launches = run_training(dataset, dev, gen)
+    check_train_reference(dataset, dev)
+    log(f"training launches: {train_launches}")
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]

@@ -98,8 +98,12 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters; carried for ``args.json`` compatibility
-    (the port has no trainer yet)."""
+    """Training hyperparameters (``train/trainer.py``). The port trains on
+    one device: ``mesh_dp`` / ``mesh_tp`` above 1 raise; ``results_dir``,
+    ``ckpt_every`` and ``max_checkpoints`` are carried for ``args.json``
+    compatibility (no checkpoints yet); neither trainer reads
+    ``weight_decay`` or ``mixed_precision`` (the JAX CLI turns the latter
+    into ``ModelConfig.compute_dtype``)."""
 
     epochs: int = 50
     lr: float = 1e-4

@@ -15,6 +15,13 @@ module names), with these leaf renames:
 
 A ``.npz`` holds the same tree flattened with ``/``-joined keys
 (``text_model/layer_0/attention/query/kernel``).
+
+The whole flax variables dict ``{"params": ..., "usage": ...}`` also loads:
+its ``usage`` collection (``quantize/codebook_used``,
+``quantize/usage_counts``, int32) fills the quantizer's usage FIFO buffers.
+Values are cast to each tensor's dtype, so one tree loads into the eval
+model (parameters in the compute dtype) and into the training model (fp32
+parameters) alike.
 """
 
 from __future__ import annotations
@@ -81,10 +88,17 @@ def load_npz(path: str | Path) -> dict:
 
 
 def load_params(model: nn.Module, params: Mapping | str | Path) -> nn.Module:
-    """Load a flax tree (or a .npz of one) into ``model``; every parameter
-    must be present and nothing may be left over. Values are cast to each
-    parameter's dtype."""
+    """Load a flax params tree, or a variables dict with ``params`` and
+    ``usage``, or a .npz of either, into ``model``. Every parameter must be
+    present and nothing may be left over; values are cast to each
+    parameter's dtype. A ``usage`` collection is copied into the buffers
+    of the same names (the quantizer's usage FIFO, int32)."""
     if not isinstance(params, Mapping):
         params = load_npz(params)
-    model.load_state_dict(flax_params_to_state_dict(params), strict=True)
+    usage = params.get("usage") if "params" in params else None
+    model.load_state_dict(flax_params_to_state_dict(
+        params["params"] if "params" in params else params), strict=True)
+    for path, arr in flatten_tree(usage or {}).items():
+        buf = model.get_buffer(path.replace("/", "."))
+        buf.copy_(torch.from_numpy(np.array(arr)).to(buf.dtype))
     return model

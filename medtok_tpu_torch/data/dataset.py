@@ -1,10 +1,12 @@
-"""MedCodeDataset + static-shape bucketing collator (numpy path of
-``medtok_tpu/data/dataset.py``).
+"""MedCodeDataset, the static-shape bucketing collator and the shuffled
+epoch iterator (numpy path of ``medtok_tpu/data/dataset.py``).
 
 One sample per medical code: the tokenized description plus the code's
 induced KG subgraph. The dataset is built from in-memory columns
 (``med_code``, ``desc``, ``pkg_index_list``); ``from_parquet`` reads them
 from an all_codes_mappings parquet and is the only place that needs pandas.
+Training batches carry an edge-dropped copy of each graph, drawn from a
+numpy generator seeded per batch, bit for bit the JAX package's numpy route.
 The C++ ctypes runtime and the compact batch encoding of the JAX package are
 host-transfer optimisations that this port does not have yet.
 """
@@ -13,12 +15,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 
 from medtok_tpu_torch.config import DataConfig
-from medtok_tpu_torch.data.kg import KnowledgeGraph
+from medtok_tpu_torch.data.kg import KnowledgeGraph, edge_dropout
 from medtok_tpu_torch.data.packing import pack_store_meta
 from medtok_tpu_torch.data.text import WordPieceTokenizer
 from medtok_tpu_torch.data.types import CodeBatch
@@ -157,9 +159,13 @@ class MedCodeDataset:
             self._text.put_one(idx, ids)
         return self._text.get(idx)
 
-    def make_batch(self, indices: Sequence[int]) -> CodeBatch:
-        """Eval CodeBatch of these codes, bucketed by ``collate``."""
-        return collate([self[int(i)] for i in indices], self.cfg,
+    def make_batch(self, indices: Sequence[int], *,
+                   aug_seed: int | None = None) -> CodeBatch:
+        """CodeBatch of these codes, bucketed by ``collate``. ``aug_seed``
+        (training) seeds the numpy generator of the edge dropout; without
+        it the augmented edges are the clean ones."""
+        rng = np.random.default_rng(aug_seed) if aug_seed is not None else None
+        return collate([self[int(i)] for i in indices], self.cfg, rng=rng,
                        pad_id=self.tokenizer.pad_id)
 
     def __getitem__(self, idx: int) -> CodeSample:
@@ -179,13 +185,16 @@ def collate(
     samples: Sequence[CodeSample],
     cfg: DataConfig,
     *,
+    rng: np.random.Generator | None = None,
     pad_id: int = 0,
 ) -> CodeBatch:
-    """Pad samples into one static-shape eval CodeBatch of numpy arrays.
+    """Pad samples into one static-shape CodeBatch of numpy arrays.
 
     Buckets come from the largest text, node and edge counts of the batch;
-    graphs beyond the largest bucket are truncated. The augmented edge
-    fields alias the clean ones (eval has no edge dropout)."""
+    graphs beyond the largest bucket are truncated. With ``rng`` (training)
+    the augmented edges are each graph's kept edges after ``edge_dropout``
+    at ``cfg.edge_dropout_p``, one draw per graph in batch order; without it
+    (eval) the augmented fields alias the clean ones."""
     B = len(samples)
     Lt = _pick_bucket(cfg.text_buckets, max(len(s.input_ids) for s in samples))
     Ln = _pick_bucket(cfg.node_buckets, max(len(s.nodes) for s in samples))
@@ -199,6 +208,12 @@ def collate(
     edge_src = np.zeros((E,), np.int32)
     edge_dst = np.zeros((E,), np.int32)
     edge_weight = np.zeros((E,), np.float32)
+    if rng is not None:
+        edge_src_aug = np.zeros((E,), np.int32)
+        edge_dst_aug = np.zeros((E,), np.int32)
+        edge_weight_aug = np.zeros((E,), np.float32)
+    else:
+        edge_src_aug, edge_dst_aug, edge_weight_aug = edge_src, edge_dst, edge_weight
     code_indices = np.asarray([s.index for s in samples], np.int32)
 
     for i, s in enumerate(samples):
@@ -210,21 +225,43 @@ def collate(
         node_ids[i, :n] = s.nodes[:n]
         node_mask[i, :n] = True
 
-        src, dst = s.edge_src, s.edge_dst
+        src, dst, rel = s.edge_src, s.edge_dst, s.rel
         if n < len(s.nodes):  # node truncation: drop edges touching cut nodes
             keep = (src < n) & (dst < n)
-            src, dst = src[keep], dst[keep]
+            src, dst, rel = src[keep], dst[keep], rel[keep]
         ne = min(len(src), Epg)
         o = i * Epg
         edge_src[o:o + ne] = src[:ne]
         edge_dst[o:o + ne] = dst[:ne]
         edge_weight[o:o + ne] = 1.0
+        if rng is not None:
+            a_src, a_dst, _ = edge_dropout(rng, src[:ne], dst[:ne], rel[:ne],
+                                           p=cfg.edge_dropout_p)
+            na = len(a_src)
+            edge_src_aug[o:o + na] = a_src
+            edge_dst_aug[o:o + na] = a_dst
+            edge_weight_aug[o:o + na] = 1.0
 
     return CodeBatch(
         input_ids=input_ids, attention_mask=attention_mask,
         node_ids=node_ids, node_mask=node_mask,
         edge_src=edge_src, edge_dst=edge_dst, edge_weight=edge_weight,
-        edge_src_aug=edge_src, edge_dst_aug=edge_dst,
-        edge_weight_aug=edge_weight,
+        edge_src_aug=edge_src_aug, edge_dst_aug=edge_dst_aug,
+        edge_weight_aug=edge_weight_aug,
         code_indices=code_indices,
     )
+
+
+def epoch_batches(dataset: MedCodeDataset, *, batch_size: int, seed: int = 0,
+                  epoch: int = 0) -> Iterator[CodeBatch]:
+    """One epoch of training batches: a permutation fixed by (seed, epoch),
+    the last partial batch dropped, and batch bi's edge dropout seeded by
+    ``(seed + 1) * 1_000_003 + epoch * 65_537 + bi``, as the JAX package's
+    single-process iterator shuffles and seeds them."""
+    n = len(dataset)
+    order = np.arange(n)
+    np.random.default_rng(seed + epoch).shuffle(order)
+    for bi, start in enumerate(range(0, n - n % batch_size, batch_size)):
+        aug_seed = (seed + 1) * 1_000_003 + epoch * 65_537 + bi
+        yield dataset.make_batch([int(i) for i in order[start:start + batch_size]],
+                                 aug_seed=aug_seed)

@@ -1,5 +1,5 @@
-"""Knowledge graph as edge arrays + CSR (own copy of the array part of
-``medtok_tpu/data/kg.py``).
+"""Knowledge graph as edge arrays + CSR, and the edge dropout of the
+training view (own copy of the array part of ``medtok_tpu/data/kg.py``).
 
 Built from arrays; ``from_csv`` reads a PrimeKG ``kg.csv`` and is the only
 function here that needs pandas, which it imports when called.
@@ -80,3 +80,13 @@ class KnowledgeGraph:
         local_src = np.searchsorted(nodes, self.edge_src[cand]).astype(np.int32)
         rel = self.rel_index[cand].astype(np.int32)
         return local_src, local_dst, rel
+
+
+def edge_dropout(
+    rng: np.random.Generator, src: np.ndarray, dst: np.ndarray, rel: np.ndarray,
+    p: float = 0.1,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Drop each edge with probability p (one uniform draw per edge from
+    ``rng``, kept where it exceeds p): the training view's augmentation."""
+    keep = rng.random(len(src)) > p
+    return src[keep], dst[keep], rel[keep]

@@ -1,11 +1,16 @@
-"""Sequence packing for the text-encoder sweep (counterpart of
-``medtok_tpu/data/packing.py::pack_store_meta`` / ``take_group`` and
+"""Sequence packing for the text encoder (counterpart of
+``medtok_tpu/data/packing.py::pack_code_batch`` / ``pack_store_meta`` /
+``take_group`` and
 ``medtok_tpu/data/compact.py::derive_packed_meta``).
 
-Length-sorted descriptions fill fixed [R, P] BERT rows greedily; each code is
-described by its first flat slot (``flat_base``) and its token count. The
-segment ids, within-segment positions and per-code gather map are derived
-from those two vectors on the device.
+Export: length-sorted descriptions fill fixed [R, P] BERT rows greedily;
+each code is described by its first flat slot (``flat_base``) and its token
+count. The segment ids, within-segment positions and per-code gather map
+are derived from those two vectors on the device.
+
+Training: a shuffled batch's padded texts are packed on the host, in batch
+order, into a fixed row budget (``pack_code_batch``), which saves the
+padding tokens a collated batch carries.
 """
 
 from __future__ import annotations
@@ -14,6 +19,54 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from medtok_tpu_torch.data.types import PackedTextBatch
+
+
+def pack_code_batch(
+    input_ids: np.ndarray,
+    attention_mask: np.ndarray,
+    *,
+    num_rows: int,
+    row_len: int = 128,
+) -> PackedTextBatch:
+    """Pack a training batch's texts ([B, Lt] padded ids and their mask)
+    into [num_rows, row_len] rows by a greedy sequential fill in batch
+    order, as a PackedTextBatch of numpy arrays whose gather map is [B, Lt].
+    A description longer than a row raises; so does a fill that needs more
+    than ``num_rows`` rows, naming the rows. (The JAX package packs each
+    data-parallel shard into its own block; the port trains on one device,
+    one shard.)"""
+    B, Lt = input_ids.shape
+    lens = np.asarray(attention_mask, np.int64).sum(axis=1)
+    if lens.max(initial=0) > row_len:
+        raise ValueError(f"description longer than row_len={row_len}")
+
+    row_of = np.zeros(B, np.int64)
+    starts = np.zeros(B, np.int64)
+    row, fill = 0, 0
+    for b in range(B):
+        if fill + lens[b] > row_len:
+            row, fill = row + 1, 0
+        row_of[b], starts[b] = row, fill
+        fill += lens[b]
+    if row + 1 > num_rows:
+        raise ValueError(f"packing needs {row + 1} rows > num_rows={num_rows}")
+
+    ids = np.zeros((num_rows, row_len), np.int32)
+    seg_ids = np.zeros((num_rows, row_len), np.int32)
+    pos_ids = np.zeros((num_rows, row_len), np.int32)
+    for b in range(B):
+        r, s, n = int(row_of[b]), int(starts[b]), int(lens[b])
+        ids[r, s:s + n] = input_ids[b, :n]
+        seg_ids[r, s:s + n] = b + 1
+        pos_ids[r, s:s + n] = np.arange(n)
+
+    flat_base = row_of * row_len + starts              # [B]
+    offs = np.arange(Lt)[None, :]
+    text_mask = offs < lens[:, None]
+    gather_idx = np.where(text_mask, flat_base[:, None] + offs, 0).astype(np.int32)
+    return PackedTextBatch(ids, seg_ids, pos_ids, gather_idx, text_mask)
 
 
 def pack_store_meta(

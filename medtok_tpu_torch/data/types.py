@@ -42,6 +42,28 @@ class CodeBatch(NamedTuple):
         return CodeBatch(*(one(x) for x in self))
 
 
+class PackedTextBatch(NamedTuple):
+    """A CodeBatch's texts packed into shared [R, P] encoder rows
+    (``data/packing.py::pack_code_batch``)."""
+
+    input_ids: torch.Tensor   # [R, P] int32
+    seg_ids: torch.Tensor     # [R, P] int32 (0 = empty slot, else 1 + code slot)
+    pos_ids: torch.Tensor     # [R, P] int32 within-segment positions
+    gather_idx: torch.Tensor  # [B, Lmax] flat indices into the R*P slots
+    text_mask: torch.Tensor   # [B, Lmax] bool
+
+    def to(self, device: torch.device | str) -> "PackedTextBatch":
+        """Move every field (numpy arrays included) to ``device``; the
+        gather map becomes int64 for indexing."""
+        def one(x):
+            t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+            return t.to(device, non_blocking=True)
+
+        moved = [one(x) for x in self]
+        moved[3] = moved[3].long()
+        return PackedTextBatch(*moved)
+
+
 class TokenizedCodes(NamedTuple):
     """Eval output per code."""
 

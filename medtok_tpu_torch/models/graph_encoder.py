@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from medtok_tpu_torch.config import GraphEncoderConfig
-from medtok_tpu_torch.models.layers import GCNConv, gcn_norm_adj
+from medtok_tpu_torch.models.layers import CastEmbedding, GCNConv, gcn_norm_adj
 
 # At or above this padded node count, aggregation runs as a dense
 # normalized-adjacency batched matmul instead of edge-list scatters.
@@ -17,13 +17,16 @@ DENSE_ADJ_MIN_NODES = 64
 
 
 class GraphEncoder(nn.Module):
-    def __init__(self, cfg: GraphEncoderConfig, *, dtype=None, device=None):
+    def __init__(self, cfg: GraphEncoderConfig, *, dtype=None, param_dtype=None,
+                 device=None):
+        """Computes in ``dtype``; parameters in ``param_dtype`` (default:
+        ``dtype``)."""
         super().__init__()
         if cfg.model_name != "GCN":
             raise NotImplementedError(
                 f"graph model {cfg.model_name!r}: only GCN is ported")
-        fk = {"dtype": dtype, "device": device}
-        self.emb = nn.Embedding(cfg.num_nodes, cfg.in_channels, **fk)
+        fk = {"dtype": dtype, "param_dtype": param_dtype, "device": device}
+        self.emb = CastEmbedding(cfg.num_nodes, cfg.in_channels, **fk)
         self.conv1 = GCNConv(cfg.in_channels, cfg.hidden_channels, **fk)
         self.conv2 = GCNConv(cfg.hidden_channels, cfg.out_channels, **fk)
 

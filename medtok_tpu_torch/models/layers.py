@@ -1,8 +1,9 @@
 """Shared layers (counterpart of ``medtok_tpu/models/layers.py``):
 torch-parity multi-head attention (dense, or flash attention K3), the
 bidirectional cross-attention stack, GCN message passing over padded batched
-subgraphs, masked mean-pool, dropout from an explicit generator and the
-random initialiser.
+subgraphs, masked mean-pool, dropout from an explicit generator, the random
+initialiser, and Linear / LayerNorm / Embedding that hold their parameters
+in one dtype and compute in another.
 
 Parameter names follow the JAX package's flax names, so ``convert.py`` maps
 a flax tree onto ``state_dict`` keys one to one.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
@@ -21,6 +23,56 @@ from medtok_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e9
 FLASH_PRECISIONS = ("highest", "default")
+
+
+class CastLinear(nn.Linear):
+    """``nn.Linear`` with parameters held in ``param_dtype`` (default:
+    ``dtype``) that computes in ``dtype``: input, weight and bias are cast
+    to it first, as flax's ``Dense(dtype=...)`` casts its fp32 parameters.
+    Training holds fp32 parameters (an Adam step of lr 1e-4 rounds away on
+    a bf16 one); with both dtypes equal it is ``nn.Linear``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
+                 dtype=None, param_dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=bias,
+                         dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class CastLayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with parameters in ``param_dtype`` computing for
+    ``dtype`` activations. Where the two differ it runs as flax's LayerNorm
+    over fp32 parameters: statistics, scale and shift in fp32 with the fp32
+    parameters, the result rounded to ``dtype`` once."""
+
+    def __init__(self, shape: int, eps: float = 1e-5, *, dtype=None,
+                 param_dtype=None, device=None):
+        super().__init__(shape, eps=eps, dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        if self.compute_dtype in (None, self.weight.dtype):
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(self.compute_dtype)
+
+
+class CastEmbedding(nn.Embedding):
+    """``nn.Embedding`` with the table in ``param_dtype``, looked up in
+    ``dtype``: the table is cast, then gathered (flax ``Embed(dtype=...)``)."""
+
+    def __init__(self, num: int, dim: int, *, dtype=None, param_dtype=None,
+                 device=None):
+        super().__init__(num, dim, dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.compute_dtype or self.weight.dtype))
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -69,7 +121,7 @@ class MultiheadAttention(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, *, dropout: float = 0.0,
                  use_flash: bool | str = False, flash_precision: str = "highest",
-                 dtype=None, device=None):
+                 dtype=None, param_dtype=None, device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
@@ -81,14 +133,19 @@ class MultiheadAttention(nn.Module):
         self.dropout = dropout
         self.use_flash = use_flash
         self.flash_precision = flash_precision
-        fk = {"dtype": dtype, "device": device}
-        self.q_proj = nn.Linear(embed_dim, embed_dim, **fk)
-        self.k_proj = nn.Linear(embed_dim, embed_dim, **fk)
-        self.v_proj = nn.Linear(embed_dim, embed_dim, **fk)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, **fk)
+        fk = {"dtype": dtype, "param_dtype": param_dtype, "device": device}
+        self.q_proj = CastLinear(embed_dim, embed_dim, **fk)
+        self.k_proj = CastLinear(embed_dim, embed_dim, **fk)
+        self.v_proj = CastLinear(embed_dim, embed_dim, **fk)
+        self.out_proj = CastLinear(embed_dim, embed_dim, **fk)
 
     def forward(self, q, k, v, key_mask=None, *,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                deterministic: bool | None = None):
+        """``deterministic`` turns the dropout off (True) or on (False), as
+        the cross-attention passes it (flax's switch); None, which the EHR
+        model's encoder layer relies on, follows the module's training
+        mode."""
         B, Lq, E = q.shape
         Lk = k.shape[1]
         H = self.num_heads
@@ -96,7 +153,9 @@ class MultiheadAttention(nn.Module):
         qh = self.q_proj(q).view(B, Lq, H, Dh).transpose(1, 2)
         kh = self.k_proj(k).view(B, Lk, H, Dh).transpose(1, 2)
         vh = self.v_proj(v).view(B, Lk, H, Dh).transpose(1, 2)
-        rate = self.dropout if self.training else 0.0
+        if deterministic is None:
+            deterministic = not self.training
+        rate = 0.0 if deterministic else self.dropout
         if resolve_use_flash(self.use_flash, q.device):
             seed = draw_seed(q.device, generator) if rate > 0.0 else 0
             io_dtype = qh.dtype
@@ -114,40 +173,54 @@ class MultiheadAttention(nn.Module):
 
 
 class CrossAttentionLayer(nn.Module):
-    """attn -> residual add -> LayerNorm (eps 1e-5); no feed-forward."""
+    """attn -> dropout -> residual add -> LayerNorm (eps 1e-5); no
+    feed-forward. ``dropout`` applies when ``forward`` is called with
+    ``deterministic=False`` (flax's switch; the default is off), to the
+    attention probabilities and to the attention output, with masks drawn
+    from the ``generator`` passed to ``forward``."""
 
-    def __init__(self, embed_dim: int, num_heads: int, *, dtype=None, device=None):
+    def __init__(self, embed_dim: int, num_heads: int, *, dropout: float = 0.1,
+                 dtype=None, param_dtype=None, device=None):
         super().__init__()
+        fk = {"dtype": dtype, "param_dtype": param_dtype, "device": device}
+        self.dropout = dropout
         self.multihead_attn = MultiheadAttention(embed_dim, num_heads,
-                                                 dtype=dtype, device=device)
-        self.layer_norm = nn.LayerNorm(embed_dim, eps=1e-5, dtype=dtype,
-                                       device=device)
+                                                 dropout=dropout, **fk)
+        self.layer_norm = CastLayerNorm(embed_dim, eps=1e-5, **fk)
 
-    def forward(self, query, key, value, key_mask=None):
-        return self.layer_norm(query + self.multihead_attn(query, key, value, key_mask))
+    def forward(self, query, key, value, key_mask=None, *,
+                generator: torch.Generator | None = None, deterministic: bool = True):
+        attn = self.multihead_attn(query, key, value, key_mask, generator=generator,
+                                   deterministic=deterministic)
+        if not deterministic:
+            attn = dropout(attn, self.dropout, generator)
+        return self.layer_norm(query + attn)
 
 
 class CrossAttention(nn.Module):
     """Bidirectional cross-attention with one shared layer stack: v1 attends
     to the fixed v2 through every layer, then v2 to the fixed v1 through the
-    same layers."""
+    same layers. It stays dense (no K3), as the JAX package's does."""
 
     def __init__(self, embed_dim: int, num_heads: int, layers: int = 2, *,
-                 dtype=None, device=None):
+                 dropout: float = 0.1, dtype=None, param_dtype=None, device=None):
         super().__init__()
         self.num_layers = layers
         for i in range(layers):
             self.add_module(f"layer_{i}", CrossAttentionLayer(
-                embed_dim, num_heads, dtype=dtype, device=device))
+                embed_dim, num_heads, dropout=dropout, dtype=dtype,
+                param_dtype=param_dtype, device=device))
 
-    def forward(self, v1, v2, v1_mask=None, v2_mask=None):
+    def forward(self, v1, v2, v1_mask=None, v2_mask=None, *,
+                generator: torch.Generator | None = None, deterministic: bool = True):
         stack = [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+        kw = {"generator": generator, "deterministic": deterministic}
         v1_ = v1
         for layer in stack:
-            v1_ = layer(v1_, v2, v2, v2_mask)
+            v1_ = layer(v1_, v2, v2, v2_mask, **kw)
         v2_ = v2
         for layer in stack:
-            v2_ = layer(v2_, v1, v1, v1_mask)
+            v2_ = layer(v2_, v1, v1, v1_mask, **kw)
         return v1_, v2_
 
 
@@ -205,11 +278,13 @@ class GCNConv(nn.Module):
     gcn_norm_adj, x viewable as [B, Ln, D]) switches aggregation to a
     batched matmul."""
 
-    def __init__(self, in_channels: int, out_channels: int, *, dtype=None, device=None):
+    def __init__(self, in_channels: int, out_channels: int, *, dtype=None,
+                 param_dtype=None, device=None):
         super().__init__()
-        self.lin = nn.Linear(in_channels, out_channels, bias=False,
-                             dtype=dtype, device=device)
-        self.bias = nn.Parameter(torch.zeros(out_channels, dtype=dtype, device=device))
+        self.lin = CastLinear(in_channels, out_channels, bias=False, dtype=dtype,
+                              param_dtype=param_dtype, device=device)
+        self.bias = nn.Parameter(torch.zeros(out_channels, dtype=param_dtype or dtype,
+                                             device=device))
 
     def forward(self, x, edge_src, edge_dst, edge_weight, adj=None):
         xw = self.lin(x)

@@ -1,26 +1,33 @@
-"""MultimodalTokenizer, eval path (counterpart of
+"""MultimodalTokenizer (counterpart of
 ``medtok_tpu/models/tokenizer_model.py``).
 
   frozen BERT -> text_mapped (768 -> graph out) per token
   GraphEncoder -> last hidden -> masked mean-pool
   h = cat(text [CLS], graph pool)
-  SoftVQQuantizer -> embedding [B, 256], tokens [B, 4, k], weights [B, 4, k]
+  eval:  SoftVQQuantizer -> embedding [B, 256], tokens [B, 4, k], weights [B, 4, k]
+  train: the same on h, plus h_aug = cat(text [CLS], pool of the GCN over
+         the edge-dropped graph) -> the quantizer's loss dict
 
-The encoders, ``text_mapped`` and the cross-attention hold their parameters
-in ``cfg.compute_dtype`` (bf16 by default); the codebook and the specific
-projections stay fp32, as the JAX package's dtype promotion has them.
+The encoders, ``text_mapped`` and the cross-attention compute in
+``cfg.compute_dtype`` (bf16 by default) and hold their parameters in
+``param_dtype``: the compute dtype for eval, fp32 for training (flax keeps
+fp32 parameters and casts them where a module's ``dtype`` is set). The
+frozen BERT keeps the compute dtype and takes no gradient. The codebook and
+the specific projections stay fp32, as the JAX package's dtype promotion
+has them.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from medtok_tpu_torch.config import ModelConfig
-from medtok_tpu_torch.data.types import CodeBatch, TokenizedCodes
+from medtok_tpu_torch.data.types import CodeBatch, PackedTextBatch, TokenizedCodes
 from medtok_tpu_torch.models.bert import BertEncoder
 from medtok_tpu_torch.models.graph_encoder import GraphEncoder
-from medtok_tpu_torch.models.layers import global_mean_pool
+from medtok_tpu_torch.models.layers import CastLinear, global_mean_pool
 from medtok_tpu_torch.models.quantizer import SoftVQQuantizer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -37,16 +44,16 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class MultimodalTokenizer(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, param_dtype=None, device=None):
         super().__init__()
         self.cfg = cfg
         dt = compute_dtype(cfg)
+        fk = {"dtype": dt, "param_dtype": param_dtype, "device": device}
         self.text_model = BertEncoder(cfg.text, dtype=dt, device=device)
-        self.graph_encoder = GraphEncoder(cfg.graph, dtype=dt, device=device)
-        self.text_mapped = nn.Linear(cfg.text.hidden_size, cfg.graph.out_channels,
-                                     dtype=dt, device=device)
-        self.quantize = SoftVQQuantizer(cfg.quantizer, cfg.split, dtype=dt,
-                                        device=device)
+        self.text_model.requires_grad_(False)
+        self.graph_encoder = GraphEncoder(cfg.graph, **fk)
+        self.text_mapped = CastLinear(cfg.text.hidden_size, cfg.graph.out_channels, **fk)
+        self.quantize = SoftVQQuantizer(cfg.quantizer, cfg.split, **fk)
 
     def _tokenize(self, text_features, text_mask, batch: CodeBatch) -> TokenizedCodes:
         graph_nodes = self.graph_encoder(
@@ -89,3 +96,45 @@ class MultimodalTokenizer(nn.Module):
         return self._tokenize(self.text_mapped(hidden), batch.attention_mask, batch)
 
     tokenize = forward
+
+    def forward_train(self, batch: CodeBatch, *, packed: PackedTextBatch | None = None,
+                      generator: torch.Generator | None = None) -> dict:
+        """The training forward: the quantizer's result dict (losses,
+        embeddings, usage) on the clean view and the augmented one, whose
+        graph is the batch's edge-dropped copy and whose text [CLS] is the
+        clean one. ``packed``: the batch's texts packed into shared rows
+        (``data/packing.py::pack_code_batch``), which the frozen BERT runs
+        over through kernel K2; without it the BERT runs over the batch's
+        padded texts with dense attention. ``generator`` draws the
+        cross-attention's dropout masks. The BERT runs without autograd and
+        K2 never sees a tensor that requires a gradient. The ``train.*``
+        ranges name the parts in a torch.profiler trace."""
+        c = self.cfg
+        if c.text_dropout_in_train:
+            raise NotImplementedError(
+                "text_dropout_in_train needs dropout in the frozen BERT, which the "
+                "port lacks (ROADMAP Queue 1: BERT dropout for training)")
+        with torch.no_grad(), record_function("train.bert"):
+            if packed is not None:
+                flat = self.encode_text_packed(packed.input_ids, packed.seg_ids,
+                                               packed.pos_ids)
+                text_hidden = flat[packed.gather_idx]
+                text_mask = packed.text_mask.bool()
+            else:
+                text_hidden = self.text_model(batch.input_ids, batch.attention_mask)
+                text_mask = batch.attention_mask.bool()
+        with record_function("train.text_mapped"):
+            text_features = self.text_mapped(text_hidden)          # [B, Lt, D]
+            text_cls = text_features[:, 0, :]
+        node_mask = batch.node_mask.bool()
+        with record_function("train.gcn"):
+            graph_nodes = self.graph_encoder(
+                batch.node_ids, batch.edge_src, batch.edge_dst, batch.edge_weight)[-1]
+            h = torch.cat([text_cls, global_mean_pool(graph_nodes, node_mask)], dim=-1)
+        with record_function("train.gcn"):
+            graph_aug = self.graph_encoder(
+                batch.node_ids, batch.edge_src_aug, batch.edge_dst_aug,
+                batch.edge_weight_aug)[-1]
+            h_aug = torch.cat([text_cls, global_mean_pool(graph_aug, node_mask)], dim=-1)
+        return self.quantize.forward_train(h, text_features, graph_nodes, text_mask,
+                                           node_mask, h_aug, generator=generator)

@@ -66,6 +66,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EHRTrainer(EHRTrainConfig(), np.zeros((4, 256), np.float32), 2)
 
+    from medtok_tpu_torch.config import MedTokConfig
+    from medtok_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(MedTokConfig())
+
     # the A/B scripts run on the card unless given --device
     from medtok_tpu_torch.scripts import bench_adj, profile_bert
 
