@@ -68,14 +68,21 @@ Phases, each fatal on failure:
      (medtok_tpu_torch.scripts.profile_bert, K2 and K4 12 per kernel-leg
      call) and the Count A/B (medtok_tpu_torch.scripts.bench_adj, every
      variant within 1e-6 of the histogram);
- 13. the widths (run right after the build): ROADMAP Queue 3's three
-     witnesses (K3 on [1, 1, 1, 32] bf16 and K2 on [1, 1, 1, 8] bf16 return
-     v, K1 on z [1, 16] against 5 codewords gives the plain version's
-     indices; width 264 raises), then each kernel against its plain version
-     at other widths, in both dtypes where it has both routes, by the
-     checks of phases 3, 4, 7 and 10: K3 fwd / dq / dkv at head widths 8,
-     12, 32, 64, 128, 256; K2 and K4 at 8, 16, 32, 128, 256; K1 at 16, 32,
-     100, 128, 256 (widths that are no built width run zero-padded);
+ 13. the widths (run right after the build): the witnesses of ROADMAP
+     Queue 3's fixed width faults (K3 on [1, 1, 1, 32] bf16 and K2 on [1, 1,
+     1, 8] bf16 return v, K1 on z [1, 16] against 5 codewords gives the
+     plain version's indices; width 264 runs: K3 and K2 on [1, 1, 1, 264]
+     return v, K1 at D = 264 and at k = 9 gives the plain version's
+     indices, each through its wide route), then each kernel against its
+     plain version at other widths, in both dtypes where it has both
+     routes, by the checks of phases 3, 4, 7 and 10: K3 fwd / dq / dkv at
+     head widths 8, 12, 32, 64, 128, 256; K2 and K4 at 8, 16, 32, 128, 256;
+     K1 at 16, 32, 100, 128, 256 (widths that are no built width run
+     zero-padded); then the wide routes the same way: K3, K2 and K4 at
+     257, 320, 512 and 1000, K1 at those D with k = 9, 16 and 64, k = 9-64
+     at D = 64, and a case of exact ties at D = 320, k = 16; each wide
+     route's launches counted and each timed beside its plain version, the
+     library call and its bound;
  14. the model-level witnesses: EHRTrainer(EHRTrainConfig(num_heads=2))
      (head width 32) trains two steps on the card with 4 launches of each
      K3 kernel a step, and an fp32 export at the verify recipe's widths
@@ -98,7 +105,18 @@ Phases, each fatal on failure:
      version as in phases 3 and 4; then one fp32 train step at the
      verify recipe's widths on the card against the plain versions on the
      CPU (token rows by the tie-gap rule, loss terms within 1e-5, gradients
-     within 1e-4 of the largest).
+     within 1e-4 of the largest); then one checkpoint of the live state
+     (EMA on), restored into a fresh Trainer: two more steps from each must
+     be bitwise equal (parameters, usage FIFO, Adam state, EMA, generator),
+     with the save and restore times and the file size logged;
+ 16. the CLIs at ModelConfig() width in fp32 on files a user would give
+     them (a 130,000-node kg.csv of 1 M edges, a 4,096-code codes.jsonl,
+     vocab.txt): medtok_tpu_torch.cli.train at batch 1024 to step 2 with a
+     checkpoint every step, resumed with --workdir to step 4 (only
+     0000003.pt and 0000004.pt left, finite losses), then
+     medtok_tpu_torch.cli.export --workdir, each run with K1 and K2
+     launched and its wall time logged, and MedTok.from_checkpoint on 256
+     codes held to the export's rows by phase 5's tie-gap rule.
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
@@ -147,6 +165,10 @@ K3_SLOTS = {"fwd": 15.5, "dq": 17, "dkv": 19}
 K3_WIDTHS = (8, 12, 32, 64, 128, 256)
 SEGMENT_WIDTHS = (8, 16, 32, 128, 256)
 K1_WIDTHS = (16, 32, 100, 128, 256)
+# widths above the widest built one (the kernels' wide routes), and K1's k
+# above the 3xTF32 kernel's 8
+WIDE_WIDTHS = (257, 320, 512, 1000)
+WIDE_K = (9, 16, 64)
 # (B, Ln, Epg) of the Count checks: the bench's Ln=512 tail shape, an export
 # bucket, and a dense shape whose cells sum many fractional weights
 K5_SHAPES = ((512, 512, 8192), (512, 128, 1024), (64, 16, 8192))
@@ -243,6 +265,33 @@ def check_k1_case(z, e, label: str, k: int = K, scale=1.0) -> float:
     return err
 
 
+def check_k1_ties(z, base, k: int, label: str) -> None:
+    """Exact ties: K1 on z against every codeword of ``base`` twice. Each
+    pair must rank the lower copy first with bit-identical distances, and
+    the pairs' winners must be the plain version's on rows without a near
+    tie (gaps > 1e-5)."""
+    import torch
+
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    N0, m = base.shape[0], (k + 1) // 2
+    vals, idx = fused_topk_l2(z, torch.cat([base, base]), k=k)
+    idx = idx.long()
+    pairs = k // 2
+    check(bool((idx[:, 1:2 * pairs:2] == idx[:, 0:2 * pairs:2] + N0).all()
+               and (idx[:, 0::2] < N0).all()),
+          f"{label}: duplicated rows not ranked lowest index first")
+    check(bool((vals[:, 0:2 * pairs:2] == vals[:, 1:2 * pairs:2]).all()),
+          f"{label}: duplicated rows gave different distances")
+    pv, pi = vq.topk_smallest(vq.squared_distance(z, base), m + 1)
+    clean = ((pv[:, 1:] - pv[:, :-1]) > 1e-5).all(dim=1)
+    check(torch.equal(idx[clean][:, 0::2], pi[clean, :m]),
+          f"{label}: winners differ from the plain version")
+    log(f"{label}: {z.shape[0]} rows at D={z.shape[1]}, k={k} lowest-index-first over "
+        f"{2 * N0} duplicated rows, bit-identical distances for each pair")
+
+
 def check_k1(gen, dev) -> dict:
     import torch
 
@@ -265,23 +314,7 @@ def check_k1(gen, dev) -> dict:
     check_k1_case(z30, cb30, "rows scaled by 30",
                   scale=z30.norm(dim=1) * float(cb30.norm(dim=1).max()))
 
-    # exact ties: every codeword twice -> the lower copy ranks first
-    N0 = N // 2
-    base = unit_rows(gen, dev, N0, D)
-    e = torch.cat([base, base])
-    vals, idx = fused_topk_l2(z, e, k=K)
-    idx = idx.long()
-    check(bool((idx[:, 1] == idx[:, 0] + N0).all() and (idx[:, 3] == idx[:, 2] + N0).all()
-               and (idx[:, [0, 2, 4]] < N0).all()),
-          "K1 ties: duplicated rows not ranked lowest index first")
-    check(bool((vals[:, 0] == vals[:, 1]).all() and (vals[:, 2] == vals[:, 3]).all()),
-          "K1 ties: duplicated rows gave different distances")
-    pv, pi = vq.topk_smallest(vq.squared_distance(z, base), 4)
-    clean = ((pv[:, 1:] - pv[:, :-1]) > 1e-5).all(dim=1)
-    check(torch.equal(idx[clean][:, [0, 2, 4]], pi[clean, :3]),
-          "K1 ties: winners differ from the plain version")
-    log(f"K1 ties: {B} rows lowest-index-first over {2 * N0} duplicated rows, "
-        "bit-identical distances for each pair")
+    check_k1_ties(z, unit_rows(gen, dev, N // 2, D), K, "K1 ties")
 
     # times at the full sweep (two of the four sweeps of a quantizer step)
     kernel_ms = cuda_ms(lambda: fused_topk_l2(z, cb, k=K), 50)
@@ -1571,7 +1604,7 @@ def width_masks(dev, Lk: int):
                         torch.zeros_like(j, dtype=torch.bool)])
 
 
-def check_widths(gen, dev) -> None:
+def check_widths(gen, dev) -> list[dict]:
     """Each kernel against its plain version at head / embedding widths
     other than the path's, in both dtypes where it has both routes: K3 fwd /
     dq / dkv at K3_WIDTHS (fp32 through autograd at L = 600 as
@@ -1579,7 +1612,9 @@ def check_widths(gen, dev) -> None:
     dropout 0.5), K2 and K4 at SEGMENT_WIDTHS (check_segment_case on
     edge_segments at L = 300), K1 at K1_WIDTHS (check_k1_case on 512 rows
     against 3000 codewords and their last third). Widths that are no built
-    width run padded, and every call must launch its kernel."""
+    width run padded, and every call must launch its kernel. Then the wide
+    routes by check_wide_routes, each of which must launch; returns their
+    rows of the kernels line (wide_times)."""
     import torch
 
     from medtok_tpu_torch.ops import flash_attention as fa
@@ -1591,6 +1626,7 @@ def check_widths(gen, dev) -> None:
     for f in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv,
               fa.packed_segment_attention, fa.packed_segment_attention_nt, fused_topk_l2):
         f.launches = 0
+        f.wide_launches = 0
     for Dh in K3_WIDTHS:
         kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=0.5, dropout_seed=K3_SEED)
         check_k3_fp32(gen, dev, width_masks(dev, 600), kw, Dh=Dh)
@@ -1611,8 +1647,15 @@ def check_widths(gen, dev) -> None:
                           fa.packed_segment_attention, fa.packed_segment_attention_nt,
                           fused_topk_l2)}
     check(all(n > 0 for n in launches.values()), f"width phase: a kernel never ran: {launches}")
-    log(f"width phase: {time.perf_counter() - t0:.2f} s, launches {launches}")
+    check(not any(wide_launches().values()),
+          f"width phase: a width up to 256 took a wide route: {wide_launches()}")
+    errs = check_wide_routes(gen, dev)
+    ran = wide_launches()
+    check(all(n > 0 for n in ran.values()), f"width phase: a wide route never ran: {ran}")
+    log(f"width phase: {time.perf_counter() - t0:.2f} s, launches {launches}, wide routes "
+        f"{ran}")
     width_times(gen, dev)
+    return wide_times(gen, dev, errs, ran)
 
 
 def width_times(gen, dev) -> None:
@@ -1657,11 +1700,14 @@ def width_times(gen, dev) -> None:
 
 
 def check_width_witnesses(dev) -> None:
-    """The three smallest inputs that raised while each kernel took one
-    width (ROADMAP Queue 3): K3 on [1, 1, 1, 32] bf16 and K2 on [1, 1, 1, 8]
-    bf16 with seg [[1]] return v (one valid key), K1 on z [1, 16] against 5
-    codewords returns the plain version's 5 indices; each launches its
-    kernel. A width above 256 raises, naming the limit."""
+    """The smallest inputs of ROADMAP Queue 3's fixed width faults: while
+    each kernel took one width, K3 on [1, 1, 1, 32] bf16 and K2 on [1, 1,
+    1, 8] bf16 with seg [[1]] (one valid key: they return v) and K1 on z [1,
+    16] against 5 codewords (the plain version's indices) raised, each
+    launching its kernel now; until the wide routes, width 264 and K1's
+    k = 9 raised: K3 and K2 on [1, 1, 1, 264] fp32 now return v and K1 at
+    D = 264 and at k = 9 the plain version's indices, each by one launch of
+    its wide route."""
     import torch
 
     from medtok_tpu_torch.ops import flash_attention as fa
@@ -1689,19 +1735,191 @@ def check_width_witnesses(dev) -> None:
     check(torch.equal(idx, want) and fused_topk_l2.launches == before + 1,
           f"witness: K1 on z [1, 16], codebook [5, 16] gave {idx.tolist()}, want "
           f"{want.tolist()}")
-    wide = torch.zeros(1, 1, 1, 264, device=dev)
-    for name, call in (("K3", lambda: fa.flash_attention(wide, wide, wide)),
-                       ("K2", lambda: fa.packed_segment_attention(wide, wide, wide, seg)),
-                       ("K1", lambda: fused_topk_l2(wide[0, 0], wide[0, 0], k=1))):
-        try:
-            call()
-        except ValueError as err:
-            check("256" in str(err), f"witness: {name} at width 264 raised {err!r}")
-        else:
-            raise AssertionError(f"witness: {name} took width 264")
+    # width 264 and k = 9 (they raised until the wide routes): each launches
+    # its wide route and returns the plain version's result
+    before = wide_launches()
+    q, k, v = (torch.randn(1, 1, 1, 264, generator=g, device=dev) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    check(torch.equal(out, v), "witness: flash_attention on [1, 1, 1, 264] did not return v")
+    out = fa.packed_segment_attention(q, k, v, seg)
+    check(torch.equal(out, v),
+          "witness: packed_segment_attention on [1, 1, 1, 264] did not return v")
+    for z, e, k_ in ((q[0, 0], unit_rows(g, dev, 5, 264), 1),
+                     (unit_rows(g, dev, 1, 16), unit_rows(g, dev, 12, 16), 9)):
+        _, idx = fused_topk_l2(z, e, k=k_)
+        _, want = fused_topk_l2_reference(z, e, k_)
+        check(torch.equal(idx, want), f"witness: K1 on z {list(z.shape)}, codebook "
+              f"{list(e.shape)}, k={k_} gave {idx.tolist()}, want {want.tolist()}")
+    ran = {n: c - before[n] for n, c in wide_launches().items()}
+    want_ran = {"topk_l2_wide": 2, "segment_attention_wide": 1, "flash_attention_fwd_wide": 1}
+    check(all(ran[n] == c for n, c in want_ran.items()),
+          f"witness: wide-route launches {ran}, want {want_ran}")
     log(f"width witnesses: K3 [1, 1, 1, 32] and K2 [1, 1, 1, 8] return v, K1 z [1, 16] "
-        f"against 5 codewords gives {idx.tolist()[0]} as the plain version does; width "
-        f"264 raises in K3, K2 and K1")
+        f"against 5 codewords gives the plain version's indices; width 264 runs: K3 and "
+        f"K2 on [1, 1, 1, 264] return v and K1 at D=264 (k=1) and at k=9 (D=16) give the "
+        f"plain version's indices, each by its wide route ({ran})")
+
+
+def wide_counters() -> dict:
+    """Name in the kernels line -> the wrapper whose ``wide_launches``
+    counts that wide route."""
+    from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    return {"topk_l2_wide": fused_topk_l2,
+            "segment_attention_wide": fa.packed_segment_attention,
+            "segment_attention_nt_wide": fa.packed_segment_attention_nt,
+            "flash_attention_fwd_wide": fa.flash_attention_fwd,
+            "flash_attention_dq_wide": fa.flash_attention_dq,
+            "flash_attention_dkv_wide": fa.flash_attention_dkv}
+
+
+def wide_launches() -> dict:
+    return {name: f.wide_launches for name, f in wide_counters().items()}
+
+
+def check_wide_routes(gen, dev) -> dict:
+    """The wide routes against their plain versions by the checks of phases
+    3, 4, 7 and 10, in both dtypes where the kernel has both: K3 fwd / dq /
+    dkv at WIDE_WIDTHS (fp32 through autograd at L = 600, bf16 at Lq = 300
+    against Lk = 1100, dropout 0.5, width_masks), K2 and K4 at WIDE_WIDTHS
+    (edge_segments at L = 300), K1 at WIDE_WIDTHS with k in WIDE_K (512 rows
+    against 3000 codewords and their last third), k in WIDE_K at the built
+    width 64, and exact ties at D = 320, k = 16. Returns each route's
+    largest error (bf16 for the attention routes, as the kernels line
+    reports them)."""
+    import torch
+
+    from medtok_tpu_torch.ops import vq
+
+    bf = torch.bfloat16
+    errs = dict.fromkeys(wide_counters(), 0.0)
+    for Dh in WIDE_WIDTHS:
+        kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=0.5, dropout_seed=K3_SEED)
+        check_k3_fp32(gen, dev, width_masks(dev, 600), kw, Dh=Dh)
+        B, H, Lq, Lk = 3, 2, 300, 1100
+        q, do = (torch.randn(B, H, Lq, Dh, generator=gen, device=dev).to(bf) for _ in range(2))
+        k, v = (torch.randn(B, H, Lk, Dh, generator=gen, device=dev).to(bf) for _ in range(2))
+        e16 = check_k3_bf16(q, k, v, do, width_masks(dev, Lk), kw, f"wide Dh={Dh}")
+        for key in ("fwd", "dq", "dkv"):
+            name = f"flash_attention_{key}_wide"
+            errs[name] = max(errs[name], e16["out" if key == "fwd" else key])
+    for Dh in WIDE_WIDTHS:
+        for nt in (False, True):
+            c = check_segment_case(gen, dev, edge_segments(dev, 300), nt,
+                                   f"wide Dh={Dh}, edge segments L=300", H=2, Dh=Dh)
+            name = "segment_attention_nt_wide" if nt else "segment_attention_wide"
+            errs[name] = max(errs[name], c["err16"])
+    for Dk in WIDE_WIDTHS:
+        z, cb = unit_rows(gen, dev, 512, Dk), unit_rows(gen, dev, 3000, Dk)
+        for k in WIDE_K:
+            for label, e in (("full", cb), ("region", vq.region_slice(cb, "graph"))):
+                err = check_k1_case(z, e, f"wide D={Dk} {label}", k=k)
+                errs["topk_l2_wide"] = max(errs["topk_l2_wide"], err)
+    z, cb = unit_rows(gen, dev, 512, D), unit_rows(gen, dev, 3000, D)
+    for k in WIDE_K:
+        check_k1_case(z, cb, f"wide k, D={D} full", k=k)
+    check_k1_ties(unit_rows(gen, dev, 512, 320), unit_rows(gen, dev, 1500, 320), 16,
+                  "K1 wide ties")
+    return errs
+
+
+def wide_times(gen, dev, errs: dict, ran: dict) -> list[dict]:
+    """Each wide route timed at one shape beside its plain version, the
+    library call for its function and its bound, as rows of the kernels
+    line (``ran``: the width phase's launches of each). A bound is the
+    function's, whatever the route's design: its operations at the card's
+    peak for the inputs' type, as the kernels' own rows count them (K1's
+    fp32 products as 3xTF32, 3 x 2 B N D operations at the TF32 peak; bf16
+    attention at the bf16 peak), or its bytes, whichever is slower. K1 at z
+    [4096, 320] against 21000 codewords, k = 9; K2 / K4 bf16 at [256, 4,
+    128, 320] on edge_segments rows (segment_bound's work); K3 bf16 at
+    [8*2, 1100, 320], all keys valid, dropout 0.5 (check_k3's work
+    counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2, fused_topk_l2_reference
+
+    def row(name, source, site, ms, plain_ms, library_ms, ops, peak, nbytes):
+        ops_ms, bytes_ms = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {bound:.4f} ms ({ops / 1e9:.2f} GFLOP at "
+            f"{peak / 1e12:.0f} TFLOP/s: {ops_ms:.4f} ms; {nbytes / 1e6:.1f} MB: "
+            f"{bytes_ms:.4f} ms); kernel {ms / bound:.2f}x the bound; "
+            f"{ran[name]} launches in the width phase")
+        return dict(name=name, route="cuda", source=f"medtok_tpu_torch/csrc/{source}",
+                    replaces=site, launches=ran[name], max_abs_err=errs[name], ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="operations" if ops_ms > bytes_ms else "bytes",
+                    library_ms=library_ms)
+
+    rows = []
+    B, N, Dk, k = 4096, 21000, 320, 9
+    z, cb = unit_rows(gen, dev, B, Dk), unit_rows(gen, dev, N, Dk)
+
+    def library():
+        d = (z * z).sum(1, keepdim=True) + (cb * cb).sum(1)[None] - 2.0 * (z @ cb.T)
+        return torch.topk(d, k, dim=1, largest=False)
+
+    rows.append(row("topk_l2_wide", "topk_l2.cu", "medtok_tpu/ops/vq_pallas.py:139",
+                    cuda_ms(lambda: fused_topk_l2(z, cb, k=k), 5),
+                    cuda_ms(lambda: fused_topk_l2_reference(z, cb, k), 3),
+                    cuda_ms(library, 5), 3 * 2.0 * B * N * Dk, PEAK_TF32,
+                    4.0 * (B + N) * Dk + 8.0 * B * k))
+    del z, cb
+
+    Dh, H = 320, 4
+    seg = edge_segments(dev, 128).repeat(52, 1)[:256].contiguous()
+    pair = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0))[:, None]
+    _, ops, nbytes = segment_bound(seg, H, Dh)
+    for nt in (False, True):
+        _, fn, plain = segment_fns(nt)
+        shape = (256, 128, H, Dh) if nt else (256, H, 128, Dh)
+        q, k_, v = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(3))
+        views = heads_first(q, k_, v) if nt else (q, k_, v)
+        rows.append(row(f"segment_attention{'_nt' if nt else ''}_wide",
+                        "segment_attention.cu",
+                        f"medtok_tpu/ops/flash_attention.py:{654 if nt else 740}",
+                        cuda_ms(lambda: fn(q, k_, v, seg), 5),
+                        cuda_ms(lambda: plain(q, k_, v, seg), 3),
+                        cuda_ms(lambda: F.scaled_dot_product_attention(
+                            *views, attn_mask=pair), 5), ops, PEAK_BF16, nbytes))
+
+    Bf, L, rate = 8, 1100, 0.5
+    kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=rate, dropout_seed=K3_SEED)
+    q, k_, v, do = (torch.randn(Bf, 2, L, Dh, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(4))
+    m = torch.ones(Bf, L, dtype=torch.bool, device=dev)
+    out, lse = fa.flash_attention_fwd(q, k_, v, m, **kw)
+    bwd = (q, k_, v, m, lse, (do.float() * out.float()).sum(-1), do)
+    leaves = [t.clone().requires_grad_() for t in (q, k_, v)]
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k_, v, dropout_p=rate), 3)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
+        return torch.autograd.grad(o, leaves, do)
+
+    sdpa_bwd = cuda_ms(sdpa_fwd_bwd, 3) - sdpa_fwd
+    pairs = 2.0 * L * Bf * L
+    t_row, vec, mask_b = Bf * 2 * L * Dh * 2, Bf * 2 * L * 4, Bf * L
+    for key, fn, plain, args, ops, nbytes, lib in (
+            ("fwd", fa.flash_attention_fwd, fa.flash_attention_reference, bwd[:4],
+             4 * Dh * pairs, 4 * t_row + vec + mask_b, sdpa_fwd),
+            ("dq", fa.flash_attention_dq, fa.flash_attention_dq_reference, bwd,
+             6 * Dh * pairs, 5 * t_row + 2 * vec + mask_b, sdpa_bwd),
+            ("dkv", fa.flash_attention_dkv, fa.flash_attention_dkv_reference, bwd,
+             8 * Dh * pairs, 6 * t_row + 2 * vec + mask_b, sdpa_bwd)):
+        site = {"fwd": 249, "dq": 311, "dkv": 334}[key]
+        rows.append(row(f"flash_attention_{key}_wide", "flash_attention.cu",
+                        f"medtok_tpu/ops/flash_attention.py:{site}",
+                        cuda_ms(lambda: fn(*args, **kw), 3),
+                        cuda_ms(lambda: plain(*args, **kw), 2), lib, ops, PEAK_BF16,
+                        nbytes))
+    return rows
 
 
 def check_ehr_heads(table, ehr: dict, dev, n: int = 32) -> None:
@@ -2044,7 +2262,62 @@ def run_training(dataset, dev, gen) -> dict:
     check_segment_case(gen, dev, seg, False, "training packing",
                        H=cfg.model.text.num_heads,
                        Dh=cfg.model.text.hidden_size // cfg.model.text.num_heads)
+    check_train_resume(trainer, state, cfg, batches[1:3])
     return launches
+
+
+def check_train_resume(trainer, state, cfg, batches) -> dict:
+    """One checkpoint of the live state (the EMA switched on first, so that
+    it is saved too), restored into a fresh Trainer; two more steps from
+    each on the same batches must agree bit for bit: parameters, usage FIFO
+    (the buffers), Adam's count and moments, the EMA and the dropout
+    generator. Logs and returns the save and restore times and the file's
+    size."""
+    import tempfile
+
+    import torch
+
+    from medtok_tpu_torch.train.trainer import Trainer, create_train_state, trainable_parameters
+    from medtok_tpu_torch.utils.checkpoint import CheckpointManager
+
+    ema_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ema=True))
+    state.ema_params = [p.detach().clone() for _, p in trainable_parameters(state.model)]
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, max_to_keep=1, config=ema_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(state, pack_rows=trainer.pack_rows)
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        fresh = Trainer(ema_cfg, device=trainer.device)
+        restored = create_train_state(ema_cfg, fresh.model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, fresh.pack_rows = mgr.restore(restored)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    check(restored.step == state.step and fresh.pack_rows == trainer.pack_rows,
+          "training resume: the restored step or row budget differs")
+    runs = []
+    for tr, st in ((trainer, state), (fresh, restored)):
+        st = tr.fit(st, batches)
+        m = st.model
+        runs.append({"step": torch.tensor(st.step), "count": torch.tensor(st.opt_state.count),
+                     **{f"param {n}": t for n, t in m.state_dict().items()},
+                     **{f"buffer {n}": t for n, t in m.named_buffers()},
+                     **{f"mu {i}": t for i, t in enumerate(st.opt_state.mu)},
+                     **{f"nu {i}": t for i, t in enumerate(st.opt_state.nu)},
+                     **{f"ema {i}": t for i, t in enumerate(st.ema_params)},
+                     "generator": st.generator.get_state()})
+    live, again = runs
+    differ = [n for n in live if not torch.equal(live[n], again[n])]
+    check(not differ, f"training resume: {len(differ)} tensors differ after "
+          f"{len(batches)} steps from the restored state: {differ[:8]}")
+    log(f"training resume: checkpoint at step {state.step - len(batches)} saved in "
+        f"{save_s:.3f} s ({size} bytes), restored into a fresh Trainer in {restore_s:.3f} s; "
+        f"{len(batches)} more steps from each bitwise equal: {len(live)} tensors (parameters, "
+        f"usage FIFO, Adam count and moments, EMA, generator)")
+    return dict(save_s=save_s, restore_s=restore_s, bytes=size)
 
 
 def check_train_reference(dataset, dev, n_codes: int = 64) -> None:
@@ -2126,6 +2399,135 @@ def check_train_reference(dataset, dev, n_codes: int = 64) -> None:
         f"{grad_err:.3e} of the largest; launches {launches}")
 
 
+# ------------------------------------------------------------------ CLIs --
+
+CLI_CODES = 4096
+CLI_KG_EDGES = 1_000_000  # phase 5 has 4 M; fewer keep the four CSV reads short
+
+
+def run_clis(seed: int, dev) -> dict:
+    """Phase 16: the train and export CLIs at ModelConfig() width, on files
+    they read as a user's: a synthetic kg.csv of 130,000 nodes and
+    CLI_KG_EDGES edges, a CLI_CODES-code codes.jsonl and the vocab.txt.
+    cli.train to step 2 with a checkpoint every step (two kept), then
+    --workdir to step 4 (resumed from 2; 0000003.pt and 0000004.pt left),
+    then cli.export --workdir, each with K1 and K2 launched; then
+    MedTok.from_checkpoint on the first 256 codes held to the export's rows
+    by phase 5's tie-gap rule. fp32 compute (--mixed-precision none): the
+    API's unpacked text path and the export's packed one round differently
+    in bf16 (phase 15 trains in bf16). Returns the runs' wall times and
+    launches."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.api import MedTok
+    from medtok_tpu_torch.cli import export as export_cli
+    from medtok_tpu_torch.cli import train as train_cli
+    from medtok_tpu_torch.data.dataset import MedCodeDataset, write_jsonl
+    from medtok_tpu_torch.data.kg import KnowledgeGraph
+    from medtok_tpu_torch.data.synthetic import (
+        MEDICAL_WORDS,
+        SYLLABLES,
+        synthetic_kg,
+        synthetic_vocab_columns,
+    )
+    from medtok_tpu_torch.data.text import WordPieceTokenizer, make_test_vocab
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rng = np.random.default_rng(seed + 16)
+    runs = {}
+
+    def run(label, fn, argv):
+        fused_topk_l2.launches = 0
+        packed_segment_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        launches = {"topk_l2": fused_topk_l2.launches,
+                    "segment_attention": packed_segment_attention.launches}
+        runs[label] = dict(wall_s=time.perf_counter() - t0, launches=launches)
+        check(all(n > 0 for n in launches.values()), f"CLI {label}: a kernel never ran: "
+              f"{launches}")
+        log(f"CLI {label}: {runs[label]['wall_s']:.3f} s wall, launches {launches}")
+        return out
+
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        kg = synthetic_kg(rng, num_nodes=130_000, num_edges=CLI_KG_EDGES, local_frac=0.7,
+                          local_window=64)
+        names = np.array(sorted(kg.rel_vocab, key=kg.rel_vocab.get))
+        with open(root / "kg.csv", "w") as f:
+            f.write("x_index,y_index,display_relation\n")
+            f.writelines(map("{},{},{}\n".format, kg.edge_src.tolist(), kg.edge_dst.tolist(),
+                             names[kg.rel_index].tolist()))
+        write_jsonl(synthetic_vocab_columns(rng, num_codes=CLI_CODES, num_kg_nodes=130_000,
+                                            heavy_tail=True), root / "codes.jsonl")
+        vocab = make_test_vocab(MEDICAL_WORDS + SYLLABLES)
+        for s in SYLLABLES:
+            vocab.setdefault("##" + s, len(vocab))
+        (root / "vocab.txt").write_text("\n".join(sorted(vocab, key=vocab.get)) + "\n")
+        log(f"CLI data: kg.csv of 130000 nodes and {CLI_KG_EDGES} edges "
+            f"({(root / 'kg.csv').stat().st_size} bytes), codes.jsonl of {CLI_CODES} codes, "
+            f"vocab.txt of {len(vocab)} tokens, written in {time.perf_counter() - t0:.2f} s")
+
+        argv = ["--kg-path", str(root / "kg.csv"),
+                "--med-codes-pkg-map-path", str(root / "codes.jsonl"),
+                "--text-vocab", str(root / "vocab.txt"), "--results-dir", str(root / "results"),
+                "--global-batch-size", "1024", "--ckpt-every", "1", "--max-checkpoints", "2",
+                "--epochs", "2", "--mixed-precision", "none"]
+        workdir = run("train", train_cli.main, [*argv, "--max-steps", "2"])
+        mgr = CheckpointManager(workdir)
+        check(mgr.steps() == [1, 2], f"CLI train: checkpoints {mgr.steps()}, want [1, 2]")
+        size = mgr.path(2).stat().st_size
+        run("resume", train_cli.main, [*argv, "--workdir", str(workdir), "--max-steps", "4"])
+        files = sorted(p.name for p in mgr.ckpt_dir.iterdir())
+        check(files == ["0000003.pt", "0000004.pt"], f"CLI resume: checkpoints {files}")
+        check("Resumed from the checkpoint at step 2" in (workdir / "log.txt").read_text(),
+              "CLI resume: the run did not resume from step 2")
+        metrics = [json.loads(line) for line in open(workdir / "metrics.jsonl")]
+        check([m["step"] for m in metrics] == [1, 2, 3, 4] and
+              all(np.isfinite(m["loss"]) for m in metrics),
+              f"CLI train: metrics {[(m['step'], m['loss']) for m in metrics]}")
+        for label in ("train", "resume"):
+            want = {"topk_l2": 2 * TRAIN_SWEEPS, "segment_attention": 2 * 12}
+            check(runs[label]["launches"] == want,
+                  f"CLI {label}: launches {runs[label]['launches']} != {want}")
+        arrays = run("export", export_cli.main, ["--workdir", str(workdir)])
+        check(arrays["embeddings_all"].shape == (CLI_CODES, 4 * D)
+              and np.isfinite(arrays["embeddings_all"]).all(),
+              f"CLI export: embeddings_all {arrays['embeddings_all'].shape}")
+
+        cfg = CheckpointManager.load_config(workdir)
+        dataset = MedCodeDataset.from_path(
+            KnowledgeGraph.from_csv(cfg.data.kg_path), cfg.data.med_codes_pkg_map_path,
+            WordPieceTokenizer.from_vocab_file(cfg.data.text_vocab_path), cfg=cfg.data)
+        t0 = time.perf_counter()
+        out = MedTok.from_checkpoint(workdir, dataset, device=dev).tokenize_batch(
+            dataset.med_codes[:256])
+        runs["api"] = dict(wall_s=time.perf_counter() - t0)
+        gaps = tie_gaps(out.tokens, out.weights, arrays["tokens_all"][:256],
+                        arrays["weights_all"][:256])
+        max_gap = float(gaps.max(initial=0.0))
+        check(max_gap <= 1e-5, f"CLI: MedTok.from_checkpoint differs from the export beyond "
+              f"a tie (gaps {gaps.tolist()})")
+        differ = int((out.tokens != arrays["tokens_all"][:256]).any(-1).sum())
+        log(f"CLI: losses {[round(m['loss'], 4) for m in metrics]}; a checkpoint is {size} "
+            f"bytes; MedTok.from_checkpoint on 256 codes against the export: {differ} of "
+            f"1024 token rows differ, max tie gap {max_gap:.3e}; walls "
+            + ", ".join(f"{k} {v['wall_s']:.3f} s" for k, v in runs.items())
+            + f" (the API: reading the data, the checkpoint and 256 codes); the phase "
+            f"{time.perf_counter() - phase_t0:.3f} s")
+    return dict(runs=runs, checkpoint_bytes=size)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2166,7 +2568,7 @@ def main(argv=None) -> int:
             log(f"  {line.strip()}")
 
     check_width_witnesses(dev)
-    check_widths(gen, dev)
+    wide = check_widths(gen, dev)
     k1 = check_k1(gen, dev)
 
     t0 = time.perf_counter()
@@ -2211,6 +2613,7 @@ def main(argv=None) -> int:
     train_launches = run_training(dataset, dev, gen)
     check_train_reference(dataset, dev)
     log(f"training launches: {train_launches}")
+    run_clis(args.seed, dev)
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]
@@ -2222,7 +2625,7 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(card)
     log(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                for k in (k1, k2, *k3, k4, *k5)]}))
+                                for k in (k1, k2, *k3, k4, *k5, *wide)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

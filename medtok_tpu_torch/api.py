@@ -1,7 +1,8 @@
 """Public per-code API: tokenize / encode / embed (counterpart of
 ``medtok_tpu/api.py::MedTok``).
 
-    tok = MedTok.from_npz("args.json", "params.npz", dataset)   # on CUDA
+    tok = MedTok.from_checkpoint("results/<experiment>", dataset)   # on CUDA
+    tok = MedTok.from_npz("args.json", "params.npz", dataset)
     tokens = tok.tokenize("E11.9")   # [4, k] token ids
     ids    = tok.encode("E11.9")     # flat [4*k] ids
     embed  = tok.embed("E11.9")      # [256] embedding
@@ -20,6 +21,7 @@ from medtok_tpu_torch.convert import load_params
 from medtok_tpu_torch.data.dataset import MedCodeDataset, collate
 from medtok_tpu_torch.data.types import TokenizedCodes
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+from medtok_tpu_torch.utils.checkpoint import CheckpointManager, load_weights
 
 
 class MedTok:
@@ -32,6 +34,18 @@ class MedTok:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dataset = dataset
+
+    @classmethod
+    def from_checkpoint(cls, workdir: str | Path, dataset: MedCodeDataset, *,
+                        device=None) -> "MedTok":
+        """Rebuild the trained model from a training workdir of the port:
+        its args.json and latest checkpoint (``utils/checkpoint.py``), the
+        parameters cast to the eval model's compute dtype."""
+        dev = resolve_device(device)
+        cfg = CheckpointManager.load_config(workdir)
+        model = MultimodalTokenizer(cfg.model, device=dev)
+        ck = CheckpointManager(workdir).load(map_location=dev)
+        return cls(cfg, load_weights(model, ck), dataset, device=dev)
 
     @classmethod
     def from_npz(cls, config_path: str | Path, params_path: str | Path,

@@ -99,11 +99,11 @@ class DataConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (``train/trainer.py``). The port trains on
-    one device: ``mesh_dp`` / ``mesh_tp`` above 1 raise; ``results_dir``,
-    ``ckpt_every`` and ``max_checkpoints`` are carried for ``args.json``
-    compatibility (no checkpoints yet); neither trainer reads
-    ``weight_decay`` or ``mixed_precision`` (the JAX CLI turns the latter
-    into ``ModelConfig.compute_dtype``)."""
+    one device: ``mesh_dp`` / ``mesh_tp`` above 1 raise. ``ckpt_every`` and
+    ``max_checkpoints`` drive the trainer's checkpoints, ``results_dir`` the
+    train CLI's experiment directory; neither trainer reads
+    ``weight_decay`` or ``mixed_precision`` (both CLIs turn the latter into
+    ``ModelConfig.compute_dtype``)."""
 
     epochs: int = 50
     lr: float = 1e-4

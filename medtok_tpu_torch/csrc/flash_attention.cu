@@ -99,11 +99,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -959,6 +961,304 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_c_frags<DH>(dv + (size_t)bh * P.Lk * DH, k0, P.Lk, g, t, dv_acc);
 }
 
+// ------------------------------------------------------ K3, wide route ----
+// Head widths above 256 (wide.cuh), both dtypes, with the plain versions'
+// rounding points. fwd and dq: one block of WT threads per (b*h, WQ
+// queries); dkv: one per (b*h, WT keys), thread t scoring key t.
+//   fwd: keys in blocks of KB = 512 (the TPU kernel's block_k), each scored
+//       by four tile_dots of WT keys; per block the rows' maximum, the
+//       running maximum m and alpha, p = exp(s - m) on valid keys, l = l *
+//       alpha + sum p (unrounded), then p times the keep scale, rounded to
+//       T, into acc = acc * alpha + p V. A block with no valid key changes
+//       nothing and is skipped. lse = m + log l.
+//   dq: key tiles of WT: s = q.k and t = dO.v by tile_dots, a = exp(s *
+//       sm_scale - lse), ds = a (keep t - D) rounded to T, acc += ds K; a
+//       tile with no valid key is skipped; dq = sm_scale acc.
+//   dkv: query groups of WG = 32 (four tile_dots of WQ rows each for s and
+//       for t): ds and a~ = keep a, rounded to T, staged in shared memory;
+//       then the thread owning column d holds the group's q and dO at d in
+//       registers and adds sum_i ds_ij q_id and sum_i a~_ij dO_id to row j
+//       of the scratch, for each valid key j of the block (so a warp's
+//       scratch accesses are 32 neighbouring columns of one row). The
+//       query groups are split into runs of `gps` groups (blockIdx.z), each
+//       summing into a scratch slab of its own, so that few (b*h, key
+//       block) pairs still fill the card; a second kernel adds the slabs in
+//       split order (dk = sm_scale acc_k). A block whose keys are all
+//       masked leaves its slab rows zero.
+constexpr int WG = 32;  // queries a dkv group
+
+// the keep factor of element (row i, column j) of bh: 1 / (1 - rate) where
+// the hash keeps it, 0 where it drops it, 1 without dropout
+__device__ __forceinline__ float keep_factor(const Params& P, uint32_t seed_term, int i,
+                                             int j, float keep_scale) {
+  if (P.rate <= 0.f) return 1.f;
+  return hash_bits((uint32_t)i * ROW_MUL, (uint32_t)j * COL_MUL, seed_term) >= P.threshold
+             ? keep_scale : 0.f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WT)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                      T* __restrict__ out, float* __restrict__ lse, float* __restrict__ acc,
+                      int Dh, Params P) {
+  __shared__ DotTiles tiles;
+  __shared__ __align__(16) float p_s[WQ][KB];
+  __shared__ float m_s[WQ], l_s[WQ], alpha_s[WQ], red_s[WQ];
+
+  const int bh = blockIdx.x;
+  const int b = bh / P.H;
+  const int i0 = blockIdx.y * WQ;
+  const int nq = min(WQ, P.Lq - i0);
+  const T* qb = q + ((size_t)bh * P.Lq + i0) * Dh;
+  const T* kb = k + (size_t)bh * P.Lk * Dh;
+  const T* vb = v + (size_t)bh * P.Lk * Dh;
+  const uint8_t* mrow = mask + (size_t)b * P.Lk;
+  float* acc_b = acc + ((size_t)bh * P.Lq + i0) * Dh;
+  const float keep_scale = P.rate > 0.f ? 1.f / (1.f - P.rate) : 1.f;
+  const uint32_t seed_term = seed_term_of(P, bh);
+  const int t = threadIdx.x;
+
+  if (t < WQ) {
+    m_s[t] = MASKED;
+    l_s[t] = 0.f;
+  }
+  zero_rows(acc_b, nq, Dh);
+  __syncthreads();
+
+  for (int j0 = 0; j0 < P.Lk; j0 += KB) {
+    const int nk = min(KB, P.Lk - j0);
+    bool any = false;
+    for (int c = t; c < nk; c += WT) any = any || mrow[j0 + c] != 0;
+    if (!__syncthreads_or(any)) continue;
+    for (int c0 = 0; c0 < nk; c0 += WT) {
+      float s[WQ];
+      tile_dots(qb, (size_t)Dh, nq, kb + (size_t)(j0 + c0) * Dh, (size_t)Dh,
+                min(WT, nk - c0), Dh, tiles, s);
+      const int c = c0 + t;
+      const bool valid = c < nk && mrow[j0 + c] != 0;
+#pragma unroll
+      for (int r = 0; r < WQ; ++r) p_s[r][c] = valid ? s[r] * P.sm_scale : MASKED;
+    }
+    __syncthreads();
+    row_reduce<true>(&p_s[0][0], KB, nk, red_s);
+    __syncthreads();
+    if (t < WQ) {
+      const float m_next = fmaxf(m_s[t], red_s[t]);
+      alpha_s[t] = expf(m_s[t] - m_next);
+      m_s[t] = m_next;
+    }
+    __syncthreads();
+    for (int c = t; c < nk; c += WT) {
+      const bool valid = mrow[j0 + c] != 0;
+#pragma unroll
+      for (int r = 0; r < WQ; ++r) p_s[r][c] = valid ? expf(p_s[r][c] - m_s[r]) : 0.f;
+    }
+    __syncthreads();
+    row_reduce<false>(&p_s[0][0], KB, nk, red_s);
+    __syncthreads();
+    if (t < WQ) l_s[t] = l_s[t] * alpha_s[t] + red_s[t];
+    for (int c = t; c < nk; c += WT) {
+#pragma unroll
+      for (int r = 0; r < WQ; ++r)
+        p_s[r][c] = round_to<T>(p_s[r][c] * keep_factor(P, seed_term, i0 + r, j0 + c,
+                                                         keep_scale));
+    }
+    __syncthreads();
+    pv_update(acc_b, nq, alpha_s, &p_s[0][0], KB, vb + (size_t)j0 * Dh, (size_t)Dh, nk, Dh);
+    __syncthreads();  // p_s and alpha_s are rewritten by the next block
+  }
+
+  for (int r = 0; r < nq; ++r) {
+    const float safe_l = l_s[r] == 0.f ? 1.f : l_s[r];  // no valid key: acc is 0
+    T* o = out + ((size_t)bh * P.Lq + i0 + r) * Dh;
+    for (int d = t; d < Dh; d += WT) o[d] = from_f32<T>(acc_b[(size_t)r * Dh + d] / safe_l);
+  }
+  if (t < nq) lse[(size_t)bh * P.Lq + i0 + t] = m_s[t] + logf(l_s[t] == 0.f ? 1.f : l_s[t]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WT)
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ acc,
+                     int Dh, Params P) {
+  __shared__ DotTiles tiles;
+  __shared__ __align__(16) float ds_s[WQ][WT];
+  __shared__ float lse_s[WQ], d_s[WQ], one_s[WQ];
+
+  const int bh = blockIdx.x;
+  const int b = bh / P.H;
+  const int i0 = blockIdx.y * WQ;
+  const int nq = min(WQ, P.Lq - i0);
+  const size_t row0 = (size_t)bh * P.Lq + i0;
+  const T* kb = k + (size_t)bh * P.Lk * Dh;
+  const T* vb = v + (size_t)bh * P.Lk * Dh;
+  const uint8_t* mrow = mask + (size_t)b * P.Lk;
+  float* acc_b = acc + row0 * Dh;
+  const float keep_scale = P.rate > 0.f ? 1.f / (1.f - P.rate) : 1.f;
+  const uint32_t seed_term = seed_term_of(P, bh);
+  const int t = threadIdx.x;
+
+  if (t < WQ) {
+    lse_s[t] = t < nq ? lse[row0 + t] : 0.f;
+    d_s[t] = t < nq ? delta[row0 + t] : 0.f;
+    one_s[t] = 1.f;
+  }
+  zero_rows(acc_b, nq, Dh);
+  __syncthreads();
+
+  for (int j0 = 0; j0 < P.Lk; j0 += WT) {
+    const int nk = min(WT, P.Lk - j0);
+    const bool valid = t < nk && mrow[j0 + t] != 0;
+    if (!__syncthreads_or(valid)) continue;
+    float s[WQ], dp[WQ];
+    tile_dots(q + row0 * Dh, (size_t)Dh, nq, kb + (size_t)j0 * Dh, (size_t)Dh, nk, Dh, tiles, s);
+    tile_dots(dout + row0 * Dh, (size_t)Dh, nq, vb + (size_t)j0 * Dh, (size_t)Dh, nk, Dh, tiles,
+              dp);
+#pragma unroll
+    for (int r = 0; r < WQ; ++r) {
+      float ds = 0.f;
+      if (valid && r < nq) {
+        const float a = expf(s[r] * P.sm_scale - lse_s[r]);
+        const float tt = dp[r] * keep_factor(P, seed_term, i0 + r, j0 + t, keep_scale);
+        ds = a * (tt - d_s[r]);
+      }
+      ds_s[r][t] = round_to<T>(ds);
+    }
+    __syncthreads();
+    pv_update(acc_b, nq, one_s, &ds_s[0][0], WT, kb + (size_t)j0 * Dh, (size_t)Dh, nk, Dh);
+    __syncthreads();  // ds_s is rewritten by the next tile
+  }
+
+  for (int r = 0; r < nq; ++r) {
+    T* o = dq + (row0 + r) * Dh;
+    for (int d = t; d < Dh; d += WT) o[d] = from_f32<T>(P.sm_scale * acc_b[(size_t)r * Dh + d]);
+  }
+}
+
+// dynamic shared memory of flash_dkv_wide_kernel: the score tiles, then ds
+// and a~ of a query group (rows of WT floats, read four keys at a time)
+constexpr size_t DKV_WIDE_SMEM = sizeof(DotTiles) + 2 * sizeof(float) * WG * WT;
+static_assert(sizeof(DotTiles) % 16 == 0, "ds / a~ rows are 16-byte aligned");
+
+// scratch: per split, the sums of dk then of dv, each [B*H, Lk, Dh]
+template <typename T>
+__global__ void __launch_bounds__(WT)
+flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      const T* __restrict__ dout, float* __restrict__ scratch, int gps,
+                      int Dh, Params P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DotTiles& tiles = *reinterpret_cast<DotTiles*>(smem_raw);
+  float (*ds_s)[WT] = reinterpret_cast<float (*)[WT]>(smem_raw + sizeof(DotTiles));
+  float (*ad_s)[WT] = ds_s + WG;
+  __shared__ float lse_s[WG], d_s[WG];
+  __shared__ bool valid_s[WT];
+
+  const int bh = blockIdx.x;
+  const int b = bh / P.H;
+  const int j0 = blockIdx.y * WT;
+  const int nk = min(WT, P.Lk - j0);
+  const int t = threadIdx.x;
+  const bool valid = t < nk && mask[(size_t)b * P.Lk + j0 + t] != 0;
+  const size_t krow0 = (size_t)bh * P.Lk + j0;
+  const T* kb = k + krow0 * Dh;
+  const T* vb = v + krow0 * Dh;
+  const size_t slab = (size_t)gridDim.x * P.Lk * Dh;
+  float* ak = scratch + 2 * blockIdx.z * slab + krow0 * Dh;  // the block's rows of its slabs
+  float* av = ak + slab;
+  const int i_end = min(P.Lq, (int)(blockIdx.z + 1) * gps * WG);
+  const float keep_scale = P.rate > 0.f ? 1.f / (1.f - P.rate) : 1.f;
+  const uint32_t seed_term = seed_term_of(P, bh);
+
+  valid_s[t] = valid;
+  zero_rows(ak, nk, Dh);
+  zero_rows(av, nk, Dh);
+  const bool any = __syncthreads_or(valid);  // else: zero gradients
+
+  for (int i0 = blockIdx.z * gps * WG; any && i0 < i_end; i0 += WG) {
+    const int ng = min(WG, i_end - i0);
+    const size_t qrow0 = (size_t)bh * P.Lq + i0;
+    __syncthreads();  // the previous group's ds / a~ are consumed
+    if (t < WG) {
+      lse_s[t] = t < ng ? lse[qrow0 + t] : 0.f;
+      d_s[t] = t < ng ? delta[qrow0 + t] : 0.f;
+    }
+    for (int g = 0; g < WG; g += WQ) {
+      const int nq = max(0, min(WQ, ng - g));
+      float s[WQ], dp[WQ];
+      tile_dots(q + (qrow0 + g) * Dh, (size_t)Dh, nq, kb, (size_t)Dh, nk, Dh, tiles, s);
+      tile_dots(dout + (qrow0 + g) * Dh, (size_t)Dh, nq, vb, (size_t)Dh, nk, Dh, tiles, dp);
+#pragma unroll
+      for (int r = 0; r < WQ; ++r) {
+        float ds = 0.f, ad = 0.f;
+        if (valid && r < nq) {
+          const float kf = keep_factor(P, seed_term, i0 + g + r, j0 + t, keep_scale);
+          const float a = expf(s[r] * P.sm_scale - lse_s[g + r]);
+          ad = a * kf;
+          ds = a * (dp[r] * kf - d_s[g + r]);
+        }
+        ds_s[g + r][t] = round_to<T>(ds);
+        ad_s[g + r][t] = round_to<T>(ad);
+      }
+    }
+    __syncthreads();
+    // column d of the group's q / dO rows in registers; each valid key's
+    // sums over the group, four keys at a time, added to its scratch rows
+    for (int d = t; d < Dh; d += WT) {
+      float qd[WG], od[WG];
+#pragma unroll
+      for (int r = 0; r < WG; ++r) {
+        qd[r] = r < ng ? to_f32(q[(qrow0 + r) * Dh + d]) : 0.f;
+        od[r] = r < ng ? to_f32(dout[(qrow0 + r) * Dh + d]) : 0.f;
+      }
+      for (int c0 = 0; c0 < nk; c0 += 4) {
+        float sk[4] = {0.f, 0.f, 0.f, 0.f}, sv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < WG; ++r) {
+          const float4 x = *reinterpret_cast<const float4*>(&ds_s[r][c0]);
+          const float4 y = *reinterpret_cast<const float4*>(&ad_s[r][c0]);
+          sk[0] = fmaf(x.x, qd[r], sk[0]);
+          sk[1] = fmaf(x.y, qd[r], sk[1]);
+          sk[2] = fmaf(x.z, qd[r], sk[2]);
+          sk[3] = fmaf(x.w, qd[r], sk[3]);
+          sv[0] = fmaf(y.x, od[r], sv[0]);
+          sv[1] = fmaf(y.y, od[r], sv[1]);
+          sv[2] = fmaf(y.z, od[r], sv[2]);
+          sv[3] = fmaf(y.w, od[r], sv[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c0 + c < nk && valid_s[c0 + c]) {
+            ak[(size_t)(c0 + c) * Dh + d] += sk[c];
+            av[(size_t)(c0 + c) * Dh + d] += sv[c];
+          }
+      }
+    }
+  }
+}
+
+// dk = sm_scale * (the splits' dk sums added in split order), dv likewise
+// without the scale; n elements each
+template <typename T>
+__global__ void flash_dkv_wide_sum_kernel(const float* __restrict__ scratch, size_t n,
+                                          int splits, float sm_scale, T* __restrict__ dk,
+                                          T* __restrict__ dv) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float sk = scratch[e], sv = scratch[n + e];
+    for (int z = 1; z < splits; ++z) {
+      sk += scratch[2 * z * n + e];
+      sv += scratch[(2 * z + 1) * n + e];
+    }
+    dk[e] = from_f32<T>(sm_scale * sk);
+    dv[e] = from_f32<T>(sv);
+  }
+}
+
 // Calls f(std::integral_constant<int, W>()) for Dh = W, one of the widths
 // the kernels are built at; any other Dh is refused.
 template <typename F>
@@ -1090,4 +1390,91 @@ extern "C" int medtok_flash_dkv(const void* q, const void* k, const void* v,
     return launch(flash_dkv_kernel<DH>, grid, RT, 0, s, in<float>(q), in<float>(k),
                   in<float>(v), m, l, dd, in<float>(dout), outp<float>(dk), outp<float>(dv), P);
   });
+}
+
+// The wide route of K3: any Dh >= 1 (the wrappers take it above 256), the
+// arguments of medtok_flash_fwd / _dq / _dkv plus fp32 scratch for the sums:
+// [B*H, Lq, Dh] (fwd, dq); dkv: for each split of `gps` query groups of WG
+// (ceil(ceil(Lq / WG) / gps) splits), two [B*H, Lk, Dh] (dk's, then dv's).
+namespace {
+
+bool bad_wide(int B, int H, int Lq, int Lk, int Dh, int rows) {
+  return bad_shape(B, H, Lq, Lk) || Dh <= 0 || (long long)B * H > INT_MAX ||
+         (rows + WT - 1) / WT > 65535 || (rows + WQ - 1) / WQ > 65535;
+}
+
+}  // namespace
+
+extern "C" int medtok_flash_fwd_wide(const void* q, const void* k, const void* v,
+                                     const void* mask, void* out, void* lse, void* scratch,
+                                     int B, int H, int Lq, int Lk, int Dh, float sm_scale,
+                                     float rate, unsigned threshold, const void* seed,
+                                     int is_bf16, void* stream) {
+  if (bad_wide(B, H, Lq, Lk, Dh, Lq)) return (int)cudaErrorInvalidValue;
+  const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B * H, (Lq + WQ - 1) / WQ);
+  const uint8_t* m = in<uint8_t>(mask);
+  float* l = outp<float>(lse);
+  float* acc = outp<float>(scratch);
+  if (is_bf16)
+    return (int)launch(flash_fwd_wide_kernel<bf16>, grid, WT, 0, s, in<bf16>(q), in<bf16>(k),
+                       in<bf16>(v), m, outp<bf16>(out), l, acc, Dh, P);
+  return (int)launch(flash_fwd_wide_kernel<float>, grid, WT, 0, s, in<float>(q), in<float>(k),
+                     in<float>(v), m, outp<float>(out), l, acc, Dh, P);
+}
+
+extern "C" int medtok_flash_dq_wide(const void* q, const void* k, const void* v,
+                                    const void* mask, const void* lse, const void* delta,
+                                    const void* dout, void* dq, void* scratch, int B, int H,
+                                    int Lq, int Lk, int Dh, float sm_scale, float rate,
+                                    unsigned threshold, const void* seed, int is_bf16,
+                                    void* stream) {
+  if (bad_wide(B, H, Lq, Lk, Dh, Lq)) return (int)cudaErrorInvalidValue;
+  const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B * H, (Lq + WQ - 1) / WQ);
+  const uint8_t* m = in<uint8_t>(mask);
+  const float* l = in<float>(lse);
+  const float* dd = in<float>(delta);
+  float* acc = outp<float>(scratch);
+  if (is_bf16)
+    return (int)launch(flash_dq_wide_kernel<bf16>, grid, WT, 0, s, in<bf16>(q), in<bf16>(k),
+                       in<bf16>(v), m, l, dd, in<bf16>(dout), outp<bf16>(dq), acc, Dh, P);
+  return (int)launch(flash_dq_wide_kernel<float>, grid, WT, 0, s, in<float>(q), in<float>(k),
+                     in<float>(v), m, l, dd, in<float>(dout), outp<float>(dq), acc, Dh, P);
+}
+
+extern "C" int medtok_flash_dkv_wide(const void* q, const void* k, const void* v,
+                                     const void* mask, const void* lse, const void* delta,
+                                     const void* dout, void* dk, void* dv, void* scratch,
+                                     int gps, int B, int H, int Lq, int Lk, int Dh,
+                                     float sm_scale, float rate, unsigned threshold,
+                                     const void* seed, int is_bf16, void* stream) {
+  if (bad_wide(B, H, Lq, Lk, Dh, Lk) || gps < 1) return (int)cudaErrorInvalidValue;
+  const int groups = (Lq + WG - 1) / WG;
+  const int splits = (groups + gps - 1) / gps;
+  if (splits > 65535) return (int)cudaErrorInvalidValue;
+  const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B * H, (Lk + WT - 1) / WT, splits);
+  const uint8_t* m = in<uint8_t>(mask);
+  const float* l = in<float>(lse);
+  const float* dd = in<float>(delta);
+  float* acc = outp<float>(scratch);
+  const size_t n = (size_t)B * H * Lk * Dh;
+  const dim3 sum_grid((unsigned)((n + 255) / 256 < (1u << 20) ? (n + 255) / 256 : (1u << 20)));
+  cudaError_t e;
+  if (is_bf16) {
+    e = launch(flash_dkv_wide_kernel<bf16>, grid, WT, DKV_WIDE_SMEM, s, in<bf16>(q),
+               in<bf16>(k), in<bf16>(v), m, l, dd, in<bf16>(dout), acc, gps, Dh, P);
+    if (e != cudaSuccess) return (int)e;
+    return (int)launch(flash_dkv_wide_sum_kernel<bf16>, sum_grid, 256, 0, s,
+                       (const float*)acc, n, splits, sm_scale, outp<bf16>(dk), outp<bf16>(dv));
+  }
+  e = launch(flash_dkv_wide_kernel<float>, grid, WT, DKV_WIDE_SMEM, s, in<float>(q),
+             in<float>(k), in<float>(v), m, l, dd, in<float>(dout), acc, gps, Dh, P);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch(flash_dkv_wide_sum_kernel<float>, sum_grid, 256, 0, s,
+                     (const float*)acc, n, splits, sm_scale, outp<float>(dk), outp<float>(dv));
 }

@@ -66,6 +66,7 @@
 #include <cstdint>
 
 #include "mma_bf16.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -452,6 +453,113 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wide route --
+// Head widths above 256 (wide.cuh). One block of WT threads per (row b,
+// head h, WQ queries), both dtypes. Keys come in blocks of KC = WT = 128,
+// one a thread: the block's scores (tile_dots; masked to MASKED where the
+// segments differ or are padding), the rows' block maximum and running
+// maximum, p = exp(s - m) on valid keys, l = l * alpha + sum p over the
+// unrounded p, then p rounded to T and acc = acc * alpha + p V into the fp32
+// scratch rows; a key block where no query of the block has a valid key
+// changes nothing and is skipped. The plain version's rounding points, in
+// the same order.
+template <typename T, bool kBLHD>
+__global__ void __launch_bounds__(WT)
+segment_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const int* __restrict__ seg,
+                              T* __restrict__ out, float* __restrict__ acc, int H, int L,
+                              int Dh, float sm_scale) {
+  __shared__ DotTiles tiles;
+  __shared__ __align__(16) float p_s[WQ][WT];
+  __shared__ int seg_q[WQ];
+  __shared__ float m_s[WQ], l_s[WQ], alpha_s[WQ], red_s[WQ];
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int i0 = blockIdx.y * WQ;
+  const int nq = min(WQ, L - i0);
+  const size_t row_stride = kBLHD ? (size_t)H * Dh : (size_t)Dh;
+  const size_t head_stride = kBLHD ? (size_t)Dh : (size_t)L * Dh;
+  const size_t base = (size_t)b * L * H * Dh + (size_t)h * head_stride;
+  const int* seg_row = seg + (size_t)b * L;
+  float* acc_b = acc + ((size_t)bh * L + i0) * Dh;  // scratch rows [B*H, L, Dh]
+  const int t = threadIdx.x;
+
+  if (t < WQ) {
+    seg_q[t] = t < nq ? seg_row[i0 + t] : 0;
+    m_s[t] = MASKED;
+    l_s[t] = 0.f;
+  }
+  zero_rows(acc_b, nq, Dh);
+  __syncthreads();
+
+  for (int j0 = 0; j0 < L; j0 += WT) {
+    const int nk = min(WT, L - j0);
+    const int sk = t < nk ? seg_row[j0 + t] : 0;
+    bool valid[WQ];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < WQ; ++r) {
+      valid[r] = sk > 0 && sk == seg_q[r];
+      any = any || valid[r];
+    }
+    if (!__syncthreads_or(any)) continue;
+    float s[WQ];
+    tile_dots(q + base + i0 * row_stride, row_stride, nq, k + base + j0 * row_stride,
+              row_stride, nk, Dh, tiles, s);
+#pragma unroll
+    for (int r = 0; r < WQ; ++r) p_s[r][t] = valid[r] ? s[r] * sm_scale : MASKED;
+    __syncthreads();
+    row_reduce<true>(&p_s[0][0], WT, nk, red_s);
+    __syncthreads();
+    if (t < WQ) {
+      const float m_next = fmaxf(m_s[t], red_s[t]);
+      alpha_s[t] = expf(m_s[t] - m_next);
+      m_s[t] = m_next;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < WQ; ++r) p_s[r][t] = valid[r] ? expf(p_s[r][t] - m_s[r]) : 0.f;
+    __syncthreads();
+    row_reduce<false>(&p_s[0][0], WT, nk, red_s);
+    __syncthreads();
+    if (t < WQ) l_s[t] = l_s[t] * alpha_s[t] + red_s[t];
+#pragma unroll
+    for (int r = 0; r < WQ; ++r) p_s[r][t] = round_to<T>(p_s[r][t]);
+    __syncthreads();
+    pv_update(acc_b, nq, alpha_s, &p_s[0][0], WT, v + base + j0 * row_stride, row_stride,
+              nk, Dh);
+    __syncthreads();  // p_s and alpha_s are rewritten by the next block
+  }
+
+  for (int r = 0; r < nq; ++r) {
+    const float denom = l_s[r] == 0.f ? 1.f : l_s[r];  // no valid key: acc is 0
+    T* o = out + base + (i0 + r) * row_stride;
+    for (int d = t; d < Dh; d += WT) o[d] = from_f32<T>(acc_b[(size_t)r * Dh + d] / denom);
+  }
+}
+
+template <bool kBLHD>
+int launch_wide(const void* q, const void* k, const void* v, const int* seg, void* out,
+                float* acc, int B, int H, int L, int Dh, float sm_scale, int is_bf16,
+                cudaStream_t s) {
+  const long long bh = (long long)B * H;
+  const int tiles = (L + WQ - 1) / WQ;
+  if (bh > INT_MAX || tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bh, (unsigned)tiles);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    segment_attention_wide_kernel<T, kBLHD><<<grid, WT, 0, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg,
+        static_cast<T*>(out), acc, H, L, Dh, sm_scale);
+  } else {
+    segment_attention_wide_kernel<float, kBLHD><<<grid, WT, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg, static_cast<float*>(out), acc, H, L, Dh, sm_scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Dh: one of the widths the kernels are built at (16, 32, 64, 128, 256)
 template <bool kBLHD>
 int dispatch(const void* q, const void* k, const void* v, const void* seg,
@@ -489,6 +597,21 @@ extern "C" int medtok_segment_attention_nt(const void* q, const void* k,
                                            int Dh, float sm_scale, int is_bf16,
                                            void* stream) {
   return dispatch<true>(q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream);
+}
+
+// The wide route of K2 (nt = 0) or K4 (nt = 1): any Dh >= 1 (the wrapper
+// takes it above 256), q, k, v, out contiguous in their layout, scratch
+// [B*H, L, Dh] fp32 for the output sums.
+extern "C" int medtok_segment_attention_wide(const void* q, const void* k, const void* v,
+                                             const void* seg, void* out, void* scratch,
+                                             int B, int H, int L, int Dh, float sm_scale,
+                                             int is_bf16, int nt, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
+  const int* sp = static_cast<const int*>(seg);
+  float* acc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return nt ? launch_wide<true>(q, k, v, sp, out, acc, B, H, L, Dh, sm_scale, is_bf16, s)
+            : launch_wide<false>(q, k, v, sp, out, acc, B, H, L, Dh, sm_scale, is_bf16, s);
 }
 
 extern "C" const char* medtok_error_string(int code) {

@@ -7,7 +7,12 @@
 // ever writing the [B, N] distance matrix out. The kernels are templated on
 // the width D and built at 16, 32, 64, 128 and 256 (the export's codebook:
 // 64); the wrapper zero-pads any other width up to the next one, which adds
-// exact zeros to every sum. k is 1 to 8.
+// exact zeros to every sum. k is 1 to 8. A wider D or a larger k takes the
+// wide route at the end of the file: fp32 distances on the CUDA cores, as
+// the plain version computes them (|z|^2 + |e|^2 - 2 z.e), for z rows in
+// chunks that bound the [rows, N] scratch, then a per-row selection of the
+// k smallest by (value, index) in k rounds (each the least pair above the
+// last pick); any D, any k up to N, O(k N) work a row for the selection.
 //
 // Precision. One TF32 product (10 mantissa bits) would move a distance by
 // about 1e-3 and change which codewords are nearest. The sweep uses 3xTF32:
@@ -545,6 +550,115 @@ cudaError_t launch_k(int k, const float* z, const float* e, int B, int N, int n_
   }
 }
 
+// ------------------------------------------------------------ wide route --
+// k above 8 or D above 256 (see the note at the top).
+constexpr int WIDE_TILE = 16;     // z rows x codewords of a distance tile
+constexpr int WIDE_CHUNK = 32;    // columns a staged chunk
+constexpr int SELECT_THREADS = 256;
+
+// |x|^2 of rows [0, n) of x [n, D], one thread a row, one FMA chain in order
+__global__ void __launch_bounds__(128)
+wide_norms_kernel(const float* __restrict__ x, int n, int D, float* __restrict__ out) {
+  const int r = blockIdx.x * 128 + threadIdx.x;
+  if (r >= n) return;
+  const float* row = x + (size_t)r * D;
+  float acc = 0.f;
+  for (int d = 0; d < D; ++d) acc = fmaf(row[d], row[d], acc);
+  out[r] = acc;
+}
+
+// dist[r][c] = (zq[r] + eq[c]) - 2 z_r.e_c for z rows [0, nr) against
+// codewords [0, N); z.e one FMA chain over d in order
+__global__ void __launch_bounds__(WIDE_TILE * WIDE_TILE)
+wide_dist_kernel(const float* __restrict__ z, const float* __restrict__ zq, int nr,
+                 const float* __restrict__ e, const float* __restrict__ eq, int N, int D,
+                 float* __restrict__ dist) {
+  __shared__ float zs[WIDE_TILE][WIDE_CHUNK + 1];
+  __shared__ float es[WIDE_TILE][WIDE_CHUNK + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * WIDE_TILE + tx;
+  const int r0 = blockIdx.y * WIDE_TILE, c0 = blockIdx.x * WIDE_TILE;
+  float acc = 0.f;
+  for (int d0 = 0; d0 < D; d0 += WIDE_CHUNK) {
+    const int dn = min(WIDE_CHUNK, D - d0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = tid; i < WIDE_TILE * WIDE_CHUNK; i += WIDE_TILE * WIDE_TILE) {
+      const int r = i / WIDE_CHUNK, c = i % WIDE_CHUNK;
+      zs[r][c] = r0 + r < nr && c < dn ? z[(size_t)(r0 + r) * D + d0 + c] : 0.f;
+      es[r][c] = c0 + r < N && c < dn ? e[(size_t)(c0 + r) * D + d0 + c] : 0.f;
+    }
+    __syncthreads();
+    for (int c = 0; c < dn; ++c) acc = fmaf(zs[ty][c], es[tx][c], acc);
+  }
+  const int r = r0 + ty, c = c0 + tx;
+  if (r < nr && c < N) dist[(size_t)r * N + c] = (zq[r] + eq[c]) - 2.f * acc;
+}
+
+// The k smallest of each row of dist [rows, N] by (value, index): round j
+// takes the least pair above round j - 1's pick. One block a row.
+__global__ void __launch_bounds__(SELECT_THREADS)
+wide_select_kernel(const float* __restrict__ dist, int N, int k, float* __restrict__ vals,
+                   int* __restrict__ idx) {
+  constexpr int WARPS = SELECT_THREADS / 32;
+  __shared__ float warp_v[WARPS];
+  __shared__ int warp_i[WARPS];
+  __shared__ float pick_v;
+  __shared__ int pick_i;
+  const float* row = dist + (size_t)blockIdx.x * N;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float prev_v = -INFINITY;
+  int prev_i = -1;
+  for (int j = 0; j < k; ++j) {
+    float bv = INFINITY;
+    int bi = INT_MAX;
+    for (int c = threadIdx.x; c < N; c += SELECT_THREADS) {
+      const float x = row[c];
+      const bool above = x > prev_v || (x == prev_v && c > prev_i);
+      if (above && lex_less(x, c, bv, bi)) { bv = x; bi = c; }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
+      const int oi = __shfl_xor_sync(FULL_MASK, bi, o);
+      if (lex_less(ov, oi, bv, bi)) { bv = ov; bi = oi; }
+    }
+    if (lane == 0) { warp_v[warp] = bv; warp_i[warp] = bi; }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < WARPS; ++w)
+        if (lex_less(warp_v[w], warp_i[w], bv, bi)) { bv = warp_v[w]; bi = warp_i[w]; }
+      pick_v = bv;
+      pick_i = bi;
+      vals[(size_t)blockIdx.x * k + j] = bv;
+      idx[(size_t)blockIdx.x * k + j] = bi;
+    }
+    __syncthreads();
+    prev_v = pick_v;
+    prev_i = pick_i;
+    __syncthreads();  // pick_v / pick_i are rewritten by the next round
+  }
+}
+
+cudaError_t launch_wide(const float* z, const float* e, int B, int N, int D, int k, int rows,
+                        float* scratch, float* vals, int* idx, cudaStream_t s) {
+  float* zq = scratch;
+  float* eq = zq + B;
+  float* dist = eq + N;
+  wide_norms_kernel<<<(B + 127) / 128, 128, 0, s>>>(z, B, D, zq);
+  wide_norms_kernel<<<(N + 127) / 128, 128, 0, s>>>(e, N, D, eq);
+  cudaError_t err = cudaGetLastError();
+  for (int r0 = 0; r0 < B && err == cudaSuccess; r0 += rows) {
+    const int nr = min(rows, B - r0);
+    const dim3 grid((N + WIDE_TILE - 1) / WIDE_TILE, (nr + WIDE_TILE - 1) / WIDE_TILE);
+    wide_dist_kernel<<<grid, dim3(WIDE_TILE, WIDE_TILE), 0, s>>>(
+        z + (size_t)r0 * D, zq + r0, nr, e, eq, N, D, dist);
+    wide_select_kernel<<<nr, SELECT_THREADS, 0, s>>>(dist, N, k, vals + (size_t)r0 * k,
+                                                      idx + (size_t)r0 * k);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 }  // namespace
 
 // z rows a block and codebook rows a staged tile at a built width (0 for
@@ -600,4 +714,20 @@ extern "C" int medtok_topk_l2(const void* z, const void* e, int B, int N,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The wide route (the wrapper takes it for k above 8 or dim above 256): z
+// [B, dim] and e [N, dim] fp32 row-major, any dim >= 1 and 1 <= k <= N;
+// rows z rows a chunk (1 to 1,048,560); scratch holds B + N + rows * N
+// floats; vals / idx receive [B, k].
+extern "C" int medtok_topk_l2_wide(const void* z, const void* e, int B, int N, int dim,
+                                   int k, int rows, void* scratch, void* vals, void* idx,
+                                   void* stream) {
+  if (B <= 0 || N <= 0 || dim <= 0 || k < 1 || k > N || rows <= 0 ||
+      (rows + WIDE_TILE - 1) / WIDE_TILE > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_wide(static_cast<const float*>(z), static_cast<const float*>(e), B, N,
+                          dim, k, rows, static_cast<float*>(scratch),
+                          static_cast<float*>(vals), static_cast<int*>(idx),
+                          static_cast<cudaStream_t>(stream));
 }

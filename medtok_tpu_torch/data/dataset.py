@@ -3,8 +3,11 @@ epoch iterator (numpy path of ``medtok_tpu/data/dataset.py``).
 
 One sample per medical code: the tokenized description plus the code's
 induced KG subgraph. The dataset is built from in-memory columns
-(``med_code``, ``desc``, ``pkg_index_list``); ``from_parquet`` reads them
-from an all_codes_mappings parquet and is the only place that needs pandas.
+(``med_code``, ``desc``, ``pkg_index_list``); ``from_path`` reads them from
+an all_codes_mappings ``.parquet`` (through pandas, which the GPU machine
+lacks) or from a ``.jsonl`` copy of the same three columns, one JSON object
+a line (the ``json`` module; ``write_jsonl`` writes one). JSON Lines is only
+a container for the same columns: both give the same dataset.
 Training batches carry an edge-dropped copy of each graph, drawn from a
 numpy generator seeded per batch, bit for bit the JAX package's numpy route.
 The C++ ctypes runtime and the compact batch encoding of the JAX package are
@@ -13,6 +16,7 @@ host-transfer optimisations that this port does not have yet.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, Sequence
@@ -118,6 +122,19 @@ class MedCodeDataset:
         return cls(kg, df["med_code"].tolist(), df["desc"].tolist(),
                    df["pkg_index_list"].tolist(), tokenizer, cfg=cfg)
 
+    @classmethod
+    def from_path(cls, kg: KnowledgeGraph, path: str | Path, tokenizer, *,
+                  cfg: DataConfig = DataConfig()) -> "MedCodeDataset":
+        """Read the vocabulary columns from a ``.parquet`` (needs pandas and
+        pyarrow) or a ``.jsonl`` file, by its suffix."""
+        suffix = Path(path).suffix
+        if suffix == ".parquet":
+            return cls.from_parquet(kg, path, tokenizer, cfg=cfg)
+        if suffix == ".jsonl":
+            return cls.from_columns(kg, read_jsonl(path), tokenizer, cfg=cfg)
+        raise ValueError(f"{path}: the code vocabulary must be a .parquet or a .jsonl "
+                         "file")
+
     def __len__(self) -> int:
         return len(self.med_codes)
 
@@ -179,6 +196,32 @@ class MedCodeDataset:
             input_ids=np.asarray(self.text_ids(idx), np.int32),
             nodes=nodes, edge_src=src, edge_dst=dst, rel=rel,
         )
+
+
+VOCAB_COLUMNS = ("med_code", "desc", "pkg_index_list")
+
+
+def write_jsonl(columns: dict, path: str | Path) -> None:
+    """Write the vocabulary columns (``med_code``, ``desc``,
+    ``pkg_index_list``) as JSON Lines: one object a code, in row order, the
+    node lists as lists of ints."""
+    with open(path, "w") as f:
+        for code, desc, nodes in zip(*(columns[c] for c in VOCAB_COLUMNS)):
+            f.write(json.dumps({"med_code": str(code), "desc": str(desc),
+                                "pkg_index_list": [int(n) for n in nodes]}) + "\n")
+
+
+def read_jsonl(path: str | Path) -> dict:
+    """The vocabulary columns of a file ``write_jsonl`` wrote (blank lines
+    skipped)."""
+    columns: dict = {c: [] for c in VOCAB_COLUMNS}
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                row = json.loads(line)
+                for c in VOCAB_COLUMNS:
+                    columns[c].append(row[c])
+    return columns
 
 
 def collate(

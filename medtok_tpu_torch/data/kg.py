@@ -1,12 +1,14 @@
 """Knowledge graph as edge arrays + CSR, and the edge dropout of the
 training view (own copy of the array part of ``medtok_tpu/data/kg.py``).
 
-Built from arrays; ``from_csv`` reads a PrimeKG ``kg.csv`` and is the only
-function here that needs pandas, which it imports when called.
+Built from arrays; ``from_csv`` reads a PrimeKG ``kg.csv`` with the ``csv``
+module (no pandas, which the GPU machine lacks).
 """
 
 from __future__ import annotations
 
+import csv
+import operator
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -25,24 +27,28 @@ class KnowledgeGraph:
 
     @classmethod
     def from_csv(cls, kg_path: str | Path) -> "KnowledgeGraph":
-        """Read kg.csv (columns x_index, y_index, display_relation); accepts
-        the file or the directory holding it."""
-        import pandas as pd
-
+        """Read kg.csv (columns x_index, y_index, display_relation, in any
+        position among the others; quoted fields as the csv module reads
+        them); accepts the file or the directory holding it. The relation
+        vocabulary is in order of first appearance, as the JAX package's
+        pandas reader builds it."""
         p = Path(kg_path)
         if p.is_dir():
             p = p / "kg.csv"
-        df = pd.read_csv(p, usecols=["x_index", "y_index", "display_relation"],
-                         low_memory=False)
-        src = df["x_index"].to_numpy(np.int64)
-        dst = df["y_index"].to_numpy(np.int64)
-        rels = df["display_relation"].to_numpy()
+        with open(p, newline="") as f:
+            reader = csv.reader(f)
+            header = next(reader, [])
+            try:
+                cols = [header.index(c) for c in ("x_index", "y_index", "display_relation")]
+            except ValueError:
+                raise ValueError(f"{p}: kg.csv needs the columns x_index, y_index and "
+                                 f"display_relation, found {header}") from None
+            columns = list(zip(*map(operator.itemgetter(*cols), reader))) or [(), (), ()]
+        src = np.array(columns[0], dtype=np.int64)
+        dst = np.array(columns[1], dtype=np.int64)
         rel_vocab: dict[str, int] = {}
-        codes = np.empty(len(rels), np.int32)
-        for i, r in enumerate(rels):
-            if r not in rel_vocab:
-                rel_vocab[r] = len(rel_vocab)
-            codes[i] = rel_vocab[r]
+        codes = np.fromiter((rel_vocab.setdefault(r, len(rel_vocab)) for r in columns[2]),
+                            dtype=np.int32, count=len(columns[2]))
         num_nodes = int(max(src.max(initial=-1), dst.max(initial=-1)) + 1)
         return cls(src, dst, codes, rel_vocab, num_nodes)
 

@@ -4,13 +4,15 @@ Post-LayerNorm bert-base with position ids supplied by the caller, so packed
 rows give each segment its own positions 0..len-1. With segment ids the
 attention is kernel K2 (block-diagonal, [B, NH, L, Dh] head layout); without
 them it is the dense masked softmax with a -1e9 fill (the unpacked API path).
-The projections are plain ``nn.Linear``.
+The projections are plain ``nn.Linear``. ``convert_hf_bert`` maps a
+HuggingFace ``BertModel`` state_dict onto this encoder.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -106,3 +108,36 @@ class BertEncoder(nn.Module):
         for i in range(self.cfg.num_layers):
             x = getattr(self, f"layer_{i}")(x, mask, segments)
         return x
+
+
+def convert_hf_bert(state_dict, cfg: TextEncoderConfig) -> dict[str, torch.Tensor]:
+    """A HuggingFace ``BertModel`` state_dict (tensors or numpy arrays) as
+    the state_dict of ``BertEncoder`` (counterpart of the JAX package's
+    ``convert_hf_bert``, which also transposes the Dense kernels: both
+    torch layouts here are [out, in], so nothing is transposed). Values
+    come back as fp32 tensors; ``load_state_dict`` casts them to the
+    encoder's dtype."""
+
+    def arr(key):
+        v = state_dict[key]
+        v = v.detach().cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+        return v.to(torch.float32)
+
+    sd = {"word_embeddings.weight": arr("embeddings.word_embeddings.weight"),
+          "position_embeddings.weight": arr("embeddings.position_embeddings.weight"),
+          "token_type_embeddings.weight": arr("embeddings.token_type_embeddings.weight"),
+          "embeddings_ln.weight": arr("embeddings.LayerNorm.weight"),
+          "embeddings_ln.bias": arr("embeddings.LayerNorm.bias")}
+    for i in range(cfg.num_layers):
+        hf = f"encoder.layer.{i}"
+        for port, theirs in (("attention.query", "attention.self.query"),
+                             ("attention.key", "attention.self.key"),
+                             ("attention.value", "attention.self.value"),
+                             ("attention_output", "attention.output.dense"),
+                             ("attention_ln", "attention.output.LayerNorm"),
+                             ("intermediate", "intermediate.dense"),
+                             ("output", "output.dense"),
+                             ("output_ln", "output.LayerNorm")):
+            for leaf in ("weight", "bias"):
+                sd[f"layer_{i}.{port}.{leaf}"] = arr(f"{hf}.{theirs}.{leaf}")
+    return sd

@@ -16,7 +16,9 @@ Every kernel with a head or embedding width is built at the widths in
 (``kernel_width``, ``pad_width``) and cuts the output back (``cut_width``).
 Zero columns add exact zeros to every dot product and squared norm, so the
 padded launch computes the same scores; the output columns that come from
-the zero columns are cut off.
+the zero columns are cut off. A width above the widest built one takes the
+kernel's wide route (``route_width`` returns None for it): a second kernel
+that reads the width at run time, so no width is too wide for it.
 """
 
 from __future__ import annotations
@@ -57,12 +59,18 @@ _SIGNATURES = {
     # z rows a block, codebook rows a tile, at a built width
     "medtok_topk_tile_b": ([_I], ctypes.c_int),
     "medtok_topk_tile_n": ([_I], ctypes.c_int),
+    # the wide route: z, e, B, N, dim, k, rows a chunk, scratch, vals, idx, stream
+    "medtok_topk_l2_wide": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
     # q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream
     "medtok_segment_attention": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
     # as medtok_segment_attention, q/k/v/out in [B, L, H, Dh]
     "medtok_segment_attention_nt": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
+    # the wide route of either: q, k, v, seg, out, scratch, B, H, L, Dh,
+    # sm_scale, is_bf16, nt (1: the [B, L, H, Dh] layout), stream
+    "medtok_segment_attention_wide": (
+        [_P] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P], ctypes.c_int),
     # src, dst, w, out, lists, offsets (scratch), B, Ln, Epg, stream
     "medtok_adj_count": ([_P] * 6 + [_I, _I, _I, _P], ctypes.c_int),
     "medtok_adj_count_onehot": ([_P] * 6 + [_I, _I, _I, _P], ctypes.c_int),
@@ -74,6 +82,11 @@ _SIGNATURES = {
     "medtok_flash_dq": ([_P] * 8 + _K3_TAIL, ctypes.c_int),
     # q, k, v, mask, lse, delta, dO, dk, dv, *K3_TAIL
     "medtok_flash_dkv": ([_P] * 9 + _K3_TAIL, ctypes.c_int),
+    # the wide routes: the same pointers, then the fp32 scratch of the sums
+    "medtok_flash_fwd_wide": ([_P] * 7 + _K3_TAIL, ctypes.c_int),
+    "medtok_flash_dq_wide": ([_P] * 9 + _K3_TAIL, ctypes.c_int),
+    # ... dk, dv, scratch, query groups of 32 a split, *K3_TAIL
+    "medtok_flash_dkv_wide": ([_P] * 10 + [_I] + _K3_TAIL, ctypes.c_int),
     "medtok_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -179,6 +192,15 @@ def kernel_width(width: int, what: str) -> int:
         if 1 <= width <= w:
             return w
     raise ValueError(f"the kernels take {what} 1 to {KERNEL_WIDTHS[-1]}, got {width}")
+
+
+def route_width(width: int, what: str) -> int | None:
+    """The built width that runs ``width`` (``kernel_width``), or None for
+    a width above the widest built one, which takes the wide route; raises,
+    naming the limit, for a width below 1."""
+    if width > KERNEL_WIDTHS[-1]:
+        return None
+    return kernel_width(width, what)
 
 
 def pad_width(x: torch.Tensor, width: int) -> torch.Tensor:

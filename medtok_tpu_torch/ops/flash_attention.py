@@ -62,12 +62,16 @@ with no valid key are never staged, and the forward walks each 512-key
 block twice, for its maximum and then for P.V), in fp32 on the CUDA cores
 with exact fp32 products (the parity path).
 
-**Widths.** K2, K4 and K3 take head widths 1 to 256: each kernel is built
-at 16, 32, 64, 128 and 256, and the wrapper zero-pads q, k, v (and dO) up
-to the next of those and cuts the outputs back. Zero columns change no
-score, so the results are those of the true width; ``sm_scale`` defaults
-to 1/sqrt(Dh) of the true width, as the JAX functions take it. A width
-above 256 raises.
+**Widths.** Each kernel is built at 16, 32, 64, 128 and 256, and for a
+head width up to 256 the wrapper zero-pads q, k, v (and dO) up to the next
+of those and cuts the outputs back. Zero columns change no score, so the
+results are those of the true width; ``sm_scale`` defaults to 1/sqrt(Dh) of
+the true width, as the JAX functions take it. A wider head takes the wide
+route (``csrc/wide.cuh``): kernels of K2 / K4 (both layouts) and of K3's
+forward, dq and dkv that read Dh at run time, on the CUDA cores in both
+dtypes, with fp32 sums in a scratch buffer and the plain versions' rounding
+points (128-key blocks for K2 / K4, 512 for K3's forward, the same hash).
+Each wrapper counts their launches apart (``.wide_launches``).
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ import torch
 from medtok_tpu_torch.ops import _build
 
 _MASKED = -1e30  # finite stand-in for -inf, as in the TPU kernel
+_WIDE_MAX_ROWS = 8 * 65535  # query rows of a wide launch: 8 a block, 65535 blocks
 _M32 = 0xFFFFFFFF
 K3_BLOCK_K = 512  # K3's key block: the TPU kernel's default block_k
 SEG_BLOCK_K = 128  # K2 / K4's key block: the TPU kernel's block_k
@@ -154,10 +159,11 @@ def _device_of(tensors, what: str) -> str:
     return "cuda"
 
 
-def _segment_check(q, k, v, seg_ids, heads_dim: int) -> int:
+def _segment_check(q, k, v, seg_ids, heads_dim: int) -> tuple[int, int | None]:
     """Raise on anything K2 / K4 does not take; returns the head count,
     read from dimension ``heads_dim`` of q (1 for K2's [B, H, L, Dh], 2
-    for K4's [B, L, H, Dh])."""
+    for K4's [B, L, H, Dh]), and the built width the kernel runs at (None:
+    the wide route)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one 4-D shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -167,14 +173,17 @@ def _segment_check(q, k, v, seg_ids, heads_dim: int) -> int:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, Dh = q.shape[0], q.shape[3]
     L = q.shape[3 - heads_dim]
-    _build.kernel_width(Dh, "head width")
+    width = _build.route_width(Dh, "head width")
+    if width is None and L > _WIDE_MAX_ROWS:
+        raise ValueError(f"the wide route takes L up to {_WIDE_MAX_ROWS} (its grid "
+                         f"holds {_WIDE_MAX_ROWS // 8} tiles of 8 queries), got {L}")
     if seg_ids.shape != (B, L) or seg_ids.dtype != torch.int32:
         raise ValueError(f"seg_ids must be [B, L] = [{B}, {L}] int32, got "
                          f"{seg_ids.dtype} {tuple(seg_ids.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v), ("seg_ids", seg_ids)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    return q.shape[heads_dim]
+    return q.shape[heads_dim], width
 
 
 def _segment_launch(entry: str, q, k, v, seg_ids, out, heads: int,
@@ -193,18 +202,37 @@ def _segment_launch(entry: str, q, k, v, seg_ids, out, heads: int,
     _build.check(code, entry)
 
 
-def _segment_run(entry: str, q, k, v, seg_ids, heads: int,
+def _segment_wide(nt: bool, q, k, v, seg_ids, heads: int, sm_scale: float) -> torch.Tensor:
+    """The wide route of K2 (nt False) or K4 at q's true width."""
+    out = torch.empty_like(q)
+    if out.numel():
+        B, L, Dh = q.shape[0], seg_ids.shape[1], q.shape[3]
+        scratch = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
+        lib = _build.load_library()
+        with torch.cuda.device(q.device):
+            code = lib.medtok_segment_attention_wide(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), B, heads, L, Dh, float(sm_scale),
+                int(q.dtype == torch.bfloat16), int(nt),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, "segment_attention_wide")
+    return out
+
+
+def _segment_run(nt: bool, q, k, v, seg_ids, heads: int, width: int | None,
                  sm_scale: float | None) -> torch.Tensor:
-    """K2 or K4 (``entry``) on q, k, v zero-padded to the next width the
-    kernel is built at, with sm_scale from the true width; returns the
-    output cut back to it."""
+    """K2 (nt False) or K4 on q, k, v zero-padded to ``width``, a width the
+    kernel is built at, or by the wide route (``width`` None), with sm_scale
+    from the true width; returns the output at the true width."""
     Dh = q.shape[3]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(Dh)
-    width = _build.kernel_width(Dh, "head width")
+    if width is None:
+        return _segment_wide(nt, q, k, v, seg_ids, heads, sm_scale)
     qp, kp, vp = (_build.pad_width(t, width) for t in (q, k, v))
     out = torch.empty_like(qp)
     if out.numel():
+        entry = "medtok_segment_attention_nt" if nt else "medtok_segment_attention"
         _segment_launch(entry, qp, kp, vp, seg_ids, out, heads, sm_scale)
     return _build.cut_width(out, Dh)
 
@@ -220,9 +248,11 @@ def packed_segment_attention(
     if _device_of((q, k, v, seg_ids), "q, k, v and seg_ids") == "cpu":
         return packed_segment_attention_reference(q, k, v, seg_ids,
                                                   sm_scale=sm_scale)
-    heads = _segment_check(q, k, v, seg_ids, heads_dim=1)
-    out = _segment_run("medtok_segment_attention", q, k, v, seg_ids, heads, sm_scale)
-    if out.numel():
+    heads, width = _segment_check(q, k, v, seg_ids, heads_dim=1)
+    out = _segment_run(False, q, k, v, seg_ids, heads, width, sm_scale)
+    if out.numel() and width is None:
+        packed_segment_attention.wide_launches += 1
+    elif out.numel():
         packed_segment_attention.launches += 1
     return out
 
@@ -238,16 +268,21 @@ def packed_segment_attention_nt(
     if _device_of((q, k, v, seg_ids), "q, k, v and seg_ids") == "cpu":
         return packed_segment_attention_nt_reference(q, k, v, seg_ids,
                                                      sm_scale=sm_scale)
-    heads = _segment_check(q, k, v, seg_ids, heads_dim=2)
-    out = _segment_run("medtok_segment_attention_nt", q, k, v, seg_ids, heads, sm_scale)
-    if out.numel():
+    heads, width = _segment_check(q, k, v, seg_ids, heads_dim=2)
+    out = _segment_run(True, q, k, v, seg_ids, heads, width, sm_scale)
+    if out.numel() and width is None:
+        packed_segment_attention_nt.wide_launches += 1
+    elif out.numel():
         packed_segment_attention_nt.launches += 1
     return out
 
 
-#: launches of the CUDA kernels (CPU calls of the plain versions do not count)
+#: launches of the CUDA kernels, the built widths' and the wide route's
+#: (CPU calls of the plain versions do not count)
 packed_segment_attention.launches = 0
 packed_segment_attention_nt.launches = 0
+packed_segment_attention.wide_launches = 0
+packed_segment_attention_nt.wide_launches = 0
 
 
 # --------------------------------------------------------------------- K3 --
@@ -388,9 +423,10 @@ def flash_attention_grad_terms(q, k, v, key_mask, lse, delta, do, *,
             torch.matmul(a_drop.transpose(-1, -2), do.float().abs()))
 
 
-def _k3_check(q, k, v, key_mask, extra=()) -> int:
+def _k3_check(q, k, v, key_mask, extra=()) -> int | None:
     """Raise on anything K3's kernels do not take; returns the width the
-    kernels run at (the head width padded up to one they are built at)."""
+    kernels run at (the head width padded up to one they are built at), or
+    None for the wide route."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q [B, H, Lq, Dh] and k, v [B, H, Lk, Dh] expected, "
@@ -400,9 +436,13 @@ def _k3_check(q, k, v, key_mask, extra=()) -> int:
         raise ValueError(f"q, k, v must all be bfloat16 or all float32, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, H, Lq, Dh = q.shape
-    width = _build.kernel_width(Dh, "head width")
+    width = _build.route_width(Dh, "head width")
     if Lq < 1 or k.shape[2] < 1:
         raise ValueError(f"K3 takes Lq, Lk >= 1, got {Lq}, {k.shape[2]}")
+    if width is None and max(Lq, k.shape[2]) > _WIDE_MAX_ROWS:
+        raise ValueError(f"K3's wide route takes Lq, Lk up to {_WIDE_MAX_ROWS} (its "
+                         f"grid holds {_WIDE_MAX_ROWS // 8} tiles of 8 rows), got "
+                         f"{Lq}, {k.shape[2]}")
     if key_mask.shape != (B, k.shape[2]) or key_mask.dtype != torch.bool:
         raise ValueError(f"key_mask must be [B, Lk] = [{B}, {k.shape[2]}] bool, "
                          f"got {key_mask.dtype} {tuple(key_mask.shape)}")
@@ -426,18 +466,19 @@ def _seed_on(seed, device) -> torch.Tensor:
 
 
 def _k3_launch(entry: str, q, k, tensors, sm_scale: float, dropout_rate: float,
-               dropout_seed) -> None:
+               dropout_seed, extra: tuple[int, ...] = ()) -> None:
     """Build the library if needed and launch ``entry`` on q's device and
-    current stream, with the pointers of ``tensors`` and the shapes and
-    scalars every K3 entry takes, at q's width (one the kernels are built
-    at); raises on a missing nvcc or a refused launch."""
+    current stream, with the pointers of ``tensors``, then the ints of
+    ``extra``, then the shapes and scalars every K3 entry takes, at q's
+    width (one the kernels are built at, or any on the wide route); raises
+    on a missing nvcc or a refused launch."""
     lib = _build.load_library()
     B, H, Lq, Dh = q.shape
     drop = dropout_rate > 0.0
     seed = _seed_on(dropout_seed, q.device) if drop else None
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(
-            *(t.data_ptr() for t in tensors), B, H, Lq, k.shape[2], Dh,
+            *(t.data_ptr() for t in tensors), *extra, B, H, Lq, k.shape[2], Dh,
             float(sm_scale), float(dropout_rate),
             dropout_threshold(dropout_rate) if drop else 0,
             seed.data_ptr() if drop else None, int(q.dtype == torch.bfloat16),
@@ -454,14 +495,41 @@ def flash_attention_fwd(q, k, v, key_mask, *, sm_scale: float,
                                          dropout_rate=dropout_rate,
                                          dropout_seed=dropout_seed)
     width = _k3_check(q, k, v, key_mask)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if width is None:  # the wide route, at the true width
+        out = torch.empty_like(q)
+        if out.numel():
+            _k3_launch("medtok_flash_fwd_wide", q, k, (q, k, v, key_mask, out, lse,
+                                                       _sums(q)),
+                       sm_scale, dropout_rate, dropout_seed)
+            flash_attention_fwd.wide_launches += 1
+        return out, lse
     qp, kp, vp = (_build.pad_width(t, width) for t in (q, k, v))
     out = torch.empty_like(qp)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if out.numel():
         _k3_launch("medtok_flash_fwd", qp, kp, (qp, kp, vp, key_mask, out, lse),
                    sm_scale, dropout_rate, dropout_seed)
         flash_attention_fwd.launches += 1
     return _build.cut_width(out, q.shape[3]), lse
+
+
+def dkv_wide_splits(key_blocks: int, groups: int, sms: int) -> tuple[int, int]:
+    """(splits, query groups a split) of the dkv wide route: its ``groups``
+    query groups of 32 split into runs, as many as ``key_blocks`` x splits
+    blocks of 128 keys fit in one wave of four blocks an SM (the blocks'
+    shared memory allows four; a second, partial wave would double the
+    time), at least one group a run. Each split sums into scratch of its
+    own, added in split order after, so no atomics."""
+    splits = max(1, min(groups, 4 * sms // key_blocks))
+    per = math.ceil(groups / splits)
+    return math.ceil(groups / per), per
+
+
+def _sums(*like) -> torch.Tensor:
+    """fp32 scratch of the wide route's output sums: one element for each
+    element of the outputs shaped as ``like``."""
+    return torch.empty(sum(t.numel() for t in like), dtype=torch.float32,
+                       device=like[0].device)
 
 
 def _bwd_extra(q, lse, delta, do):
@@ -485,6 +553,13 @@ def flash_attention_dq(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
                                             dropout_rate=dropout_rate,
                                             dropout_seed=dropout_seed)
     width = _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
+    if width is None:  # the wide route, at the true width
+        dq = torch.empty_like(q)
+        if dq.numel():
+            _k3_launch("medtok_flash_dq_wide", q, k,
+                       (*tensors, dq, _sums(q)), sm_scale, dropout_rate, dropout_seed)
+            flash_attention_dq.wide_launches += 1
+        return dq
     qp, kp, vp, dop = (_build.pad_width(t, width) for t in (q, k, v, do))
     dq = torch.empty_like(qp)
     if dq.numel():
@@ -504,6 +579,18 @@ def flash_attention_dkv(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
                                              dropout_rate=dropout_rate,
                                              dropout_seed=dropout_seed)
     width = _k3_check(q, k, v, key_mask, _bwd_extra(q, lse, delta, do))
+    if width is None:  # the wide route, at the true width
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        if dk.numel():
+            B, H, Lq, _ = q.shape
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            splits, per = dkv_wide_splits(B * H * math.ceil(k.shape[2] / 128),
+                                          math.ceil(Lq / 32), sms)
+            _k3_launch("medtok_flash_dkv_wide", q, k,
+                       (*tensors, dk, dv, _sums(*(k, v) * splits)), sm_scale,
+                       dropout_rate, dropout_seed, extra=(per,))
+            flash_attention_dkv.wide_launches += 1
+        return dk, dv
     qp, kp, vp, dop = (_build.pad_width(t, width) for t in (q, k, v, do))
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     if dk.numel():
@@ -515,10 +602,14 @@ def flash_attention_dkv(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
     return _build.cut_width(dk, Dh), _build.cut_width(dv, Dh)
 
 
-#: launches of each CUDA kernel (CPU calls of the plain versions do not count)
+#: launches of each CUDA kernel, the built widths' and the wide route's (CPU
+#: calls of the plain versions do not count)
 flash_attention_fwd.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+flash_attention_fwd.wide_launches = 0
+flash_attention_dq.wide_launches = 0
+flash_attention_dkv.wide_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -8,11 +8,17 @@ rows, ties to the lowest index. On CUDA tensors it launches
 ``fused_topk_l2_reference``. A region of the codebook is a row slice, which
 reaches the kernel as a pointer offset plus a row count (no copy).
 
-Widths: the kernel is built at 16, 32, 64, 128 and 256 (the export's
-codebook: 64); any other width from 1 to 256 is zero-padded up to the next
-of those (z and the codebook are copied then; zero columns add exact zeros
-to every distance). k is 1 to 8: the kernel keeps its top-k in registers,
-and no CLI sets ``QuantizerConfig.top_k`` (default 5).
+Widths and k: the kernel is built at 16, 32, 64, 128 and 256 (the
+export's codebook: 64); any other width from 1 to 256 is zero-padded up to
+the next of those (z and the codebook are copied then; zero columns add
+exact zeros to every distance), and it keeps k = 1 to 8 in registers. A
+wider D or a larger k (``QuantizerConfig.top_k``, set through
+``args.json``) takes the wide route, a second kernel in the same source:
+fp32 distances on the CUDA cores, computed as the plain version computes
+them, for the z rows in chunks whose [rows, N] distance scratch stays under
+``WIDE_SCRATCH_FLOATS``, then the k smallest of each row by (value, index).
+It takes any D and any k up to N, and counts its launches apart
+(``fused_topk_l2.wide_launches``).
 
 Precision and bound: the kernel runs on the tensor cores in 3xTF32 (each
 fp32 value split into a TF32 hi and lo, z.e summed as hi.hi + hi.lo +
@@ -34,7 +40,10 @@ import torch
 from medtok_tpu_torch.ops import _build
 from medtok_tpu_torch.ops.vq import squared_distance, topk_smallest
 
-_MAX_K = 8
+_MAX_K = 8          # the 3xTF32 kernel's top-k in registers
+#: floats of the wide route's distance scratch for one chunk of z rows
+WIDE_SCRATCH_FLOATS = 1 << 26
+_WIDE_MAX_ROWS = 16 * 65535  # z rows a chunk: the distance kernel's grid
 
 
 def fused_topk_l2_reference(
@@ -46,9 +55,10 @@ def fused_topk_l2_reference(
     return vals, idx.to(torch.int32)
 
 
-def _check(z: torch.Tensor, codebook: torch.Tensor, k: int) -> int:
-    """Raise on anything K1 does not take; returns the width it runs at
-    (the embedding width padded up to one the kernel is built at)."""
+def _check(z: torch.Tensor, codebook: torch.Tensor, k: int) -> int | None:
+    """Raise on anything K1 does not take; returns the width the 3xTF32
+    kernel runs at (the embedding width padded up to one it is built at),
+    or None for the wide route (k above 8 or a width above 256)."""
     for name, t in (("z", z), ("codebook", codebook)):
         if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 2-D float32 tensor, "
@@ -59,11 +69,13 @@ def _check(z: torch.Tensor, codebook: torch.Tensor, k: int) -> int:
     if codebook.shape[1] != D:
         raise ValueError(f"z {tuple(z.shape)} and codebook {tuple(codebook.shape)} "
                          "differ in width")
-    width = _build.kernel_width(D, "embedding width")
-    if not 1 <= k <= min(_MAX_K, N):
-        raise ValueError(f"k={k} must be in [1, min({_MAX_K}, N={N})]: the kernel "
-                         f"keeps at most {_MAX_K} in registers")
-    return width
+    width = _build.route_width(D, "embedding width")
+    if not 1 <= k <= N:
+        raise ValueError(f"k={k} must be in [1, N={N}]: the sweep takes the k "
+                         "nearest of the codebook's N rows")
+    if max(z.shape[0], N) >= 2**31:
+        raise ValueError("K1 takes fewer than 2**31 rows of z and of the codebook")
+    return width if k <= _MAX_K else None
 
 
 def split_plan(row_blocks: int, tiles: int, sms: int) -> tuple[int, int]:
@@ -94,6 +106,9 @@ def fused_topk_l2(
         return (torch.empty((0, k), dtype=torch.float32, device=z.device),
                 torch.empty((0, k), dtype=torch.int32, device=z.device))
 
+    if width is None:
+        return _wide(z, codebook, k)
+
     lib = _build.load_library()
     sms = torch.cuda.get_device_properties(z.device).multi_processor_count
     splits, per_split = split_plan(math.ceil(B / lib.medtok_topk_tile_b(width)),
@@ -122,5 +137,27 @@ def fused_topk_l2(
     return vals, idx
 
 
-#: launches of the CUDA kernel (CPU calls of the plain version do not count)
+def _wide(z: torch.Tensor, codebook: torch.Tensor, k: int
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wide route (k above 8 or D above 256) at the true width."""
+    B, N, D = z.shape[0], codebook.shape[0], z.shape[1]
+    rows = max(1, min(B, WIDE_SCRATCH_FLOATS // N, _WIDE_MAX_ROWS))
+    dev = z.device
+    # |z|^2, |e|^2, then one chunk's [rows, N] distances
+    scratch = torch.empty(B + N + rows * N, dtype=torch.float32, device=dev)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.medtok_topk_l2_wide(
+            z.data_ptr(), codebook.data_ptr(), B, N, D, k, rows, scratch.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "topk_l2_wide")
+    fused_topk_l2.wide_launches += 1
+    return vals, idx
+
+
+#: launches of the CUDA kernels, the 3xTF32 sweep and the wide route (CPU
+#: calls of the plain version do not count)
 fused_topk_l2.launches = 0
+fused_topk_l2.wide_launches = 0

@@ -10,12 +10,15 @@ encoder's: it gets no gradient and no optimizer state. The model holds fp32
 parameters and computes in ``ModelConfig.compute_dtype``; the quantizer's
 usage FIFO lives in its buffers and is written by each step.
 
-    trainer = Trainer(cfg)                    # on CUDA
-    state = trainer.init_state()
+    trainer = Trainer(cfg, workdir="results/run")   # on CUDA
+    state = trainer.init_state()      # resumes from the workdir's latest checkpoint
     state = trainer.fit(state, epoch_batches(dataset, batch_size=1024), max_steps=n)
 
-Data-parallel training (``mesh_dp`` / ``mesh_tp`` above 1), checkpoints and
-the CLI are not ported yet.
+With a ``workdir``, ``fit`` saves a checkpoint every ``ckpt_every`` steps
+(``utils/checkpoint.py``, rotated to ``max_checkpoints``) and ``init_state``
+restores the latest one; ``cli/train.py`` is the command line around it.
+Data-parallel training (``mesh_dp`` / ``mesh_tp`` above 1) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from medtok_tpu_torch.data.types import CodeBatch, PackedTextBatch
 from medtok_tpu_torch.models.layers import init_random_
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
 from medtok_tpu_torch.train.losses import assemble_losses
+from medtok_tpu_torch.utils.checkpoint import CheckpointManager
 
 ADAM_EPS = 1e-8
 
@@ -188,11 +192,12 @@ def packed_rows_budget(attention_mask: np.ndarray, row_len: int) -> int:
 class Trainer:
     """Host loop on one device (CUDA unless ``device`` names another;
     without a GPU ``device=None`` raises): packs each batch's texts when
-    ``TrainConfig.packed_text`` is set, runs the step, and every
-    ``log_every`` steps passes the metrics as floats with ``steps_per_sec``
-    to ``log_fn(step, metrics)``."""
+    ``TrainConfig.packed_text`` is set, runs the step, every ``log_every``
+    steps passes the metrics as floats with ``steps_per_sec`` to
+    ``log_fn(step, metrics)``, and with a ``workdir`` saves a checkpoint
+    every ``ckpt_every`` steps (``args.json`` written there once)."""
 
-    def __init__(self, cfg: MedTokConfig, *, device=None,
+    def __init__(self, cfg: MedTokConfig, *, device=None, workdir: str | Path | None = None,
                  log_fn: Callable[[int, dict], None] | None = None):
         t = cfg.train
         if t.mesh_dp > 1 or t.mesh_tp > 1:
@@ -207,10 +212,24 @@ class Trainer:
         self.log_fn = log_fn
         self.step_fn = make_train_step(cfg, self.model)
         self.pack_rows = t.packed_rows_per_shard
+        self.ckpt = None
+        if workdir is not None:
+            self.ckpt = CheckpointManager(workdir, max_to_keep=t.max_checkpoints, config=cfg)
 
-    def init_state(self) -> TrainState:
-        """A fresh state: random parameters from ``TrainConfig.global_seed``."""
-        return create_train_state(self.cfg, self.model)
+    def init_state(self, params: Mapping | str | Path | None = None) -> TrainState:
+        """A fresh state (random parameters from ``TrainConfig.global_seed``,
+        or ``params`` as ``create_train_state`` takes them), then, when the
+        workdir holds a checkpoint, the latest one restored into it."""
+        state = create_train_state(self.cfg, self.model, params=params)
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            state, self.pack_rows = self.ckpt.restore(state)
+        return state
+
+    def save(self, state: TrainState) -> Path | None:
+        """Checkpoint ``state`` into the workdir (None without one)."""
+        if self.ckpt is None:
+            return None
+        return self.ckpt.save(state, pack_rows=self.pack_rows)
 
     def pack(self, batch: CodeBatch) -> PackedTextBatch:
         """The batch's texts packed into the row budget (numpy); the budget
@@ -232,7 +251,8 @@ class Trainer:
     def fit(self, state: TrainState, batches: Iterable[CodeBatch], *,
             max_steps: int | None = None) -> TrainState:
         """Train over host CodeBatches (numpy, as ``epoch_batches`` yields
-        them) until they run out or ``state.step`` reaches ``max_steps``."""
+        them) until they run out or ``state.step`` reaches ``max_steps``;
+        with a workdir, checkpoint after every ``ckpt_every``-th step."""
         t = self.cfg.train
         log_t0, log_steps = time.perf_counter(), 0
         batches = iter(batches)
@@ -253,5 +273,7 @@ class Trainer:
                 if self.log_fn is not None:
                     self.log_fn(step + 1, metrics)
                 log_t0, log_steps = time.perf_counter(), 0
+            if self.ckpt is not None and (step + 1) % t.ckpt_every == 0:
+                self.save(state)
         return state
 

@@ -60,6 +60,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config", missing, "--params", missing, "--kg", missing,
                   "--codes", missing, "--vocab", missing])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--workdir", missing])
+
+    from medtok_tpu_torch.api import MedTok
+    from medtok_tpu_torch.cli import train as train_cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--text-vocab", missing, "--workdir", missing])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MedTok.from_checkpoint(missing, None)
 
     from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer
 

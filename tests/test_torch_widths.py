@@ -14,7 +14,7 @@ next of those; this file holds, on the CPU:
   columns add exact zeros, but a matmul may group its sums differently at
   another width, so fp32 results agree within 1e-6 relative);
 - the wrappers' shape checks, called on CPU tensors: every width in 1..256
-  is taken, a wider one raises naming the limit.
+  takes a built kernel, a wider one (and K1's k above 8) the wide route.
 """
 
 import jax
@@ -221,37 +221,40 @@ def test_kernel_width_rounds_up_to_a_built_width():
 
 
 def test_k3_check_takes_every_width_to_256():
+    """Widths 1-256 run the built kernels (padded up to a built width), any
+    wider one the wide route (None)."""
     mask = torch.ones(1, 3, dtype=torch.bool)
     for Dh in range(1, 257):
         q, k = torch.zeros(1, 1, 2, Dh), torch.zeros(1, 1, 3, Dh)
         assert fa._k3_check(q, k, k, mask) == _build.kernel_width(Dh, "head width")
-    for Dh in (257, 300):
+    for Dh in (257, 300, 1000):
         q, k = torch.zeros(1, 1, 2, Dh), torch.zeros(1, 1, 3, Dh)
-        with pytest.raises(ValueError, match="256"):
-            fa._k3_check(q, k, k, mask)
+        assert fa._k3_check(q, k, k, mask) is None
 
 
 @pytest.mark.parametrize("heads_dim", [1, 2], ids=["K2", "K4"])
 def test_segment_check_takes_every_width_to_256(heads_dim):
+    """As the K3 test, for K2 and K4: the built kernels to 256, the wide
+    route above; the head count comes from the layout either way."""
     seg = torch.ones(2, 5, dtype=torch.int32)
     for Dh in (*range(1, 257), 257, 300):
         shape = [2, 5, Dh]
         shape.insert(heads_dim, 3)
         q = torch.zeros(shape)
-        if Dh <= 256:
-            assert fa._segment_check(q, q, q, seg, heads_dim) == 3
-        else:
-            with pytest.raises(ValueError, match="256"):
-                fa._segment_check(q, q, q, seg, heads_dim)
+        want = _build.kernel_width(Dh, "head width") if Dh <= 256 else None
+        assert fa._segment_check(q, q, q, seg, heads_dim) == (3, want)
 
 
 def test_k1_check_takes_every_width_to_256_and_k_to_8():
+    """The 3xTF32 kernel takes D 1-256 with k 1-8; a wider D or a larger k
+    takes the wide route (None); k outside [1, N] raises."""
     for D in range(1, 257):
         z, e = torch.zeros(4, D), torch.zeros(10, D)
         assert topk_l2._check(z, e, 5) == _build.kernel_width(D, "embedding width")
     for D in (257, 300):
-        with pytest.raises(ValueError, match="256"):
-            topk_l2._check(torch.zeros(4, D), torch.zeros(10, D), 5)
-    for k in (0, 9):
-        with pytest.raises(ValueError, match="8"):
+        assert topk_l2._check(torch.zeros(4, D), torch.zeros(10, D), 5) is None
+    for k in (9, 10):
+        assert topk_l2._check(torch.zeros(4, 16), torch.zeros(10, 16), k) is None
+    for k in (0, 11):
+        with pytest.raises(ValueError, match="N=10"):
             topk_l2._check(torch.zeros(4, 16), torch.zeros(10, 16), k)
