@@ -116,7 +116,24 @@ Phases, each fatal on failure:
      0000003.pt and 0000004.pt left, finite losses), then
      medtok_tpu_torch.cli.export --workdir, each run with K1 and K2
      launched and its wall time logged, and MedTok.from_checkpoint on 256
-     codes held to the export's rows by phase 5's tie-gap rule.
+     codes held to the export's rows by phase 5's tie-gap rule;
+ 17. medical QA (no kernel on this path: attention is plain torch ops) at
+     LLAMA31_8B width in bf16 with random weights from the seed (LoRA
+     r = 16 on q / v, remat) and phase 5's embeddings_all plus 100 miss
+     rows: 1 warm-up and 3 timed QAFinetuner steps at B = 16, cutoff 256,
+     total_len 512 on medmcqa_200.json rows (ms/step, tokens/s, peak
+     memory, losses; fail on a non-finite loss, a changed base weight or
+     a trainable tensor that did not move); generate at B = 16, 64 new
+     tokens: greedy (prefill ms and decode ms/token from the streaming
+     route), greedy with an eos every row reaches (the early exit and the
+     eos fill), sampling at temperature 0.4, top-p 0.9 twice from one seed
+     (identical); LLAMA31_8B's widths at 2 layers in fp32 on the card
+     against the CPU (loss within 1e-5, trainable gradients within 1e-4 of
+     the largest, greedy tokens equal unless the top-2 gap at the first
+     differing step is below 1e-4 of the largest logit); then
+     python -m medtok_tpu_torch.cli.qa finetune and eval with --tiny and
+     a byte-level tokenizer.json written by the phase (the regex-free
+     BPE and the chat template).
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
@@ -2528,6 +2545,530 @@ def run_clis(seed: int, dev) -> dict:
     return dict(runs=runs, checkpoint_bytes=size)
 
 
+# -------------------------------------------------------------------- QA --
+
+QA_BATCH = 16           # the reference finetune's shape: B = 16, cutoff 256,
+QA_CUTOFF = 256         # total_len 512
+QA_TOTAL = 512
+QA_NEW_TOKENS = 64
+QA_TIMED_STEPS = 3
+QA_LORA_RANK = 16
+QA_MISS_ROWS = 100
+# the card-against-CPU check: LLAMA31_8B's widths at 2 layers in fp32
+QA_REF_LAYERS = 2
+QA_REF_BATCH = 2
+QA_REF_CUTOFF = 64
+QA_REF_NEW_TOKENS = 16
+QA_TOKENIZER_MERGES = 240   # 256 bytes + 240 merges + 5 specials: ids < 512
+LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+                   "<|end_header_id|>", "<|eot_id|>")
+QA_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "medmcqa_200.json"
+
+
+def write_tokenizer_json(path, texts, num_merges: int = QA_TOKENIZER_MERGES) -> dict:
+    """A byte-level BPE ``tokenizer.json`` in the Llama-3 layout (Split by
+    the Llama-3 pattern, then ByteLevel, ``ignore_merges``): the 256 byte
+    tokens (id = byte), ``num_merges`` merges counted from ``texts`` (the
+    most frequent adjacent pair first, ties to the larger pair), then the
+    five Llama-3 specials. Returns the JSON."""
+    from collections import Counter
+
+    from medtok_tpu_torch.qa.tokenizer import (
+        LLAMA3_SPLIT_PATTERN,
+        bytes_to_unicode,
+        split_llama3,
+    )
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    words = Counter(tuple(b2u[b] for b in piece.encode("utf-8"))
+                    for t in texts for piece in split_llama3(t))
+    merges = []
+    for _ in range(num_merges):
+        pairs = Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append(f"{a} {b}")
+        vocab.setdefault(a + b, len(vocab))
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    added = [{"id": len(vocab) + i, "content": s, "special": True}
+             for i, s in enumerate(LLAMA3_SPECIALS)]
+    j = {"added_tokens": added,
+         "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+             {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT_PATTERN},
+              "behavior": "Isolated", "invert": False},
+             {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+              "use_regex": False}]},
+         "model": {"type": "BPE", "vocab": vocab, "merges": merges, "ignore_merges": True}}
+    Path(path).write_text(json.dumps(j))
+    return j
+
+
+def qa_rows(tokenize, cutoff: int, with_answer: bool) -> list[dict]:
+    """The fixture's MedMCQA rows packed by pack_example (plain prompt
+    template, answer tokens for training)."""
+    from medtok_tpu_torch.qa.datasets import load_qa_rows
+    from medtok_tpu_torch.qa.prompting import build_prompt, pack_example
+
+    out = []
+    for r in load_qa_rows(QA_FIXTURE):
+        q, a = r["input"][:2]
+        out.append(pack_example(tokenize(build_prompt(q)),
+                                tokenize(str(a)) if with_answer else [],
+                                r["medical_codes"], cutoff_len=cutoff))
+    return out
+
+
+def qa_step_flops(cfg, B: int, L: int, window: int) -> float:
+    """Matmul FLOPs of one remat finetune step: the layers' projections
+    three times (forward, recompute, input gradients: the frozen weights
+    get none), the attention products four times (their backward is two
+    products a forward one), the LM head on the label window twice."""
+    E, I, H, KV = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads, cfg.num_kv_heads
+    Dh = E // H
+    proj = 2 * B * L * (2 * E * E + 2 * E * KV * Dh + 3 * E * I)
+    attn = 4 * B * H * L * L * Dh
+    head = 2 * B * window * E * cfg.vocab_size
+    return cfg.num_layers * (3 * proj + 4 * attn) + 2 * head
+
+
+def kernel_wrappers() -> dict:
+    """Name -> the wrapper of each kernel K1-K5 (``launches``; K1-K4 also
+    count their wide routes in ``wide_launches``)."""
+    from medtok_tpu_torch.ops import adj_count as ac
+    from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    return {"topk_l2": fused_topk_l2, "segment_attention": fa.packed_segment_attention,
+            "segment_attention_nt": fa.packed_segment_attention_nt,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "adj_count": ac.adj_count, "adj_count_onehot": ac.adj_count_onehot}
+
+
+def kernel_launches() -> dict:
+    return {name: f.launches + getattr(f, "wide_launches", 0)
+            for name, f in kernel_wrappers().items()}
+
+
+def qa_kernel_class(name: str) -> str:
+    """A coarse class of a device kernel by its name."""
+    low = name.lower()
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
+    if "gemm" in low or "nvjet" in low or "cutlass" in low:
+        return "fp32 GEMM" if ("f32f32_f32f32" in low or "sgemm" in low) else "bf16 GEMM"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    return "other"
+
+
+def qa_profile(fn) -> dict:
+    """fn() under torch.profiler: its wall time, the device time of its
+    kernels by class and the five largest, the device's busy share."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    gpu = torch.autograd.DeviceType.CUDA
+    by_class, by_name = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == gpu and not getattr(e, "is_user_annotation", False):
+            us = e.time_range.end - e.time_range.start
+            by_class[qa_kernel_class(e.name)] += us / 1e3
+            by_name[e.name[:60]] += us / 1e3
+    device = sum(by_class.values())
+    check(device > 0, "QA profile: no device time was recorded")
+    return dict(wall_ms=wall, device_ms=device, classes=dict(by_class.most_common()),
+                top=by_name.most_common(5))
+
+
+def qa_profile_line(label: str, p: dict) -> str:
+    classes = ", ".join(f"{k} {v:.3f}" for k, v in p["classes"].items())
+    top = "; ".join(f"{n} {v:.3f}" for n, v in p["top"])
+    return (f"{label}: wall {p['wall_ms']:.3f} ms under the profiler, device {p['device_ms']:.3f}"
+            f" ms (busy {p['device_ms'] / p['wall_ms']:.1%}); by class (ms): {classes}; "
+            f"largest kernels (ms): {top}")
+
+
+def qa_fingerprint(params) -> "torch.Tensor":
+    """One float64 sum per tensor (a changed weight changes its sum)."""
+    import torch
+
+    return torch.stack([p.detach().double().sum() for p in params])
+
+
+def qa_finetune(ft, rows, dev) -> dict:
+    """1 warm-up and QA_TIMED_STEPS timed steps of ft.train_step on batches
+    of fit's order; the checks of a finetune step."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.qa.finetune import _collate_rows
+
+    cfg = ft.cfg
+    order = np.random.default_rng(cfg.seed).permutation(len(rows))
+    batches = [_collate_rows([rows[i] for i in order[s * QA_BATCH:(s + 1) * QA_BATCH]],
+                             cutoff_len=cfg.cutoff_len) for s in range(1 + QA_TIMED_STEPS)]
+    frozen = [p for _, p in ft.named_parameters() if not p.requires_grad]
+    trainable = dict((n, p) for n, p in ft.named_parameters() if p.requires_grad)
+    before = qa_fingerprint(frozen)
+    start = {n: p.detach().clone() for n, p in trainable.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss = ft.train_step(batch)
+        losses.append(float(loss))
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(losses)), f"QA finetune: losses {losses}")
+    check(torch.equal(before, qa_fingerprint(frozen)), "QA finetune: a base weight changed")
+    check(all(p.grad is None for p in frozen), "QA finetune: a base weight has a gradient")
+    still = [n for n, p in trainable.items() if torch.equal(p, start[n])]
+    check(not still, f"QA finetune: trainable tensors did not move: {still}")
+    prof = qa_profile(lambda: ft.train_step(batches[-1]))
+    log(qa_profile_line("QA finetune, one profiled step", prof))
+    ms = float(np.mean(times[1:]))
+    flops = qa_step_flops(ft.llm_cfg, QA_BATCH, cfg.total_len, cfg.total_len - cfg.cutoff_len)
+    out = dict(ms_per_step=ms, step_ms=times, tokens_per_s=QA_BATCH * cfg.total_len / ms * 1e3,
+               peak_gib=peak, losses=losses, flops=flops, bound_ms=flops / PEAK_BF16 * 1e3)
+    log(f"QA finetune (LLAMA31_8B bf16, LoRA r={QA_LORA_RANK} on q/v, remat, B={QA_BATCH}, "
+        f"cutoff {cfg.cutoff_len}, total_len {cfg.total_len}): warm-up {times[0]:.3f} ms, "
+        f"steps {[round(t, 3) for t in times[1:]]} ms, mean {ms:.3f} ms/step, "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {peak:.3f} GiB, losses "
+        f"{[round(x, 4) for x in losses]}; bound {flops:.4g} FLOP at the bf16 peak = "
+        f"{out['bound_ms']:.3f} ms ({out['bound_ms'] / ms:.1%} of the step)")
+    return out
+
+
+def qa_generate(ft, rows, dev, seed: int) -> dict:
+    """Soft-prompted generate at B = QA_BATCH, total_len QA_TOTAL, 64 new
+    tokens: greedy without eos (timed: prefill and decode ms/token from the
+    streaming route's per-token times), greedy with an eos id that every row
+    reaches (early exit, eos fill), and sampling twice from one seed."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.qa.finetune import _collate_rows
+    from medtok_tpu_torch.qa.llama import generate
+
+    batch = _collate_rows(rows[:QA_BATCH], cutoff_len=ft.cfg.cutoff_len)
+    with torch.no_grad():
+        packed = ft.soft_prompt(torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev),
+                                torch.as_tensor(batch["attention_mask"], dtype=torch.long,
+                                                device=dev),
+                                None, ft.model.embed, ft.cfg.total_len)
+    args = (ft.model, packed.inputs_embeds, packed.attention_mask)
+    kw = dict(max_new_tokens=QA_NEW_TOKENS, device=dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = generate(*args, temperature=0.0, **kw)
+    wall = time.perf_counter() - t0
+    check(greedy.shape == (QA_BATCH, QA_NEW_TOKENS)
+          and ((greedy >= 0) & (greedy < ft.llm_cfg.vocab_size)).all(),
+          f"QA generate: greedy tokens {greedy.shape}")
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = generate(*args, temperature=0.0, on_token=lambda t: stamps.append(
+        time.perf_counter()), **kw)
+    check(np.array_equal(streamed, greedy), "QA generate: the streaming route's greedy tokens "
+          "differ from the batch route's")
+    prefill_ms = 1e3 * (stamps[0] - t0)
+    decode_ms = 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+
+    # an eos every row emits: the loop ends at the step the last row reaches it
+    counts = [set(r.tolist()) for r in greedy]
+    common = set.intersection(*counts)
+    first_hit = {t: max(int(np.argmax(r == t)) for r in greedy) for t in common}
+    eos = min(first_hit, key=first_hit.get) if common else int(np.bincount(greedy[:, 0]).argmax())
+    steps = []
+    with_eos = generate(*args, temperature=0.0, eos_token_id=eos, on_token=steps.append, **kw)
+    padded = generate(*args, temperature=0.0, eos_token_id=eos, **kw)
+    want_steps = first_hit[eos] + 1 if common else QA_NEW_TOKENS
+    check(len(steps) == want_steps, f"QA generate: eos {eos} ran {len(steps)} steps, want "
+          f"{want_steps}")
+    check(padded.shape == (QA_BATCH, QA_NEW_TOKENS) and np.array_equal(padded[:, :len(steps)],
+                                                                      with_eos),
+          "QA generate: the eos run's steps differ between its two routes")
+    hit = 0
+    for r, g in zip(padded, greedy):
+        k = int(np.argmax(g == eos)) if (g == eos).any() else QA_NEW_TOKENS
+        hit += k < QA_NEW_TOKENS
+        check(np.array_equal(r[:k + 1], g[:k + 1]) and (r[k:] == eos).all(),
+              f"QA generate: a row's eos fill is wrong (eos {eos} first at {k})")
+    # the early exit: QA_BATCH copies of row 0's prompt, eos = its third token
+    same = (packed.inputs_embeds[:1].expand_as(packed.inputs_embeds).contiguous(),
+            packed.attention_mask[:1].expand_as(packed.attention_mask).contiguous())
+    early = []
+    eos0 = int(greedy[0, 2])
+    k0 = int(np.argmax(greedy[0] == eos0))
+    out0 = generate(ft.model, *same, temperature=0.0, eos_token_id=eos0, on_token=early.append,
+                    **kw)
+    check(len(early) == k0 + 1 and (out0 == greedy[0, :k0 + 1]).all(),
+          f"QA generate: the early exit ran {len(early)} steps, want {k0 + 1}")
+
+    def sampled():
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return generate(*args, temperature=0.4, top_p=0.9, generator=g, **kw)
+
+    t0 = time.perf_counter()
+    a = sampled()
+    sample_wall = time.perf_counter() - t0
+    b = sampled()
+    check(np.array_equal(a, b), "QA generate: two samplings from one seed differ")
+    log(f"QA generate (B={QA_BATCH}, total_len {ft.cfg.total_len}, {QA_NEW_TOKENS} new "
+        f"tokens): greedy {wall:.3f} s; streamed: prefill {prefill_ms:.3f} ms, decode "
+        f"{decode_ms:.3f} ms/token ({len(stamps)} steps); eos {eos}: {hit} rows reach it, "
+        f"{len(steps)} steps, eos-filled; {QA_BATCH} copies of row 0 with eos {eos0}: "
+        f"{len(early)} steps; sampling (t 0.4, top-p 0.9) {sample_wall:.3f} s, repeatable from one "
+        f"seed, {int((a != greedy).any(1).sum())} of {QA_BATCH} rows differ from greedy")
+    # decode alone: a 17-token run less a 1-token run (the prefill), profiled
+    short, long_ = (qa_profile(lambda n=n: generate(*args, temperature=0.0, max_new_tokens=n,
+                                                    device=dev)) for n in (1, 17))
+    decode = dict(wall_ms=long_["wall_ms"] - short["wall_ms"],
+                  device_ms=long_["device_ms"] - short["device_ms"],
+                  classes={k: v - short["classes"].get(k, 0.0)
+                           for k, v in long_["classes"].items()}, top=long_["top"])
+    log(qa_profile_line("QA prefill (generate of 1 token), profiled", short))
+    log(qa_profile_line("QA decode, 16 steps (generate of 17 tokens less 1), profiled",
+                        decode))
+    return dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms, greedy_s=wall,
+                eos_steps=len(steps), sample_s=sample_wall)
+
+
+def qa_top2_gap(logits) -> "np.ndarray":
+    """Per row, the gap between the largest and second largest logit over
+    the largest |logit|."""
+    import torch
+
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return ((top[..., 0] - top[..., 1]) / logits.float().abs().amax(-1)).cpu().numpy()
+
+
+def qa_step_logits(ft, packed, toks):
+    """The logits that chose each of ``toks`` [B, n], by one teacher-forced
+    forward over the prompt and the tokens before each."""
+    import torch
+
+    with torch.no_grad():
+        t = torch.as_tensor(toks, device=packed.inputs_embeds.device)
+        embeds = torch.cat([packed.inputs_embeds, ft.model.embed(t[:, :-1])], dim=1)
+        mask = torch.cat([packed.attention_mask, torch.ones_like(t[:, :-1])], dim=1)
+        positions = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
+        hidden, _ = ft.model(inputs_embeds=embeds, attention_mask=mask, positions=positions,
+                             return_hidden=True)
+        L = packed.inputs_embeds.shape[1]
+        return ft.model.apply_lm_head(hidden[:, L - 1:])
+
+
+def qa_reference(table, dev, seed: int) -> None:
+    """LLAMA31_8B's widths at QA_REF_LAYERS layers in fp32 (TF32 off), the
+    same random weights on the card and on the CPU: the loss within 1e-5
+    (relative), the trainable gradients within 1e-4 of each tensor's
+    largest, and greedy generate's QA_REF_NEW_TOKENS tokens equal unless the
+    CPU's top-2 logit gap at the first differing step is below 1e-4 of its
+    largest logit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.cli.qa import _simple_tokenize
+    from medtok_tpu_torch.qa.finetune import QAFinetuneConfig, QAFinetuner, _collate_rows
+    from medtok_tpu_torch.qa.llama import LLAMA31_8B, generate
+
+    t_phase = time.perf_counter()
+    llm = dataclasses.replace(LLAMA31_8B, num_layers=QA_REF_LAYERS)
+    qcfg = QAFinetuneConfig(lora_rank=QA_LORA_RANK, cutoff_len=QA_REF_CUTOFF,
+                            total_len=2 * QA_REF_CUTOFF, batch_size=QA_REF_BATCH, seed=seed)
+    cpu = QAFinetuner(llm, table, qcfg, device="cpu")
+    cpu.init_params(generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():   # nonzero lora_b, so the adapters act on the outputs
+        g = torch.Generator().manual_seed(seed + 1)
+        for name, p in cpu.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=g)
+    card = QAFinetuner(llm, table, qcfg, device=dev)
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.soft_prompt.load_state_dict(cpu.soft_prompt.state_dict())
+    rows = qa_rows(lambda s: _simple_tokenize(s, llm.vocab_size), QA_REF_CUTOFF, True)
+    batch = _collate_rows(rows[:QA_REF_BATCH], cutoff_len=QA_REF_CUTOFF)
+    losses, grads = [], []
+    for ft in (cpu, card):
+        loss = ft.loss_fn(batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu() for n, p in ft.named_parameters()
+                      if p.requires_grad})
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    check(rel <= 1e-5, f"QA reference: loss {losses[1]} on the card, {losses[0]} on the CPU")
+    worst = 0.0
+    for n, g in grads[0].items():
+        err = float((grads[1][n] - g).abs().max() / g.abs().max())
+        worst = max(worst, err)
+        check(err <= 1e-4, f"QA reference: gradient of {n} off by {err:.3e} of its largest")
+
+    prompts = qa_rows(lambda s: _simple_tokenize(s, llm.vocab_size), QA_REF_CUTOFF, False)
+    pb = _collate_rows(prompts[:QA_REF_BATCH], cutoff_len=QA_REF_CUTOFF)
+    toks, packs = [], []
+    for ft in (cpu, card):
+        d = ft.device
+        with torch.no_grad():
+            packed = ft.soft_prompt(torch.as_tensor(pb["input_ids"], dtype=torch.long, device=d),
+                                    torch.as_tensor(pb["attention_mask"], dtype=torch.long,
+                                                    device=d),
+                                    None, ft.model.embed, qcfg.total_len)
+        packs.append(packed)
+        toks.append(generate(ft.model, packed.inputs_embeds, packed.attention_mask,
+                             max_new_tokens=QA_REF_NEW_TOKENS, temperature=0.0, device=d))
+    gaps = qa_top2_gap(qa_step_logits(cpu, packs[0], toks[0]))    # [B, n]
+    differ = np.argwhere(toks[0] != toks[1])
+    if len(differ):
+        row, step = (int(x) for x in differ[np.argmin(differ[:, 1])])
+        gap = float(gaps[row, step])
+        check(gap < 1e-4, f"QA reference: greedy tokens differ at row {row}, step {step}, where "
+              f"the CPU's top-2 gap is {gap:.3e} of its largest logit")
+        note = f"first differing at row {row} step {step}, top-2 gap {gap:.3e}"
+    else:
+        note = f"identical; smallest top-2 gap {float(gaps.min()):.3e} of the largest logit"
+    log(f"QA reference (LLAMA31_8B widths, {QA_REF_LAYERS} layers, fp32, B={QA_REF_BATCH}, "
+        f"cutoff {QA_REF_CUTOFF}): loss card {losses[1]:.7f} / CPU {losses[0]:.7f} (rel "
+        f"{rel:.3e}); gradients within {worst:.3e} of each tensor's largest; greedy "
+        f"{QA_REF_NEW_TOKENS} tokens {note}; {time.perf_counter() - t_phase:.2f} s")
+
+
+def qa_cli(table, dev) -> dict:
+    """python -m medtok_tpu_torch.cli.qa finetune, then eval, with --tiny on
+    the fixture and a byte-level tokenizer.json written here: the
+    regex-free BPE and the chat-template route."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.qa.datasets import load_qa_rows
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        texts = [r["input"][0] for r in load_qa_rows(QA_FIXTURE)]
+        j = write_tokenizer_json(root / "tokenizer.json", texts)
+        n_ids = len(j["model"]["vocab"]) + len(j["added_tokens"])
+        check(n_ids <= 512, f"QA CLI: the tokenizer has {n_ids} ids")
+        np.save(root / "emb.npy", table[:1024])
+        common = ["--data", str(QA_FIXTURE), "--embedding-path", str(root / "emb.npy"),
+                  "--tiny", "--tokenizer-json", str(root / "tokenizer.json"),
+                  "--adapter-path", str(root / "adapter")]
+        for mode in ("finetune", "eval"):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "medtok_tpu_torch.cli.qa", mode,
+                                  *common], cwd=Path(__file__).resolve().parent,
+                                 capture_output=True, text=True, timeout=600)
+            out[mode] = time.perf_counter() - t0
+            check(run.returncode == 0, f"QA CLI {mode} failed:\n{run.stderr[-4000:]}")
+            lines = run.stderr.splitlines()
+            if mode == "finetune":
+                losses = [float(x.rsplit(" ", 1)[1]) for x in lines if ": loss " in x]
+                check(len(losses) == 200 // 16 and all(np.isfinite(losses)),
+                      f"QA CLI finetune: losses {losses}")
+                proj = np.load(root / "adapter" / "projector.npy")
+                saved = torch.load(root / "adapter" / "lora_params.pt")
+                check(proj.shape == (256, 64) and np.array_equal(
+                    proj, saved["soft_prompt.projector.weight"].numpy().T),
+                    f"QA CLI: projector.npy {proj.shape}")
+                check(len([k for k in saved if "lora" in k]) == 2 * 2 * 2,
+                      f"QA CLI: lora_params.pt holds {sorted(saved)}")
+            else:
+                acc = [float(x.rsplit(" ", 1)[1]) for x in lines if "Accuracy: " in x]
+                check(len(acc) == 1 and 0.0 <= acc[0] <= 1.0, f"QA CLI eval: accuracy {acc}")
+                out["accuracy"] = acc[0]
+    log(f"QA CLI (--tiny, byte-level BPE of {n_ids} ids, {QA_TOKENIZER_MERGES} merges): "
+        f"finetune {out['finetune']:.2f} s wall ({len(losses)} steps, last loss "
+        f"{losses[-1]:.4f}), eval {out['eval']:.2f} s wall, accuracy {out['accuracy']:.3f} "
+        "(random weights: only its range is checked)")
+    return out
+
+
+def run_qa(table, dev, seed: int) -> dict:
+    """Phase 17: the QA path at LLAMA31_8B width on the card (finetune,
+    generate), the 2-layer card-against-CPU check and the QA CLI."""
+    import dataclasses
+
+    import torch
+
+    from medtok_tpu_torch.cli.qa import _simple_tokenize
+    from medtok_tpu_torch.qa.finetune import QAFinetuneConfig, QAFinetuner
+    from medtok_tpu_torch.qa.inference import extend_with_miss_rows
+    from medtok_tpu_torch.qa.llama import LLAMA31_8B
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    table = extend_with_miss_rows(table, QA_MISS_ROWS, seed=seed)
+    llm = dataclasses.replace(LLAMA31_8B, remat=True)
+    qcfg = QAFinetuneConfig(lora_rank=QA_LORA_RANK, cutoff_len=QA_CUTOFF, total_len=QA_TOTAL,
+                            batch_size=QA_BATCH, seed=seed)
+    t0 = time.perf_counter()
+    ft = QAFinetuner(llm, table, qcfg, device=dev, dtype=torch.bfloat16)
+    ft.init_params(generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in ft.named_parameters())
+    n_train = sum(p.numel() for p in ft.trainable_parameters())
+    log(f"QA model: LLAMA31_8B {n / 1e9:.3f} B parameters in bf16 ({n_train / 1e6:.3f} M "
+        f"trainable in fp32), table {table.shape}, built in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+
+    def tokenize(s):
+        return _simple_tokenize(s, llm.vocab_size)
+
+    for f in kernel_wrappers().values():
+        f.launches = 0
+        if hasattr(f, "wide_launches"):
+            f.wide_launches = 0
+    out = {"finetune": qa_finetune(ft, qa_rows(tokenize, QA_CUTOFF, True), dev)}
+    ft.model.eval()
+    out["generate"] = qa_generate(ft, qa_rows(tokenize, QA_CUTOFF, False), dev, seed)
+    launches = kernel_launches()
+    check(not any(launches.values()), f"QA: a kernel ran on the QA path: {launches}")
+    log(f"QA: kernel launches on the finetune and generate path: {launches} (none is on it)")
+    del ft
+    torch.cuda.empty_cache()
+    qa_reference(table, dev, seed)
+    out["cli"] = qa_cli(table, dev)
+    log(f"QA phase: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2614,6 +3155,7 @@ def main(argv=None) -> int:
     check_train_reference(dataset, dev)
     log(f"training launches: {train_launches}")
     run_clis(args.seed, dev)
+    run_qa(table, dev, args.seed)
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]

@@ -1,5 +1,7 @@
-"""PyTorch + CUDA port of the medtok_tpu framework (the eval export and EHR
-training slices).
+"""PyTorch + CUDA port of the medtok_tpu framework: the eval export and the
+``MedTok`` API, tokenizer training with its checkpoints and CLIs, EHR
+outcome-model training, the kernel A/B scripts, and medical QA (the
+soft-prompted Llama with LoRA, its finetuner, generation and CLI).
 
 The JAX package ``medtok_tpu`` stays the reference; this package keeps its
 own copy of every piece of host code it needs and imports nothing from it.

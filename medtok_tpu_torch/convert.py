@@ -12,6 +12,14 @@ module names), with these leaf renames:
     ``bias``, ``codebook``      -> unchanged
     raw parameters ``miss_emb``, ``cls_emb`` (the EHR model's learned
     embedding rows, declared with ``self.param``) -> unchanged
+    the QA Llama's raw parameters ``input_layernorm``,
+    ``post_attention_layernorm``, ``norm`` -> unchanged
+    its LoRA adapters ``lora_a`` [in, r], ``lora_b`` [r, out] -> unchanged
+    (the port keeps the flax layout: ``x @ lora_a @ lora_b``)
+
+So ``layers_0/self_attn/q_proj/base/kernel`` becomes
+``layers_0.self_attn.q_proj.base.weight`` (transposed). The QA tree
+``{"llm": ..., "soft_prompt": ...}`` loads with ``load_qa_params``.
 
 A ``.npz`` holds the same tree flattened with ``/``-joined keys
 (``text_model/layer_0/attention/query/kernel``).
@@ -35,7 +43,10 @@ from torch import nn
 
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "bias": "bias", "codebook": "codebook",
-           "miss_emb": "miss_emb", "cls_emb": "cls_emb"}
+           "miss_emb": "miss_emb", "cls_emb": "cls_emb",
+           "input_layernorm": "input_layernorm",
+           "post_attention_layernorm": "post_attention_layernorm", "norm": "norm",
+           "lora_a": "lora_a", "lora_b": "lora_b"}
 
 
 def flatten_tree(tree: Mapping, sep: str = "/") -> dict[str, np.ndarray]:
@@ -102,3 +113,11 @@ def load_params(model: nn.Module, params: Mapping | str | Path) -> nn.Module:
         buf = model.get_buffer(path.replace("/", "."))
         buf.copy_(torch.from_numpy(np.array(arr)).to(buf.dtype))
     return model
+
+
+def load_qa_params(llm: nn.Module, soft_prompt: nn.Module, tree: Mapping) -> None:
+    """Load the JAX QA finetuner's params tree ``{"llm": ..., "soft_prompt":
+    ...}`` (nested dicts of arrays) into the port's ``LlamaModel`` and
+    ``MedTokSoftPrompt``, every parameter present on both sides."""
+    load_params(llm, tree["llm"])
+    load_params(soft_prompt, tree["soft_prompt"])

@@ -90,6 +90,55 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             script.main([])
 
 
+QA_FORBIDDEN = {"regex", "tokenizers", "transformers", "sklearn", "pyarrow"}
+
+
+def _module_level_roots(path: Path) -> set[str]:
+    """Roots imported by the module's top-level statements (not inside a
+    function or class)."""
+    roots = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_qa_needs_no_package_the_card_machine_lacks():
+    """The GPU machine has no regex, tokenizers, transformers, scikit-learn,
+    pyarrow or pandas: the QA path imports none of them (pandas only inside
+    the .parquet reader)."""
+    files = sorted((REPO / "medtok_tpu_torch" / "qa").glob("*.py")) + [
+        REPO / "medtok_tpu_torch" / "cli" / "qa.py"]
+    assert len(files) >= 13
+    bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & QA_FORBIDDEN
+                                            | _module_level_roots(f) & {"pandas"})
+           for f in files}
+    assert not {f: r for f, r in bad.items() if r}
+
+
+def test_qa_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from medtok_tpu_torch.cli import qa as qa_cli
+    from medtok_tpu_torch.qa.finetune import QAFinetuner
+    from medtok_tpu_torch.qa.llama import TINY_LLAMA, LlamaModel, generate
+
+    table = np.zeros((4, 256), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QAFinetuner(TINY_LLAMA, table)
+    assert QAFinetuner(TINY_LLAMA, table, device="cpu").device == torch.device("cpu")
+    model = LlamaModel(TINY_LLAMA)
+    embeds, mask = torch.zeros(1, 3, TINY_LLAMA.hidden_size), torch.ones(1, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(model, embeds, mask, max_new_tokens=2)
+    assert generate(model, embeds, mask, max_new_tokens=2, device="cpu").shape == (1, 2)
+    missing = str(tmp_path / "missing")
+    for mode in ("finetune", "eval"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            qa_cli.main([mode, "--data", missing, "--embedding-path", missing, "--tiny"])
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
