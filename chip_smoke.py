@@ -133,11 +133,32 @@ Phases, each fatal on failure:
      differing step is below 1e-4 of the largest logit); then
      python -m medtok_tpu_torch.cli.qa finetune and eval with --tiny and
      a byte-level tokenizer.json written by the phase (the regex-free
-     BPE and the chat template).
+     BPE and the chat template);
+ 18. the EHR downstream entry point and the export routes that feed it:
+     the pandas-free EHR parsers over tests/fixtures/mimic3_demo with every
+     table (patient, visit and event counts equal to the constants the CPU
+     tests hold to the JAX parsers); medtok_tpu_torch.cli.export --workdir
+     with --packed off, then on, at ModelConfig() width in fp32 (phase 5's
+     weights and vocabulary written as a user's files), K1 launched 4 times
+     a batch of 1024 by the unpacked sweep and no K2, its token rows equal
+     to the packed sweep's by phase 5's tie-gap rule, PretrainedMedTok on
+     the written files answering three codes equal to their rows; then
+     medtok_tpu_torch.cli.ehr --task readmission at its default flags
+     (EHRTrainConfig() width, K3 by --flash auto, 2 epochs) on
+     MIMIC-III-schema CSVs that the port's synthetic_mimic3 writes for
+     46,520 patients over phase 5's vocabulary at MIMIC-III v1.4's rows a
+     patient and an admission (v14_rates: about 1.27 admissions a patient,
+     11 diagnoses, 4 procedures and 70 prescriptions an admission), with phase 5's
+     embeddings_all as the table: each stage's wall time and the fit's
+     samples/s logged, K3 fwd / dq / dkv launched, test_metrics.json finite
+     and reproduced by the reloaded best_model; a 2-point --hyper-search at
+     1 epoch; the other five task builders over the same patients (sample
+     counts logged, phenotype on an index the phase writes).
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
-It then prints the card, one JSON line of kernel measurements and, last,
+It then prints the card, one JSON line of kernel measurements (K1's and
+K3's rows add their launches on each path that runs them) and, last,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result. fp32 matmuls and
 convolutions run in full fp32 (TF32 off) throughout.
@@ -3069,6 +3090,268 @@ def run_qa(table, dev, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------- EHR downstream --
+
+EHR_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "mimic3_demo"
+EHR_FIXTURE_TABLES = ("DIAGNOSES_ICD", "PROCEDURES_ICD", "PRESCRIPTIONS", "LABEVENTS",
+                      "ICUSTAYS")
+# the fixture's totals with every table, held to the JAX parsers on the CPU by
+# tests/test_torch_ehr_parsers.py
+EHR_FIXTURE_COUNTS = {"patients": 120, "visits": 427, "events": 5210}
+EHR_PATIENTS = 46_520   # MIMIC-III v1.4's patients
+EHR_CLI_EPOCHS = 2
+EHR_OTHER_TASKS = ("mortality", "lenofstay", "phenotype", "drugrec", "new_disease")
+EXPORT_BATCH = 1024     # the export CLI's default --batch-size
+
+
+def installed_version(dist: str) -> str:
+    from importlib import metadata
+
+    try:
+        return metadata.version(dist)
+    except metadata.PackageNotFoundError:
+        return "absent"
+
+
+def ehr_counts(patients: dict) -> dict:
+    visits = [v for p in patients.values() for v in p]
+    return {"patients": len(patients), "visits": len(visits),
+            "events": sum(v.num_events for v in visits)}
+
+
+def write_export_workdir(root: Path, model_state: dict, buffers: dict, cfg, dataset) -> Path:
+    """A workdir the export CLI reads (args.json + one checkpoint) for phase
+    5's model in fp32 over phase 5's data, written as a user's files:
+    kg.csv, codes.jsonl, vocab.txt."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.config import MedTokConfig
+    from medtok_tpu_torch.data.dataset import write_jsonl
+
+    kg = dataset.kg
+    names = np.array(sorted(kg.rel_vocab, key=kg.rel_vocab.get))
+    with open(root / "kg.csv", "w") as f:
+        f.write("x_index,y_index,display_relation\n")
+        f.writelines(map("{},{},{}\n".format, kg.edge_src.tolist(), kg.edge_dst.tolist(),
+                         names[kg.rel_index].tolist()))
+    write_jsonl({"med_code": dataset.med_codes, "desc": dataset.descs,
+                 "pkg_index_list": dataset.pkg_index_lists}, root / "codes.jsonl")
+    vocab = dataset.tokenizer.vocab
+    (root / "vocab.txt").write_text("\n".join(sorted(vocab, key=vocab.get)) + "\n")
+    data = dataclasses.replace(dataset.cfg, kg_path=str(root / "kg.csv"),
+                               med_codes_pkg_map_path=str(root / "codes.jsonl"),
+                               text_vocab_path=str(root / "vocab.txt"))
+    workdir = root / "export_workdir"
+    (workdir / "checkpoints").mkdir(parents=True)
+    MedTokConfig(model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+                 data=data).save(workdir / "args.json")
+    # the checkpoint's model and buffers (what the export reads of it)
+    torch.save({"step": 0, "model": model_state, "buffers": buffers},
+               workdir / "checkpoints" / "0000000.pt")
+    return workdir
+
+
+def run_export_routes(workdir: Path, n: int, dev) -> dict:
+    """Phase 18, part 2: medtok_tpu_torch.cli.export --packed off against
+    --packed on at ModelConfig() width in fp32 over phase 5's vocabulary,
+    token rows by phase 5's tie-gap rule, then PretrainedMedTok on the
+    unpacked files."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.api import PretrainedMedTok
+    from medtok_tpu_torch.cli import export as export_cli
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    out = {}
+    for route in ("off", "on"):
+        fused_topk_l2.launches = 0
+        packed_segment_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays = export_cli.main(["--workdir", str(workdir), "--packed", route,
+                                  "--out-dir", str(workdir / f"packed_{route}")])
+        torch.cuda.synchronize()
+        launches = {"topk_l2": fused_topk_l2.launches,
+                    "segment_attention": packed_segment_attention.launches}
+        out[route] = dict(arrays=arrays, wall_s=time.perf_counter() - t0, launches=launches)
+        log(f"export CLI --packed {route}: {n} codes in {out[route]['wall_s']:.3f} s "
+            f"({n / out[route]['wall_s']:.1f} codes/s, the CLI's reads inside), launches "
+            f"{launches}")
+    batches = -(-n // EXPORT_BATCH)
+    check(out["off"]["launches"] == {"topk_l2": 4 * batches, "segment_attention": 0},
+          f"unpacked export: launches {out['off']['launches']}, want K1 4 x {batches} "
+          "batches and no K2 (the unpacked BERT is dense)")
+    check(all(v > 0 for v in out["on"]["launches"].values()),
+          f"packed export: launches {out['on']['launches']}")
+    got, want = out["off"]["arrays"], out["on"]["arrays"]
+    check(all(np.isfinite(a).all() for a in got.values()), "unpacked export: non-finite rows")
+    gaps = tie_gaps(got["tokens_all"], got["weights_all"], want["tokens_all"],
+                    want["weights_all"])
+    max_gap = float(gaps.max(initial=0.0))
+    rows_equal = (got["tokens_all"] == want["tokens_all"]).all(axis=-1)   # [n, 4]
+    d = got["embeddings_all"].shape[1] // 4
+    emb_err = max((float(np.abs(got["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]
+                                - want["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]
+                                ).max()) for p in range(4) if rows_equal[:, p].any()),
+                  default=0.0)
+    check(max_gap <= 1e-5, f"unpacked export: token rows differ from the packed export "
+          f"beyond a tie (gaps {sorted(gaps.tolist())[-10:]} > 1e-5)")
+    check(emb_err <= 1e-4, f"unpacked export: embedding error {emb_err} > 1e-4")
+    log(f"unpacked vs packed export (fp32, {n} codes): {int((~rows_equal).sum())}/"
+        f"{rows_equal.size} token rows differ, max tie gap {max_gap:.3e}; embedding max "
+        f"err {emb_err:.3e} on the other rows")
+    api = PretrainedMedTok(workdir / "packed_off", workdir.parent / "codes.jsonl")
+    codes = [json.loads(line)["med_code"]
+             for line in open(workdir.parent / "codes.jsonl")]
+    for i in (0, n // 2, n - 1):
+        c = codes[i]
+        i0 = codes.index(c)     # a code listed twice answers its first row
+        check(api.lookup(c) == i0 and (api.embed(c) == got["embeddings_all"][i0]).all()
+              and (api.tokenize(c) == got["tokens_all"][i0]).all()
+              and (api.encode(c) == got["tokens_all"][i0].reshape(-1)).all(),
+              f"PretrainedMedTok: {c} differs from the unpacked export's row {i0}")
+    log("PretrainedMedTok on the unpacked files: 3 codes equal to their rows")
+    return {route: {"wall_s": v["wall_s"], "launches": v["launches"]}
+            for route, v in out.items()}
+
+
+def phenotype_index(dataset, path: Path) -> None:
+    """24 labels on the KG nodes that the most vocabulary codes reach."""
+    import pickle
+    from collections import Counter
+
+    freq = Counter(int(v) for nodes in dataset.pkg_index_lists for v in set(nodes))
+    with open(path, "wb") as f:
+        pickle.dump({label: node for label, (node, _) in enumerate(freq.most_common(24))}, f)
+
+
+def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, seed: int,
+                       dev) -> dict:
+    """Phase 18: the EHR downstream entry point and the export routes that
+    feed it (see the docstring)."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.cli import ehr as ehr_cli
+    from medtok_tpu_torch.ehr import CodeMapper, MIMIC3Dataset, PatientEHRTasks
+    from medtok_tpu_torch.ehr.code_maps import load_code_map
+    from medtok_tpu_torch.ehr.synthetic import synthetic_mimic3
+    from medtok_tpu_torch.ehr.train import EHRTrainer
+
+    t_phase = time.perf_counter()
+    out = {}
+    # 1. the parsers on the card's Python (they import no pandas)
+    t0 = time.perf_counter()
+    db = MIMIC3Dataset(EHR_FIXTURE, tables=EHR_FIXTURE_TABLES,
+                       ndc_to_atc=load_code_map(EHR_FIXTURE / "ndc_to_atc.csv"))
+    got = ehr_counts(db.patients)
+    check(got == EHR_FIXTURE_COUNTS, f"EHR parsers on the demo fixture: {got} != "
+          f"{EHR_FIXTURE_COUNTS}")
+    log(f"EHR parsers on tests/fixtures/mimic3_demo, every table: {got} in "
+        f"{time.perf_counter() - t0:.3f} s; packages on this machine (the path uses none): "
+        + ", ".join(f"{name} {installed_version(name)}"
+                    for name in ("pandas", "pyarrow", "scikit-learn", "python-dateutil",
+                                 "wandb")))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        n = len(dataset)
+        # 2. the unpacked export against the packed one, then PretrainedMedTok
+        t0 = time.perf_counter()
+        workdir = write_export_workdir(root, model_state, buffers, cfg, dataset)
+        log(f"export files: kg.csv of {len(dataset.kg.edge_src)} edges, codes.jsonl of {n} "
+            f"codes, an fp32 workdir, written in {time.perf_counter() - t0:.2f} s")
+        out["export"] = run_export_routes(workdir, n, dev)
+
+        # 3. the EHR CLI at EHRTrainConfig() width on MIMIC-III-schema CSVs
+        ehr_root = root / "EHR"
+        t0 = time.perf_counter()
+        synthetic_mimic3(ehr_root / "MIMIC_III", dataset.med_codes, num_patients=EHR_PATIENTS,
+                         seed=seed, v14_rates=True)
+        np.save(root / "embeddings_all.npy", table)
+        write_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in (ehr_root / "MIMIC_III").iterdir())
+        rows = {f.stem: sum(1 for _ in open(f)) - 1
+                for f in sorted((ehr_root / "MIMIC_III").iterdir())}
+        log(f"EHR data: synthetic_mimic3 of {EHR_PATIENTS} patients at MIMIC-III v1.4's "
+            f"rows an admission ({rows}) over the {n}-code "
+            f"vocabulary, {size} bytes of CSV, written in {write_s:.2f} s")
+        common = ["--dataset", "MIMIC_III", "--task", "readmission", "--ehr-root",
+                  str(ehr_root), "--med-codes", str(root / "codes.jsonl"),
+                  "--embedding-path", str(root / "embeddings_all.npy")]
+        for f in kernel_wrappers().values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ehr_cli.main([*common, "--epochs", str(EHR_CLI_EPOCHS),
+                            "--save-result-path", str(root / "res")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        k3 = {k: launches[f"flash_attention_{k}"] for k in ("fwd", "dq", "dkv")}
+        check(all(v > 0 for v in k3.values()), f"cli.ehr: a K3 kernel never ran: {k3}")
+        check(launches["topk_l2"] == launches["segment_attention"] == 0,
+              f"cli.ehr: launches {launches}")
+        tm = json.loads((root / "res" / "test_metrics.json").read_text())
+        check(all(math.isfinite(tm["test"][k]) and 0.0 <= tm["test"][k] <= 1.0
+                  for k in ("auc", "aupr", "f1")), f"cli.ehr: test metrics {tm['test']}")
+        st = res["stages"]
+        valid = float(np.mean([1.0 - b.pad_mask.mean() for b in res["test_batches"]]))
+        log(f"cli.ehr readmission: {valid:.4f} of the {res['test_batches'][0].pad_mask.shape[1]} "
+            "code slots of a test sample hold a code")
+        log(f"cli.ehr readmission (EHRTrainConfig() width, {EHR_CLI_EPOCHS} epochs): "
+            f"{wall:.3f} s wall; stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st.items() if k.endswith("_s"))
+            + f"; fit {st['fit_samples']} samples, {st['fit_samples'] / st['fit_s']:.1f} "
+            f"samples/s (validation and host batches inside); K3 launches {k3}; "
+            f"best val {tm['best_val']}; test {tm['test']}")
+        trainer = EHRTrainer.load(root / "res" / "best_model", table, device=dev)
+        again = trainer.evaluate(res["test_batches"])
+        err = max(abs(again[k] - tm["test"][k]) for k in ("auc", "aupr", "f1"))
+        check(err <= 1e-6, f"cli.ehr: the reloaded best_model gives {again}, the CLI "
+              f"{tm['test']}")
+        log(f"cli.ehr best_model reloaded: test metrics reproduced (max diff {err:.3e})")
+        del trainer
+        out["cli"] = dict(wall_s=wall, stages=st, k3=k3, test=tm["test"])
+
+        # 4. a 2-point grid, and the other five task builders
+        t0 = time.perf_counter()
+        grid = ehr_cli.main([*common, "--epochs", "1", "--hyper-search", "--search-grid",
+                             '{"dropout": [0.1, 0.5]}', "--save-result-path",
+                             str(root / "grid")])
+        hs = json.loads((root / "grid" / "hyper_search.json").read_text())
+        auprs = [r["best_val"]["aupr"] for r in hs["results"]]
+        check(len(auprs) == 2 and auprs == sorted(auprs, reverse=True),
+              f"cli.ehr --hyper-search: {hs['results']}")
+        log(f"cli.ehr --hyper-search (dropout 0.1 / 0.5, 1 epoch): "
+            f"{time.perf_counter() - t0:.3f} s, val aupr {auprs}, stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in grid["stages"].items() if k.endswith("_s")))
+        phenotype_index(dataset, root / "phenotype_index.pkl")
+        t0 = time.perf_counter()
+        patients = MIMIC3Dataset(ehr_root / "MIMIC_III").patients
+        mapper = CodeMapper(root / "codes.jsonl")
+        counts = {"parse_s": time.perf_counter() - t0}
+        for task in EHR_OTHER_TASKS:
+            t0 = time.perf_counter()
+            data = PatientEHRTasks(patients, mapper,
+                                   phenotype_index=root / "phenotype_index.pkl").build(task)
+            counts[task] = (len(data), sum(len(d) for d in data),
+                            round(time.perf_counter() - t0, 3))
+        check(all(counts[t][0] > 0 for t in ("mortality", "lenofstay", "new_disease")),
+              f"EHR tasks: {counts}")
+        log(f"EHR task builders over the {EHR_PATIENTS} patients (patients, samples, s): "
+            f"{counts}")
+        out["tasks"] = counts
+    log(f"EHR downstream phase: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3139,6 +3422,9 @@ def main(argv=None) -> int:
     profile_main_path(model, dataset, dev, arrays)
     check_reference(model, dataset, dev)
     serve_requests(cfg, model, dataset, dev)
+    # phase 18 exports this model again in fp32 through the export CLI
+    model_state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    buffers = {k: v.cpu() for k, v in model.named_buffers() if k not in model_state}
     del model
 
     # the export's embeddings_all is the EHR model's frozen code table
@@ -3156,6 +3442,8 @@ def main(argv=None) -> int:
     log(f"training launches: {train_launches}")
     run_clis(args.seed, dev)
     run_qa(table, dev, args.seed)
+    ehr_downstream = run_ehr_downstream(model_state, buffers, cfg, dataset, table, args.seed,
+                                        dev)
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]
@@ -3163,10 +3451,18 @@ def main(argv=None) -> int:
         row["launches"] = k3_launches[key]
     for row in (k4, *k5):
         row["launches"] = slice3[row["name"]]
+    # the kernels on phase 18's paths, with their launches there
+    k1["launches_by_path"] = {
+        "export (phase 5)": launches["topk_l2"],
+        "cli.export --packed off (phase 18)":
+            ehr_downstream["export"]["off"]["launches"]["topk_l2"]}
+    for row, key in zip(k3, ("fwd", "dq", "dkv")):
+        row["launches_by_path"] = {"EHRTrainer.fit + evaluate (phase 8)": k3_launches[key],
+                                   "cli.ehr (phase 18)": ehr_downstream["cli"]["k3"][key]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     log(card)
-    log(json.dumps({"kernels": [{key: k[key] for key in keys}
+    log(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                 for k in (k1, k2, *k3, k4, *k5, *wide)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

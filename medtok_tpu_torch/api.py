@@ -6,6 +6,8 @@
     tokens = tok.tokenize("E11.9")   # [4, k] token ids
     ids    = tok.encode("E11.9")     # flat [4*k] ids
     embed  = tok.embed("E11.9")      # [256] embedding
+
+    tok = PretrainedMedTok("results/<experiment>", "codes.jsonl")  # no model
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from medtok_tpu_torch import resolve_device
 from medtok_tpu_torch.config import MedTokConfig
 from medtok_tpu_torch.convert import load_params
-from medtok_tpu_torch.data.dataset import MedCodeDataset, collate
+from medtok_tpu_torch.data.dataset import MedCodeDataset, collate, read_vocab_columns
 from medtok_tpu_torch.data.types import TokenizedCodes
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
 from medtok_tpu_torch.utils.checkpoint import CheckpointManager, load_weights
@@ -83,3 +85,40 @@ class MedTok:
         batch = self.dataset.make_batch([self.dataset.lookup(c) for c in med_codes])
         out = self.model(batch.to(self.device))
         return TokenizedCodes(*(t.cpu().numpy() for t in out))
+
+
+class PretrainedMedTok:
+    """Artifact-only API: tokenize / encode / embed served from an export's
+    .npy files, with no model weights or KG (counterpart of
+    ``medtok_tpu/api.py::PretrainedMedTok``). The code -> row mapping comes
+    from the vocabulary the export swept: a ``.jsonl`` (no pandas) or a
+    ``.parquet`` (needs pandas), by suffix; a code listed twice maps to its
+    first row."""
+
+    def __init__(self, export_dir: str | Path, med_codes_pkg_map_path: str | Path):
+        export_dir = Path(export_dir)
+        self.embeddings = np.load(export_dir / "embeddings_all.npy")
+        tok_path = export_dir / "tokens_all.npy"
+        self.tokens = np.load(tok_path) if tok_path.exists() else None
+        w_path = export_dir / "weights_all.npy"
+        self.weights = np.load(w_path) if w_path.exists() else None
+        codes = read_vocab_columns(med_codes_pkg_map_path, ("med_code",))["med_code"]
+        self._index: dict[str, int] = {}
+        for i, c in enumerate(codes):
+            self._index.setdefault(str(c), i)
+
+    def lookup(self, med_code: str) -> int:
+        if med_code not in self._index:
+            raise KeyError(f"unknown medical code {med_code!r}")
+        return self._index[med_code]
+
+    def embed(self, med_code: str) -> np.ndarray:
+        return self.embeddings[self.lookup(med_code)]
+
+    def tokenize(self, med_code: str) -> np.ndarray:
+        if self.tokens is None:
+            raise FileNotFoundError("tokens_all.npy was not exported")
+        return self.tokens[self.lookup(med_code)]
+
+    def encode(self, med_code: str) -> np.ndarray:
+        return self.tokenize(med_code).reshape(-1)

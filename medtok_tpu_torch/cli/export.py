@@ -1,16 +1,19 @@
-"""Full-vocabulary export CLI (sequence-packed sweep).
+"""Full-vocabulary export CLI.
 
     python -m medtok_tpu_torch.cli.export --workdir results/<experiment> \
-        [--device cuda] [--out-dir DIR]
+        [--packed on|off] [--batch-size 1024] [--device cuda] [--out-dir DIR]
     python -m medtok_tpu_torch.cli.export --config args.json \
         --params params.npz --kg primeKG/ --codes codes.jsonl \
-        --vocab vocab.txt [--device cuda] [--out-dir DIR]
+        --vocab vocab.txt [--packed on|off] [--batch-size 1024] \
+        [--device cuda] [--out-dir DIR]
 
 ``--workdir`` reads a training run of the port: its args.json, its latest
 checkpoint and the data paths of ``args.json``'s data section (the JAX
 CLI's contract); the output goes to the workdir unless ``--out-dir`` names
 another. The second form takes a config, a ``/``-keyed params .npz and the
-data paths. The vocabulary is a ``.parquet`` (needs pandas) or a ``.jsonl``
+data paths. ``--packed on`` (the default) runs the sequence-packed sweep,
+``off`` the unpacked one in batches of ``--batch-size`` codes (the packed
+sweep takes no batch size). The vocabulary is a ``.parquet`` (needs pandas) or a ``.jsonl``
 copy of its columns; the KG is read without pandas. Writes
 embeddings_all.npy / tokens_all.npy / weights_all.npy in vocabulary order.
 Runs on CUDA unless ``--device`` names another device; without a GPU and
@@ -38,6 +41,11 @@ def main(argv=None) -> dict:
     p.add_argument("--kg", help="kg.csv or its directory")
     p.add_argument("--codes", help="code vocabulary, .parquet or .jsonl")
     p.add_argument("--vocab", help="WordPiece vocab.txt")
+    p.add_argument("--batch-size", type=int, default=1024,
+                   help="codes a batch of the unpacked sweep")
+    p.add_argument("--packed", default="on", choices=["on", "off"],
+                   help="sequence-packed text encoder (the default) or the unpacked "
+                        "sweep; the outputs agree but for fp32 ties")
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--out-dir", default=None, help="default: the workdir, or '.'")
     args = p.parse_args(argv)
@@ -61,7 +69,7 @@ def main(argv=None) -> dict:
     from medtok_tpu_torch.data.dataset import MedCodeDataset
     from medtok_tpu_torch.data.kg import KnowledgeGraph
     from medtok_tpu_torch.data.text import WordPieceTokenizer
-    from medtok_tpu_torch.export import export_all_packed
+    from medtok_tpu_torch.export import export_all
     from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
     from medtok_tpu_torch.utils.checkpoint import CheckpointManager, load_weights
 
@@ -83,11 +91,12 @@ def main(argv=None) -> dict:
                                        WordPieceTokenizer.from_vocab_file(vocab),
                                        cfg=cfg.data)
     t0 = time.perf_counter()
-    arrays = export_all_packed(model, dataset, device=device, out_dir=out_dir)
+    arrays = export_all(model, dataset, batch_size=args.batch_size,
+                        packed=args.packed == "on", device=device, out_dir=out_dir)
     dt = time.perf_counter() - t0
     n = len(dataset)
-    print(f"exported {n} codes in {dt:.2f} s ({n / dt:.0f} codes/s) on "
-          f"{device} -> {out_dir}")
+    print(f"exported {n} codes ({'packed' if args.packed == 'on' else 'unpacked'}) in "
+          f"{dt:.2f} s ({n / dt:.0f} codes/s) on {device} -> {out_dir}")
     for name, arr in arrays.items():
         print(f"  {name}: {arr.shape} {arr.dtype}")
     return arrays

@@ -100,8 +100,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                (args.text_dropout_in_train, "--text-dropout-in-train (BERT dropout)"),
                (args.mesh_dp > 1 or args.mesh_tp > 1,
                 "--mesh-dp / --mesh-tp above 1 (data-parallel training)"),
-               (args.wandb, "--wandb (the GPU machine has no wandb; metrics go to "
-                            "metrics.jsonl)"),
+               (args.wandb, "--wandb (the wandb mirror; metrics go to metrics.jsonl)"),
                (args.multihost, "--multihost"),
                (args.graph_model_name == "GAT", "--graph-model-name GAT")]
     for flag, what in refused:

@@ -4,8 +4,8 @@ epoch iterator (numpy path of ``medtok_tpu/data/dataset.py``).
 One sample per medical code: the tokenized description plus the code's
 induced KG subgraph. The dataset is built from in-memory columns
 (``med_code``, ``desc``, ``pkg_index_list``); ``from_path`` reads them from
-an all_codes_mappings ``.parquet`` (through pandas, which the GPU machine
-lacks) or from a ``.jsonl`` copy of the same three columns, one JSON object
+an all_codes_mappings ``.parquet`` (through pandas and pyarrow, which the
+port does not require) or from a ``.jsonl`` copy of the same three columns, one JSON object
 a line (the ``json`` module; ``write_jsonl`` writes one). JSON Lines is only
 a container for the same columns: both give the same dataset.
 Training batches carry an edge-dropped copy of each graph, drawn from a
@@ -113,27 +113,12 @@ class MedCodeDataset:
                    columns["pkg_index_list"], tokenizer, cfg=cfg)
 
     @classmethod
-    def from_parquet(cls, kg: KnowledgeGraph, path: str | Path, tokenizer, *,
-                     cfg: DataConfig = DataConfig()) -> "MedCodeDataset":
-        """Read an all_codes_mappings parquet (needs pandas + pyarrow)."""
-        import pandas as pd
-
-        df = pd.read_parquet(path)
-        return cls(kg, df["med_code"].tolist(), df["desc"].tolist(),
-                   df["pkg_index_list"].tolist(), tokenizer, cfg=cfg)
-
-    @classmethod
     def from_path(cls, kg: KnowledgeGraph, path: str | Path, tokenizer, *,
                   cfg: DataConfig = DataConfig()) -> "MedCodeDataset":
         """Read the vocabulary columns from a ``.parquet`` (needs pandas and
         pyarrow) or a ``.jsonl`` file, by its suffix."""
-        suffix = Path(path).suffix
-        if suffix == ".parquet":
-            return cls.from_parquet(kg, path, tokenizer, cfg=cfg)
-        if suffix == ".jsonl":
-            return cls.from_columns(kg, read_jsonl(path), tokenizer, cfg=cfg)
-        raise ValueError(f"{path}: the code vocabulary must be a .parquet or a .jsonl "
-                         "file")
+        return cls.from_columns(kg, read_vocab_columns(path, VOCAB_COLUMNS), tokenizer,
+                                cfg=cfg)
 
     def __len__(self) -> int:
         return len(self.med_codes)
@@ -222,6 +207,21 @@ def read_jsonl(path: str | Path) -> dict:
                 for c in VOCAB_COLUMNS:
                     columns[c].append(row[c])
     return columns
+
+
+def read_vocab_columns(path: str | Path, columns=("med_code", "pkg_index_list")) -> dict:
+    """Columns of an all_codes_mappings vocabulary: a ``.jsonl`` (no
+    pandas) or a ``.parquet`` (needs pandas and pyarrow), by suffix."""
+    suffix = Path(path).suffix
+    if suffix == ".jsonl":
+        cols = read_jsonl(path)
+        return {c: cols[c] for c in columns}
+    if suffix == ".parquet":
+        import pandas as pd
+
+        df = pd.read_parquet(path, columns=list(columns))
+        return {c: df[c].tolist() for c in columns}
+    raise ValueError(f"{path}: the code vocabulary must be a .parquet or a .jsonl file")
 
 
 def collate(

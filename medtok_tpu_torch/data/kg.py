@@ -2,7 +2,7 @@
 training view (own copy of the array part of ``medtok_tpu/data/kg.py``).
 
 Built from arrays; ``from_csv`` reads a PrimeKG ``kg.csv`` with the ``csv``
-module (no pandas, which the GPU machine lacks).
+module (no pandas, which the port does not require).
 """
 
 from __future__ import annotations

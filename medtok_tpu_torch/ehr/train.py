@@ -13,7 +13,9 @@ the trapezoid).
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+from pathlib import Path
 from typing import Callable, Iterator
 
 import numpy as np
@@ -103,6 +105,93 @@ def task_loss(task: str, logits: torch.Tensor, label_onehot: torch.Tensor) -> to
     if task == "lenofstay":
         return -(label_onehot * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
     return F.binary_cross_entropy_with_logits(logits, label_onehot)
+
+
+# ----------------------------------------------------------- splitting -----
+
+def _approximate_mode(class_counts: np.ndarray, n_draws: int,
+                      rng: np.random.RandomState) -> np.ndarray:
+    """sklearn's ``_approximate_mode``: per-class draws that sum to
+    ``n_draws``, remainders handed out largest first, ties drawn from
+    ``rng``."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            inds = rng.choice(inds, size=add_now, replace=False)
+            floored[inds] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def train_test_split(idx: np.ndarray, *, test_size: float, stratify: np.ndarray | None,
+                     random_state: int | None) -> tuple[np.ndarray, np.ndarray]:
+    """sklearn's ``train_test_split(idx, test_size=, stratify=,
+    random_state=)`` on one index array: ``ShuffleSplit`` without strata,
+    ``StratifiedShuffleSplit`` with them (same draws from
+    ``RandomState(random_state)``, same errors)."""
+    n = len(idx)
+    if not 0 < test_size < 1:
+        raise ValueError(f"test_size={test_size} should be a float in the (0, 1) range")
+    n_test = math.ceil(test_size * n)
+    n_train = n - n_test
+    if n_train == 0:
+        raise ValueError(f"With n_samples={n}, test_size={test_size} and train_size=None, "
+                         "the resulting train set will be empty")
+    if n_test >= n:
+        raise ValueError(f"test_size={n_test} should be smaller than the number of "
+                         f"samples {n}")
+    rng = (np.random.RandomState(random_state) if random_state is not None
+           else np.random.mtrand._rand)
+    if stratify is None:
+        permutation = rng.permutation(n)
+        return idx[permutation[n_test:n_test + n_train]], idx[permutation[:n_test]]
+
+    y = np.asarray(stratify)
+    if y.ndim == 2:  # a multi-label row becomes one string class
+        y = np.array([" ".join(row.astype("str")) for row in y])
+    classes, y_indices, class_counts = np.unique(y, return_inverse=True, return_counts=True)
+    n_classes = classes.shape[0]
+    if np.min(class_counts) < 2:
+        raise ValueError("The least populated classes in y have only 1 member, which is "
+                         f"too few: {classes[class_counts < 2].tolist()}")
+    if n_train < n_classes:
+        raise ValueError(f"The train_size = {n_train} should be greater or equal to the "
+                         f"number of classes = {n_classes}")
+    if n_test < n_classes:
+        raise ValueError(f"The test_size = {n_test} should be greater or equal to the "
+                         f"number of classes = {n_classes}")
+    class_indices = np.split(np.argsort(y_indices, kind="stable"),
+                             np.cumsum(class_counts)[:-1])
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train: list = []
+    test: list = []
+    for i in range(n_classes):
+        perm = class_indices[i].take(rng.permutation(class_counts[i]), mode="clip")
+        train.extend(perm[:n_i[i]])
+        test.extend(perm[n_i[i]:n_i[i] + t_i[i]])
+    return idx[rng.permutation(train)], idx[rng.permutation(test)]
+
+
+def stratified_split(labels: np.ndarray, task: str, seed: int = 42):
+    """80/10/10 through two splits, stratified by label except for the
+    multi-label tasks (sklearn's ``train_test_split`` twice, without
+    sklearn: the GPU machine has none)."""
+    strat = None if task in ("phenotype", "drugrec") else labels
+    idx = np.arange(len(labels))
+    train_idx, rest = train_test_split(idx, test_size=0.2, stratify=strat,
+                                       random_state=seed)
+    strat2 = None if strat is None else labels[rest]
+    val_idx, test_idx = train_test_split(rest, test_size=0.5, stratify=strat2,
+                                         random_state=seed)
+    return train_idx, val_idx, test_idx
 
 
 # ------------------------------------------------------------ sampling -----
@@ -249,6 +338,31 @@ class EHRTrainer:
 
     def _state(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    def save(self, path: str | Path, state: dict[str, torch.Tensor] | None = None) -> None:
+        """Write ``state`` (default: the model's weights) as
+        ``path/model.pt`` (``torch.save`` of the state_dict; the frozen
+        table is not in it) beside ``path/config.json`` (the config and
+        num_class)."""
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        torch.save(self._state() if state is None else state, path / "model.pt")
+        (path / "config.json").write_text(json.dumps(
+            {"config": dataclasses.asdict(self.cfg), "num_class": self.num_class}, indent=2)
+            + "\n")
+
+    @classmethod
+    def load(cls, path: str | Path, embedding_table: np.ndarray, *,
+             device=None) -> "EHRTrainer":
+        """A trainer whose model holds the weights ``save`` wrote, over
+        ``embedding_table``."""
+        path = Path(path)
+        meta = json.loads((path / "config.json").read_text())
+        trainer = cls(EHRTrainConfig(**meta["config"]), embedding_table, meta["num_class"],
+                      device=device)
+        trainer.model.load_state_dict(torch.load(path / "model.pt", map_location=trainer.device,
+                                                 weights_only=True))
+        return trainer
 
 
 def prepare_task_features(dataset: list[list[dict]], labels: np.ndarray,

@@ -1,12 +1,16 @@
-"""Full-vocabulary export, sequence-packed (counterpart of
-``medtok_tpu/export/export.py::_export_all_packed``).
+"""Full-vocabulary export (counterpart of ``medtok_tpu/export/export.py``).
 
-Length-sorted descriptions share fixed [num_rows, row_len] BERT rows (one
-text-encoder shape for the whole sweep, block-diagonal attention through
-kernel K2); the quantizer tail (four K1 sweeps) runs on the group's codes
-padded by repetition to a code-count bucket. Each group's rows are written
-at their code indices, so the artifacts are in vocabulary order:
-``embeddings_all [N, 256]``, ``tokens_all [N, 4, k]``, ``weights_all [N, 4, k]``.
+``export_all_packed``: length-sorted descriptions share fixed
+[num_rows, row_len] BERT rows (one text-encoder shape for the whole sweep,
+block-diagonal attention through kernel K2); the quantizer tail (four K1
+sweeps) runs on the group's codes padded by repetition to a code-count
+bucket. ``export_all``: the unpacked sweep, batches of ``batch_size`` codes
+in vocabulary order through the model's forward (a dense-attention BERT
+over each batch's padded texts, then the four K1 sweeps), the tail batch
+padded with repeats of its last code; ``packed=True`` takes the packed
+sweep. Each batch's rows are written at their code indices, so the
+artifacts are in vocabulary order: ``embeddings_all [N, 256]``,
+``tokens_all [N, 4, k]``, ``weights_all [N, 4, k]``.
 """
 
 from __future__ import annotations
@@ -124,11 +128,67 @@ def export_all_packed(
         while inflight:
             drain(inflight.pop(0))
 
-    arrays = {"embeddings_all": embeddings, "tokens_all": tokens,
-              "weights_all": weights}
+    return _save({"embeddings_all": embeddings, "tokens_all": tokens,
+                  "weights_all": weights}, out_dir)
+
+
+def _save(arrays: dict[str, np.ndarray], out_dir: str | Path | None) -> dict[str, np.ndarray]:
     if out_dir is not None:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         for name, arr in arrays.items():
             np.save(out_dir / f"{name}.npy", arr)
     return arrays
+
+
+@torch.no_grad()
+def export_all(
+    model: MultimodalTokenizer,
+    dataset: MedCodeDataset,
+    *,
+    batch_size: int = 1024,
+    packed: bool = False,
+    device: str | torch.device | None = None,
+    out_dir: str | Path | None = None,
+) -> dict[str, np.ndarray]:
+    """Sweep the whole vocabulary in batches of ``batch_size`` codes;
+    returns (and optionally saves) the three artifacts. ``packed=True``
+    takes ``export_all_packed`` (``batch_size`` unused). Runs on CUDA unless
+    ``device`` names another device."""
+    if packed:
+        return export_all_packed(model, dataset, device=device, out_dir=out_dir)
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    n = len(dataset)
+    k = model.cfg.quantizer.top_k
+    embeddings = np.zeros((n, model.cfg.embedding_dim), np.float32)
+    tokens = np.zeros((n, 4, k), np.int32)
+    weights = np.zeros((n, 4, k), np.float32)
+    inflight = []
+
+    def drain(item):
+        idxs, out = item
+        m = len(idxs)
+        embeddings[idxs] = out.embedding[:m].cpu().numpy()
+        tokens[idxs] = out.tokens[:m].cpu().numpy()
+        weights[idxs] = out.weights[:m].cpu().numpy()
+
+    for start in range(0, n, batch_size):
+        idxs = np.arange(start, min(start + batch_size, n))
+        with record_function("export.make_batch"):
+            # the tail batch is padded to full size with repeats of its last code
+            ids = idxs.tolist() + [int(idxs[-1])] * (batch_size - len(idxs))
+            batch = dataset.make_batch(ids)
+        with record_function("export.to_device"):
+            batch = batch.to(dev)
+        with record_function("export.forward"):
+            out = model(batch)
+        inflight.append((idxs, out))
+        if len(inflight) > _PREFETCH:
+            with record_function("export.drain"):
+                drain(inflight.pop(0))
+    with record_function("export.drain"):
+        while inflight:
+            drain(inflight.pop(0))
+    return _save({"embeddings_all": embeddings, "tokens_all": tokens,
+                  "weights_all": weights}, out_dir)

@@ -1,6 +1,6 @@
 """Query code mapping: extracted clinical codes -> MedTok vocabulary ids
-(counterpart of ``medtok_tpu/qa/mapping.py``, with its own copy of the
-``CodeMapper`` of ``medtok_tpu/ehr/tasks.py``).
+(counterpart of ``medtok_tpu/qa/mapping.py``; the ``CodeMapper`` is the
+EHR task builders' own, ``medtok_tpu_torch/ehr/tasks.py``).
 
 A code is looked up dot-stripped (ICD codes), with a fallback to the first
 vocabulary entry whose "A-B" string range holds it; an empty extraction
@@ -15,63 +15,9 @@ import json
 from pathlib import Path
 from typing import Any
 
-from medtok_tpu_torch.data.dataset import read_jsonl
+from medtok_tpu_torch.ehr.tasks import CodeMapper
 
 ICD_KEYS = ("ICD-9", "ICD-10")
-
-
-def read_med_codes(path: str | Path) -> list[str]:
-    """The ``med_code`` column of a ``.jsonl`` vocabulary or of an
-    all_codes_mappings ``.parquet`` (the latter needs pandas and pyarrow)."""
-    suffix = Path(path).suffix
-    if suffix == ".jsonl":
-        return [str(c) for c in read_jsonl(path)["med_code"]]
-    if suffix == ".parquet":
-        import pandas as pd
-
-        return pd.read_parquet(path)["med_code"].astype(str).tolist()
-    raise ValueError(f"{path}: the code vocabulary must be a .parquet or a .jsonl file")
-
-
-class CodeMapper:
-    """code string -> row index in the MedTok vocabulary (dots stripped),
-    with the string-range fallback and -1 for unmapped."""
-
-    def __init__(self, med_codes_pkg_map_path: str | Path):
-        codes = [c.replace(".", "") for c in read_med_codes(med_codes_pkg_map_path)]
-        self.num_codes = len(codes)
-        self.code_to_idx: dict[str, int] = {}
-        for idx, c in enumerate(codes):
-            self.code_to_idx.setdefault(c, idx)
-        self.ranges: dict[str, int] = {
-            c: i for i, c in enumerate(codes) if "-" in c
-        }
-        self._cache: dict[str, int] = {}
-
-    def __len__(self) -> int:
-        return self.num_codes
-
-    def map(self, code: str) -> int:
-        code = str(code)
-        if code in self._cache:
-            return self._cache[code]
-        idx = self.code_to_idx.get(code)
-        if idx is None:
-            idx = -1
-            for rng, v in self.ranges.items():
-                if self._in_range(code, rng):
-                    idx = v
-                    break
-        self._cache[code] = idx
-        return idx
-
-    @staticmethod
-    def _in_range(value: str, range_string: str) -> bool:
-        parts = range_string.split("-")[:2]
-        if len(parts) < 2:
-            return False
-        left, right = parts
-        return left <= value <= right
 
 
 class QueryCodeMapper:

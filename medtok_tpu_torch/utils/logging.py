@@ -2,8 +2,7 @@
 ``medtok_tpu/utils/logging.py``): a logger writing to the console and to
 ``log.txt`` in the experiment directory, and ``MetricsLogger`` appending one
 JSON object a logged step to ``metrics.jsonl``. The wandb mirror of the JAX
-package is not ported (the GPU machine has no wandb; the train CLI refuses
-``--wandb``).
+package is not ported: the train and EHR CLIs refuse ``--wandb``.
 """
 
 from __future__ import annotations

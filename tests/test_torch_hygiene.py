@@ -139,6 +139,24 @@ def test_qa_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             qa_cli.main([mode, "--data", missing, "--embedding-path", missing, "--tiny"])
 
 
+EHR_FORBIDDEN = {"sklearn", "pyarrow"}
+
+
+def test_ehr_and_export_routes_need_no_package_the_card_machine_lacks():
+    """The EHR downstream, the export CLI and the API import no pandas,
+    scikit-learn or pyarrow at module level (pandas only inside the
+    .parquet readers), nor JAX or the JAX package anywhere."""
+    port = REPO / "medtok_tpu_torch"
+    files = sorted((port / "ehr").glob("*.py")) + [
+        port / "cli" / "ehr.py", port / "cli" / "export.py", port / "api.py",
+        port / "export.py", port / "data" / "dataset.py"]
+    assert len(files) >= 15
+    bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & (EHR_FORBIDDEN | FORBIDDEN)
+                                            | _module_level_roots(f) & {"pandas", "sklearn"})
+           for f in files}
+    assert not {f: r for f, r in bad.items() if r}
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
