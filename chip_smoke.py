@@ -22,8 +22,12 @@ Phases, each fatal on failure:
      packings beside scaled_dot_product_attention and its bound;
   5. run the packed full-vocabulary export at the full ModelConfig() width
      (bert-base, 130K-node GCN, 21000 x 64 codebook, bf16) over a synthetic
-     heavy-tail vocabulary, counting kernel launches, and hold a small fp32
-     export with kernels against the plain versions on the CPU;
+     heavy-tail vocabulary on the native route (C++ WordPiece and graph
+     packer, compact batches in pinned pooled buffers copied asynchronously
+     and fenced, unpacked on the card), counting kernel launches and logging
+     the pools and host counters; export it again on the numpy route
+     (native=False), held to the native one by the tie-gap rule; hold a
+     small fp32 export with kernels against the plain versions on the CPU;
   6. answer tokenize / encode / embed requests for three codes;
   7. hold kernel K3 (flash attention forward, dq and dk/dv) against its
      plain version at the EHR shape [256*4, 2003, 16] on an EHR batch's key
@@ -91,10 +95,12 @@ Phases, each fatal on failure:
  15. train the tokenizer at ModelConfig() width through Trainer.fit with
      TrainConfig(packed_text=True, global_batch_size=1024) over
      epoch_batches of phase 5's dataset (edge dropout on): a warm-up step,
-     5 timed steps over batches collated in advance (the step alone: ms/step,
+     5 timed steps over batches built in advance (the step alone: ms/step,
      peak memory), 5 timed steps of fit drawing from epoch_batches (end to
-     end: codes/s with the collate inside the clock), each with 6 K1 and 12
-     K2 launches a step, the host batch build timed apart, one profiled step split by
+     end: codes/s with the native route's batch build inside the clock),
+     each with 6 K1 and 12 K2 launches a step, the host batch build timed
+     apart on both routes (their batches equal graph by graph, the dropout
+     bits the routes' own), one profiled step split by
      part (frozen BERT forward; text_mapped, GCN, cross-attention, the K1
      sweeps and their recomputes, losses: forward and backward;
      clip + Adam + EMA); fail on a non-finite loss, usage outside (0, 1], a
@@ -153,7 +159,17 @@ Phases, each fatal on failure:
      samples/s logged, K3 fwd / dq / dkv launched, test_metrics.json finite
      and reproduced by the reloaded best_model; a 2-point --hyper-search at
      1 epoch; the other five task builders over the same patients (sample
-     counts logged, phenotype on an index the phase writes).
+     counts logged, phenotype on an index the phase writes);
+ 19. the host data runtime: NativeWordPiece's ids against the Python
+     tokenizer's for every description (both timed); every export group's
+     compact batch, copied from the pinned pool and unpacked on the card,
+     against the numpy route graph by graph, plus one group forced into the
+     16-node bucket (uint16 pairs) and one with the stream threshold lifted
+     (int32 pairs); the fence witness (a pool one entry deep, packs while
+     earlier copies are queued behind a stall, each device batch against a
+     fresh host pack; the same run without fences is logged); the export's
+     host half (WordPiece, text rows and compact packs, no model) at 600,000
+     synthetic codes, in seconds and codes/s.
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
@@ -895,7 +911,57 @@ def run_main_path(model, dataset, dev) -> tuple[dict, dict]:
     check(bool(np.allclose(w.sum(-1), 1.0, atol=1e-4)), "weights do not sum to 1")
     log(f"main path: {n} codes in {steps} steps, {wall:.3f} s wall "
         f"({n / wall:.1f} codes/s), launches {launches}")
+    log_host_runtime(dataset, "main path")
     return launches, arrays
+
+
+def log_host_runtime(dataset, label: str) -> None:
+    """The native route's pools and counters: the compact packs ran into
+    pinned buffers."""
+    from medtok_tpu_torch.data import dataset as dataset_module
+    from medtok_tpu_torch.data import native
+
+    check(dataset.native is not None, f"{label}: the dataset is not on the native route")
+    keys = sorted(dataset.native._pools, key=str)
+    pinned = dataset.native.pool_bytes(pinned=True)
+    check(pinned > 0, f"{label}: no pinned pool entry was packed")
+    entries = sum(len(p) for p in dataset.native._pools.values())
+    stats, tok = native.STATS, dataset_module.TOK_STATS
+    log(f"{label}: host runtime: {len(keys)} pools ({entries} entries), "
+        f"{pinned / 2**20:.1f} MiB pinned, "
+        f"{dataset.native.pool_bytes(pinned=False) / 2**20:.1f} MiB pageable; cumulative: "
+        f"native pack {stats['pack_s']:.3f} s, fence waits {stats['fence_wait_s']:.3f} s, "
+        f"WordPiece encode {tok['encode_s']:.3f} s + store {tok['store_s']:.3f} s")
+    for key in keys:
+        pool = dataset.native._pools[key]
+        log(f"  pool (B, Ln, Epg, aug, uint16 or stream, pinned) = {key}: depth {len(pool)}, "
+            f"{pool[0].nbytes / 2**20:.2f} MiB an entry")
+
+
+def numpy_route(dataset):
+    """The same vocabulary on the numpy route (native=False)."""
+    from medtok_tpu_torch.data.dataset import MedCodeDataset
+
+    return MedCodeDataset(dataset.kg, dataset.med_codes, dataset.descs, dataset.pkg_index_lists,
+                          dataset.tokenizer, cfg=dataset.cfg, native=False)
+
+
+def check_numpy_route_export(model, dataset_np, dev, first: dict) -> None:
+    """Phase 5's export again on the numpy route (Python WordPiece, numpy
+    subgraphs, collate, the compact batch from _compress_classic): its
+    artifacts held to the native route's by the tie-gap rule."""
+    import torch
+
+    from medtok_tpu_torch.export import export_all_packed
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = export_all_packed(model, dataset_np, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = hold_to_tie_rule(arrays, first, "numpy-route export against the native one")
+    log(f"numpy-route export ({len(dataset_np)} codes, cold): {wall:.3f} s wall "
+        f"({len(dataset_np) / wall:.1f} codes/s); against the native route: {summary}")
 
 
 def profile_main_path(model, dataset, dev, first: dict) -> None:
@@ -1023,6 +1089,29 @@ def tie_gaps(tok, w, ref_tok, ref_w):
     return np.asarray(gaps)
 
 
+def hold_to_tie_rule(got: dict, want: dict, label: str) -> str:
+    """Two exports' artifacts: token rows may differ only where the
+    reference's picks are tied to within 1e-5 (docs/PARITY.md); embedding
+    part p (one per path) is compared within 1e-4 on the rows whose path-p
+    tokens agree. Returns the summary it checked."""
+    import numpy as np
+
+    rows_equal = (got["tokens_all"] == want["tokens_all"]).all(axis=-1)   # [n, 4]
+    gaps = tie_gaps(got["tokens_all"], got["weights_all"],
+                    want["tokens_all"], want["weights_all"])
+    max_gap = float(gaps.max(initial=0.0))
+    d = got["embeddings_all"].shape[1] // 4
+    emb_err = max(
+        (float(np.abs(got["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]
+                      - want["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]).max())
+         for p in range(4) if rows_equal[:, p].any()), default=0.0)
+    check(max_gap <= 1e-5, f"{label}: token rows differ beyond a tie "
+          f"(gaps {sorted(gaps.tolist())[-10:]} > 1e-5)")
+    check(emb_err <= 1e-4, f"{label}: embedding error {emb_err} > 1e-4")
+    return (f"{int((~rows_equal).sum())}/{rows_equal.size} token rows differ, max tie gap "
+            f"{max_gap:.3e}; embedding max err {emb_err:.3e} on the other rows")
+
+
 def check_reference(model, dataset, dev, n_codes: int = 64,
                     label: str = "fp32 reference") -> None:
     """A small fp32 export with the kernels on the card against the same
@@ -1031,7 +1120,6 @@ def check_reference(model, dataset, dev, n_codes: int = 64,
     embeddings are compared on the paths whose tokens agree."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from medtok_tpu_torch.data.dataset import MedCodeDataset
@@ -1049,24 +1137,8 @@ def check_reference(model, dataset, dev, n_codes: int = 64,
         m.load_state_dict(state)
         out.append(export_all_packed(m, sub, device=where, num_rows=8))
         del m
-    got, want = out
-    rows_equal = (got["tokens_all"] == want["tokens_all"]).all(axis=-1)   # [n, 4]
-    gaps = tie_gaps(got["tokens_all"], got["weights_all"],
-                    want["tokens_all"], want["weights_all"])
-    max_gap = float(gaps.max(initial=0.0))
-    # embedding part p (one per path) compared on the rows whose path-p tokens agree
-    d = cfg32.quantizer.codebook_embed_dim
-    emb_err = max(
-        (float(np.abs(got["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]
-                      - want["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]).max())
-         for p in range(4) if rows_equal[:, p].any()), default=0.0)
-    check(max_gap <= 1e-5, f"{label}: token rows differ beyond a tie "
-          f"(gaps {gaps.tolist()} > 1e-5)")
-    check(emb_err <= 1e-4, f"{label}: embedding error {emb_err} > 1e-4")
-    log(f"{label} ({n_codes} codes, kernels on the card vs plain on the "
-        f"CPU): {int((~rows_equal).sum())}/{rows_equal.size} token rows differ, "
-        f"max tie gap {max_gap:.3e}; embedding max err {emb_err:.3e} on the "
-        f"other rows")
+    summary = hold_to_tie_rule(*out, label)
+    log(f"{label} ({n_codes} codes, kernels on the card vs plain on the CPU): {summary}")
 
 
 def serve_requests(cfg, model, dataset, dev) -> dict:
@@ -2102,7 +2174,7 @@ def train_breakdown(prof) -> tuple[dict, dict]:
 
 def train_batches(dataset, cfg, n: int) -> tuple[list, list]:
     """The first n batches of epoch_batches (edge dropout on) and the host
-    ms each took to collate."""
+    ms each took to build."""
     from medtok_tpu_torch.data.dataset import epoch_batches
 
     it = epoch_batches(dataset, batch_size=cfg.train.global_batch_size,
@@ -2152,10 +2224,10 @@ def check_train_determinism(trainer, state, batch, cfg) -> None:
         f"state: loss, usage FIFO and all {len(params)} gradients bitwise equal")
 
 
-def run_training(dataset, dev, gen) -> dict:
+def run_training(dataset, dataset_np, dev, gen) -> dict:
     """Trainer.fit at ModelConfig() width, packed text, batch 1024, over
     epoch_batches of the export's dataset: a warm-up step that records K1's
-    inputs, TRAIN_TIMED_STEPS steps over batches collated in advance (the
+    inputs, TRAIN_TIMED_STEPS steps over batches built in advance (the
     step alone), TRAIN_TIMED_STEPS steps of fit drawing from epoch_batches
     (end to end), each with K1 / K2 counted, a profiled step, the checks,
     then K1 and K2 against their plain versions at the training shapes.
@@ -2175,6 +2247,11 @@ def run_training(dataset, dev, gen) -> dict:
                        train=TrainConfig(packed_text=True, global_batch_size=TRAIN_BATCH))
     T = TRAIN_TIMED_STEPS
     batches, collate_ms = train_batches(dataset, cfg, T + 3)
+    # the numpy route builds the same graphs with its own dropout bits
+    batches_np, collate_np_ms = train_batches(dataset_np, cfg, T + 3)
+    for i, (b, b_np) in enumerate(zip(batches, batches_np)):
+        same_graphs(b, b_np, f"training batch {i}, native vs numpy route")
+    del batches_np
     logged = []
     trainer = Trainer(cfg, device=dev, log_fn=lambda step, m: logged.append(m))
     model = trainer.model
@@ -2230,12 +2307,12 @@ def run_training(dataset, dev, gen) -> dict:
               f"({TRAIN_SWEEPS} K1 and {n_layers} K2 a step)")
         return state, wall, launches
 
-    # the step alone, over batches collated in advance (pack + copies + step)
+    # the step alone, over batches built in advance (pack + copies + step)
     torch.cuda.reset_peak_memory_stats()
     state, step_wall, _ = timed_fit(state, batches[1:1 + T])
     peak = torch.cuda.max_memory_allocated()
     # end to end, as a user runs it: Trainer.fit drawing from epoch_batches,
-    # the collate with its edge dropout inside the clock
+    # the native batch build with its edge dropout inside the clock
     epoch = epoch_batches(dataset, batch_size=TRAIN_BATCH, seed=cfg.train.global_seed,
                           epoch=1)
     state, wall, launches = timed_fit(state, epoch, max_steps=state.step + T)
@@ -2246,14 +2323,16 @@ def run_training(dataset, dev, gen) -> dict:
         for key in ("codebook_usage_shared", "codebook_usage_text", "codebook_usage_graph"):
             check(0.0 < m[key] <= 1.0, f"training: {key} = {m[key]} outside (0, 1]")
     log(f"training end to end: Trainer.fit over epoch_batches, {T} steps in {wall:.3f} s: "
-        f"{1e3 * wall / T:.3f} ms/step, {TRAIN_BATCH * T / wall:.1f} codes/s (collate with "
-        f"edge dropout + pack + copies + step); launches {launches}")
-    log(f"training step alone: {T} steps over batches collated in advance in "
+        f"{1e3 * wall / T:.3f} ms/step, {TRAIN_BATCH * T / wall:.1f} codes/s (native batch "
+        f"build with edge dropout + pack + copies + step); launches {launches}")
+    log(f"training step alone: {T} steps over batches built in advance in "
         f"{step_wall:.3f} s: {1e3 * step_wall / T:.3f} ms/step, "
         f"{TRAIN_BATCH * T / step_wall:.1f} codes/s (pack + copies + step); "
         f"peak memory {peak / 2**30:.2f} GiB")
-    log(f"training: host batch build {np.mean(collate_ms):.1f} ms collate (edge dropout "
-        f"included) + {np.mean(pack_ms):.1f} ms packing per batch of {TRAIN_BATCH}")
+    log(f"training: host batch build per batch of {TRAIN_BATCH}: native route "
+        f"{np.mean(collate_ms):.1f} ms (C++ pack with edge dropout), numpy route "
+        f"{np.mean(collate_np_ms):.1f} ms (numpy subgraphs + collate with edge dropout; "
+        f"the same graphs), + {np.mean(pack_ms):.1f} ms text packing")
     log("training: losses " + ", ".join(f"{m['loss']:.4f}" for m in logged)
         + "; usage shared / text / graph "
         + f"{logged[-1]['codebook_usage_shared']:.4f} / "
@@ -3188,21 +3267,8 @@ def run_export_routes(workdir: Path, n: int, dev) -> dict:
           f"packed export: launches {out['on']['launches']}")
     got, want = out["off"]["arrays"], out["on"]["arrays"]
     check(all(np.isfinite(a).all() for a in got.values()), "unpacked export: non-finite rows")
-    gaps = tie_gaps(got["tokens_all"], got["weights_all"], want["tokens_all"],
-                    want["weights_all"])
-    max_gap = float(gaps.max(initial=0.0))
-    rows_equal = (got["tokens_all"] == want["tokens_all"]).all(axis=-1)   # [n, 4]
-    d = got["embeddings_all"].shape[1] // 4
-    emb_err = max((float(np.abs(got["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]
-                                - want["embeddings_all"][rows_equal[:, p], d * p:d * (p + 1)]
-                                ).max()) for p in range(4) if rows_equal[:, p].any()),
-                  default=0.0)
-    check(max_gap <= 1e-5, f"unpacked export: token rows differ from the packed export "
-          f"beyond a tie (gaps {sorted(gaps.tolist())[-10:]} > 1e-5)")
-    check(emb_err <= 1e-4, f"unpacked export: embedding error {emb_err} > 1e-4")
-    log(f"unpacked vs packed export (fp32, {n} codes): {int((~rows_equal).sum())}/"
-        f"{rows_equal.size} token rows differ, max tie gap {max_gap:.3e}; embedding max "
-        f"err {emb_err:.3e} on the other rows")
+    summary = hold_to_tie_rule(got, want, "unpacked export against the packed one")
+    log(f"unpacked vs packed export (fp32, {n} codes): {summary}")
     api = PretrainedMedTok(workdir / "packed_off", workdir.parent / "codes.jsonl")
     codes = [json.loads(line)["med_code"]
              for line in open(workdir.parent / "codes.jsonl")]
@@ -3352,6 +3418,254 @@ def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, se
     return out
 
 
+# ---------------------------------------------------------- host runtime --
+
+HOST_CODES = 600_000    # the real vocabulary's size (SURVEY)
+FENCE_PACKS = 24        # packs of the fence witness, each queued behind a stall
+FENCE_SHAPES = (8, 512, 8192)   # (Lt, Ln, Epg) of the witness: the stream encoding
+
+
+def check_wordpiece(dataset) -> None:
+    """NativeWordPiece's ids equal the Python tokenizer's for every
+    description of the vocabulary; both timed."""
+    import numpy as np
+
+    from medtok_tpu_torch.data.native_text import NativeWordPiece
+
+    tok, max_len = dataset.tokenizer, dataset.cfg.max_text_length
+    descs = [str(d) for d in dataset.descs]
+    native = NativeWordPiece(tok)
+    t0 = time.perf_counter()
+    out, lens = native.encode_batch_flat(descs, max_length=max_len)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [tok.encode(d, max_length=max_len)[0] for d in descs]
+    python_s = time.perf_counter() - t0
+    bad = [i for i, w in enumerate(want)
+           if lens[i] != len(w) or not np.array_equal(out[i, :lens[i]], w)]
+    check(not bad, f"host runtime: NativeWordPiece differs from the Python tokenizer on "
+          f"{len(bad)} descriptions, first {bad[:5]}")
+    log(f"host runtime: NativeWordPiece ids equal the Python tokenizer's for all "
+        f"{len(descs)} descriptions ({int(lens.sum())} ids); native {native_s:.4f} s "
+        f"({len(descs) / native_s:.0f} texts/s), Python {python_s:.3f} s "
+        f"({len(descs) / python_s:.0f} texts/s)")
+
+
+def same_graphs(got, want, label: str) -> None:
+    """A native-route batch (an unpacked compact batch on the card, or a
+    host one) against a numpy-route batch, graph by graph: node ids, then
+    each graph's clean edge list in slot order, the padding trimmed (the
+    routes' edge buckets may differ)."""
+    import numpy as np
+
+    g, w = ({k: np.asarray(v.cpu() if hasattr(v, "cpu") else v) for k, v in b._asdict().items()}
+            for b in (got, want))
+    B = w["node_ids"].shape[0]
+    nn = g["node_mask"].sum(1)
+    check(np.array_equal(nn, w["node_mask"].sum(1)), f"{label}: node counts differ")
+    ln = min(g["node_ids"].shape[1], w["node_ids"].shape[1])
+    check(int(nn.max(initial=0)) <= ln, f"{label}: a graph overflows the narrower node bucket")
+    keep = np.arange(ln)[None, :] < nn[:, None]
+    check(np.array_equal(g["node_ids"][:, :ln][keep], w["node_ids"][:, :ln][keep]),
+          f"{label}: node ids differ")
+    ne = (g["edge_weight"].reshape(B, -1) > 0).sum(1)
+    check(np.array_equal(ne, (w["edge_weight"].reshape(B, -1) > 0).sum(1)),
+          f"{label}: edge counts differ")
+    m = min(g["edge_weight"].size, w["edge_weight"].size) // B
+    valid = np.arange(m)[None, :] < ne[:, None]
+    for name in ("edge_src", "edge_dst"):
+        check(np.array_equal(g[name].reshape(B, -1)[:, :m][valid],
+                             w[name].reshape(B, -1)[:, :m][valid]), f"{label}: {name} differs")
+
+
+def encoding_of(cb) -> str:
+    import torch
+
+    if cb.outdeg is not None:
+        return "stream"
+    return "uint16" if cb.edge_packed.dtype == torch.int16 else "int32"
+
+
+def check_group_packs(dataset, dataset_np, dev) -> None:
+    """Every export group's compact batch (pinned pool, copied, fenced,
+    unpacked on the card) against the numpy route graph by graph; then one
+    group forced into the 16-node bucket (uint16 pairs) and one 512-node
+    group with the stream threshold lifted (int32 pairs)."""
+    import numpy as np
+
+    from medtok_tpu_torch.data import dataset as dataset_module
+    from medtok_tpu_torch.data.compact import unpack_compact
+    from medtok_tpu_torch.export import code_buckets, export_groups
+
+    buckets = code_buckets(len(dataset))
+    seen: dict[str, int] = {}
+    tail = None
+
+    def one(codes, label, shapes=None):
+        cb, fence = dataset.make_batch_compact(codes, force_shapes=shapes, want_text=False,
+                                               pinned=True)
+        dcb = cb.to(dev)
+        fence.set_fence(dev)
+        got = unpack_compact(dcb)
+        same_graphs(got, dataset_np.make_batch(codes, force_shapes=shapes), label)
+        enc = encoding_of(dcb)
+        seen[enc] = seen.get(enc, 0) + 1
+        return got.node_ids.shape[1]
+
+    groups = export_groups(dataset)
+    t0 = time.perf_counter()
+    for gi, group in enumerate(groups):
+        C = next((c for c in buckets if len(group) <= c), buckets[-1])
+        codes = np.concatenate([group, np.repeat(group[-1:], C - len(group))]).tolist()
+        if one(codes, f"group {gi}") == max(dataset.cfg.node_buckets):
+            tail = codes
+    check(tail is not None, "host runtime: no export group in the largest node bucket")
+    lt = dataset.batch_shapes(tail)[0]
+    small = (lt, dataset.cfg.node_buckets[0], dataset.cfg.edge_buckets[0])
+    one(tail, f"tail group forced to {small}", shapes=small)
+    stream_min = dataset_module.STREAM_MIN_NODES
+    dataset_module.STREAM_MIN_NODES = 1 << 30
+    try:
+        one(tail, "tail group, int32 pairs")
+    finally:
+        dataset_module.STREAM_MIN_NODES = stream_min
+    check(set(seen) == {"uint16", "int32", "stream"},
+          f"host runtime: encodings run {seen}, want uint16, int32 and stream")
+    log(f"host runtime: {len(groups)} export groups + 2 forced ones, compact batches "
+        f"unpacked on the card equal the numpy route graph by graph "
+        f"({time.perf_counter() - t0:.2f} s); encodings {seen}")
+
+
+def fence_run(dataset, dev, rows, fenced: bool) -> int:
+    """FENCE_PACKS packs into a pool of depth 1, each copy queued behind a
+    matmul stall so that the next pack comes while it is in flight; returns
+    how many device batches differ from a fresh host pack of their rows."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.data.compact import unpack_compact
+
+    stall = torch.randn(4096, 4096, device=dev)
+    depth_cap = os.environ.get("MEDTOK_POOL_DEPTH_CAP")
+    os.environ["MEDTOK_POOL_DEPTH_CAP"] = "1"
+    dataset.native._pools.clear()
+    dataset.native._pool_next.clear()
+    sent = []
+    try:
+        torch.cuda.synchronize()
+        for i in range(FENCE_PACKS):
+            for _ in range(8):
+                stall = torch.tanh(stall @ stall)
+            codes = rows[i % len(rows)]
+            cb, fence = dataset.make_batch_compact(codes, force_shapes=FENCE_SHAPES,
+                                                   want_text=False, pinned=True)
+            sent.append((codes, cb.to(dev)))
+            if fenced:
+                fence.set_fence(dev)
+        torch.cuda.synchronize()
+    finally:
+        if depth_cap is None:
+            del os.environ["MEDTOK_POOL_DEPTH_CAP"]
+        else:
+            os.environ["MEDTOK_POOL_DEPTH_CAP"] = depth_cap
+    check(len(dataset.native._pools) == 1
+          and len(next(iter(dataset.native._pools.values()))) == 1,
+          "host runtime: the witness's pool is not one entry deep")
+    differ = 0
+    for codes, dcb in sent:
+        got, want = unpack_compact(dcb), dataset.make_batch(codes, force_shapes=FENCE_SHAPES)
+        differ += not all(np.array_equal(g.cpu().numpy(), np.asarray(w))
+                          for g, w in zip(got[2:], want[2:]))
+    return differ
+
+
+def check_fence(dataset, dev) -> None:
+    """The fence witness: a pool of depth 1, many packs while earlier copies
+    are in flight, each device batch held to a fresh host pack. Then the
+    same run without fences, to show the witness sees what a missing fence
+    does (logged, not a failure)."""
+    import numpy as np
+
+    from medtok_tpu_torch.data import native
+    from medtok_tpu_torch.data.dataset import MedCodeDataset
+
+    fresh = MedCodeDataset(dataset.kg, dataset.med_codes, dataset.descs,
+                           dataset.pkg_index_lists, dataset.tokenizer, cfg=dataset.cfg)
+    fresh.warm_cache(tokenize=False)
+    sizes = fresh.node_counts(0, len(fresh))
+    heavy = np.argsort(-sizes, kind="stable")
+    rows = [heavy[np.arange(i, i + 512 * 8, 8) % len(heavy)].tolist() for i in range(6)]
+    wait0 = native.STATS["fence_wait_s"]
+    t0 = time.perf_counter()
+    differ = fence_run(fresh, dev, rows, fenced=True)
+    wall = time.perf_counter() - t0
+    waited = native.STATS["fence_wait_s"] - wait0
+    check(differ == 0, f"host runtime: {differ} of {FENCE_PACKS} fenced device batches differ "
+          "from their host packs")
+    check(waited > 0, "host runtime: no pack waited on a fence (no copy was in flight)")
+    unfenced = fence_run(fresh, dev, rows, fenced=False)
+    log(f"host runtime: fence witness, {FENCE_PACKS} packs of {FENCE_SHAPES} into one pinned "
+        f"entry, copies queued behind a stall: all device batches equal their host packs, "
+        f"{waited:.3f} s of {wall:.3f} s waiting on fences; without fences {unfenced} of "
+        f"{FENCE_PACKS} differ")
+
+
+def host_half(dataset, seed: int) -> None:
+    """The export's host half at HOST_CODES synthetic codes on phase 5's
+    KG: the vocabulary's node arena and WordPiece (warm_cache), then every
+    group's text rows and compact pack into pinned pools; no model, no
+    copy."""
+    import numpy as np
+
+    from medtok_tpu_torch.data.dataset import MedCodeDataset
+    from medtok_tpu_torch.data.synthetic import synthetic_vocab_columns
+    from medtok_tpu_torch.export import code_buckets, export_groups, packed_layout
+
+    t0 = time.perf_counter()
+    cols = synthetic_vocab_columns(np.random.default_rng(seed + 19), num_codes=HOST_CODES,
+                                   num_kg_nodes=dataset.kg.num_nodes, heavy_tail=True)
+    big = MedCodeDataset.from_columns(dataset.kg, cols, dataset.tokenizer, cfg=dataset.cfg)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big.warm_cache(tokenize=True)
+    warm_s = time.perf_counter() - t0
+    row_len, num_rows, _ = packed_layout(big)
+    buckets = code_buckets(len(big))
+    t0 = time.perf_counter()
+    groups = export_groups(big)
+    text_s = pack_s = 0.0
+    for group in groups:
+        C = next((c for c in buckets if len(group) <= c), buckets[-1])
+        codes = np.concatenate([group, np.repeat(group[-1:], C - len(group))])
+        t1 = time.perf_counter()
+        big.pack_text_rows(group, row_len=row_len, num_rows=num_rows)
+        t2 = time.perf_counter()
+        big.make_batch_compact(codes.tolist(), want_text=False, pinned=True)
+        t3 = time.perf_counter()
+        text_s += t2 - t1
+        pack_s += t3 - t2
+    groups_s = time.perf_counter() - t0
+    total = warm_s + groups_s
+    pinned = big.native.pool_bytes(pinned=True)
+    log(f"host runtime: export host half at {HOST_CODES} synthetic codes (vocabulary made in "
+        f"{made_s:.2f} s, not counted): warm_cache {warm_s:.3f} s (arena + WordPiece), "
+        f"{len(groups)} groups {groups_s:.3f} s (text rows {text_s:.3f}, compact packs "
+        f"{pack_s:.3f}); {total:.3f} s, {HOST_CODES / total:.1f} codes/s; "
+        f"{pinned / 2**20:.1f} MiB pinned in {len(big.native._pools)} pools")
+
+
+def run_host_runtime(dataset, dataset_np, dev, seed: int) -> None:
+    """Phase 19: the host data runtime."""
+    phase_t0 = time.perf_counter()
+    check_wordpiece(dataset)
+    check_group_packs(dataset, dataset_np, dev)
+    check_fence(dataset, dev)
+    host_half(dataset, seed)
+    log(f"host runtime: phase {time.perf_counter() - phase_t0:.2f} s")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3420,6 +3734,8 @@ def main(argv=None) -> int:
 
     launches, arrays = run_main_path(model, dataset, dev)
     profile_main_path(model, dataset, dev, arrays)
+    dataset_np = numpy_route(dataset)
+    check_numpy_route_export(model, dataset_np, dev, arrays)
     check_reference(model, dataset, dev)
     serve_requests(cfg, model, dataset, dev)
     # phase 18 exports this model again in fp32 through the export CLI
@@ -3437,13 +3753,14 @@ def main(argv=None) -> int:
     check_ehr_heads(table, ehr, dev)
     check_small_export(dataset, dev, gen)
     slice3 = run_slice3()
-    train_launches = run_training(dataset, dev, gen)
+    train_launches = run_training(dataset, dataset_np, dev, gen)
     check_train_reference(dataset, dev)
     log(f"training launches: {train_launches}")
     run_clis(args.seed, dev)
     run_qa(table, dev, args.seed)
     ehr_downstream = run_ehr_downstream(model_state, buffers, cfg, dataset, table, args.seed,
                                         dev)
+    run_host_runtime(dataset, dataset_np, dev, args.seed)
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]

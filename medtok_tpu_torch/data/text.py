@@ -2,7 +2,8 @@
 
 Own copy of ``medtok_tpu/data/text.py`` (pure Python): BasicTokenizer +
 greedy longest-match-first WordPiece with '##' continuations, [CLS]/[SEP]
-wrapping and [UNK] for unmatchable tokens. The port has no C++ fast path.
+wrapping and [UNK] for unmatchable tokens. ``data/native_text.py`` encodes
+ASCII texts in C++ with the same ids.
 """
 
 from __future__ import annotations

@@ -42,6 +42,37 @@ class CodeBatch(NamedTuple):
         return CodeBatch(*(one(x) for x in self))
 
 
+class CompactCodeBatch(NamedTuple):
+    """A CodeBatch in fewer bytes (``data/native.py``'s compact packers):
+    one value an edge and a per-graph edge count instead of three edge
+    arrays, the node mask as a per-graph node count. ``data/compact.py::
+    unpack_compact`` rebuilds the CodeBatch on the batch's device. uint16
+    payloads (the (src << 8) | dst edges at Ln <= 256, the dst stream and
+    the out-degrees) are held as int16 tensors of the same bytes. The aug
+    fields are None on the eval / export path."""
+
+    input_ids: torch.Tensor        # [B, Lt] int32 ([B, 0] when not wanted)
+    attention_mask: torch.Tensor   # [B, Lt] int32
+    node_ids: torch.Tensor         # [B, Ln] int32, front-packed
+    nn: torch.Tensor               # [B] int32 real-node count
+    edge_packed: torch.Tensor      # [E] int32 (src << 16) | dst; int16 holding
+    #                                uint16 (src << 8) | dst (Ln <= 256) or, with
+    #                                outdeg, the uint16 dst stream
+    ne: torch.Tensor               # [B] int32 real-edge count a graph
+    edge_packed_aug: torch.Tensor | None
+    ne_aug: torch.Tensor | None
+    code_indices: torch.Tensor     # [B] int32
+    outdeg: torch.Tensor | None = None      # [B, Ln] int16 holding uint16
+    #                                         out-degrees; edges grouped by src
+    outdeg_aug: torch.Tensor | None = None
+
+    def to(self, device: torch.device | str) -> "CompactCodeBatch":
+        """Every field on ``device``, copied with ``non_blocking``
+        (asynchronous from pinned memory); None stays."""
+        return CompactCodeBatch(*(None if x is None else x.to(device, non_blocking=True)
+                                  for x in self))
+
+
 class PackedTextBatch(NamedTuple):
     """A CodeBatch's texts packed into shared [R, P] encoder rows
     (``data/packing.py::pack_code_batch``)."""

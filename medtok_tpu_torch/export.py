@@ -4,7 +4,11 @@
 [num_rows, row_len] BERT rows (one text-encoder shape for the whole sweep,
 block-diagonal attention through kernel K2); the quantizer tail (four K1
 sweeps) runs on the group's codes padded by repetition to a code-count
-bucket. ``export_all``: the unpacked sweep, batches of ``batch_size`` codes
+bucket. The host ships each step's text rows as int16 when the vocabulary
+allows and its graphs as a compact batch (``make_batch_compact``: on the
+native route the C++ packer's pooled buffers, pinned for the card, copied
+asynchronously and fenced), which ``unpack_compact`` expands on the
+device. ``export_all``: the unpacked sweep, batches of ``batch_size`` codes
 in vocabulary order through the model's forward (a dense-attention BERT
 over each batch's padded texts, then the four K1 sweeps), the tail batch
 padded with repeats of its last code; ``packed=True`` takes the packed
@@ -22,6 +26,7 @@ import torch
 from torch.profiler import record_function
 
 from medtok_tpu_torch import resolve_device
+from medtok_tpu_torch.data.compact import unpack_compact
 from medtok_tpu_torch.data.dataset import MedCodeDataset
 from medtok_tpu_torch.data.packing import derive_packed_meta, iter_groups
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
@@ -87,7 +92,10 @@ def export_all_packed(
     tokens = np.zeros((n, 4, k), np.int32)
     weights = np.zeros((n, 4, k), np.float32)
 
-    dataset.warm_cache()
+    dataset.warm_cache(tokenize=True)
+    # int16 text rows when every id fits, widened to int32 on the device
+    text_dtype = np.int16 if model.cfg.text.vocab_size < 32768 else np.int32
+    pinned = dev.type == "cuda"
     inflight = []
 
     def drain(item):
@@ -109,13 +117,18 @@ def export_all_packed(
             lens = torch.from_numpy(np.concatenate([lens_np, np.repeat(lens_np[-1:], pad)]))
         with record_function("export.make_batch"):
             codes = np.concatenate([group, np.repeat(group[-1:], pad)])
-            batch = dataset.make_batch(codes.tolist())
+            compact, fence = dataset.make_batch_compact(codes.tolist(), want_text=False,
+                                                        pinned=pinned)
         with record_function("export.to_device"):
-            batch = batch.to(dev)
-            ids = torch.from_numpy(ids_np).to(dev)
+            compact = compact.to(dev)
+            # the pooled buffers are reused after their copies are done
+            fence.set_fence(dev)
+            ids = torch.from_numpy(ids_np.astype(text_dtype)).to(dev).to(torch.int32)
             seg, pos, gidx, tmask = derive_packed_meta(
                 base.to(dev), lens.to(dev), num_rows=num_rows, row_len=row_len,
                 lmax=lmax)
+        with record_function("export.unpack"):
+            batch = unpack_compact(compact)
         with record_function("export.bert"):
             flat = model.encode_text_packed(ids, seg, pos)
         with record_function("export.quantize"):

@@ -211,3 +211,61 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert run.returncode != 0
     assert '"ok"' not in run.stdout
+
+
+def test_host_runtime_loads_only_the_ports_own_build():
+    """The C++ host runtime is built from the port's copies under
+    medtok_tpu_torch/csrc/host/ into medtok_tpu_torch/_build/ and loaded
+    from there; no loader names a path outside the package (the JAX
+    package's csrc/*.so included)."""
+    from medtok_tpu_torch.data import host_build, native, native_text
+
+    pkg = Path(medtok_tpu_torch.__file__).parent
+    assert host_build.SRC_DIR == pkg / "csrc" / "host"
+    assert host_build.BUILD_DIR == _build.BUILD_DIR == pkg / "_build"
+    assert {p.name for p in host_build.SRC_DIR.glob("*.cpp")} == {"medtok_graph.cpp",
+                                                                 "wordpiece.cpp"}
+    # the nvcc build globs only the top level of csrc/
+    assert not any(p.suffix == ".cpp" for p in _build._sources())
+    loaded = [Path(native._load()._name), Path(native_text._load()._name)]
+    for name, path in zip(("medtok_graph", "wordpiece"), loaded):
+        assert path == host_build.library_path(name) and path.parent == pkg / "_build"
+    for mod in (host_build, native, native_text):
+        text = Path(mod.__file__).read_text()
+        assert "parents[2]" not in text and "libmedtok_graph.so" not in text
+
+
+def test_a_failing_compiler_raises_rather_than_taking_the_numpy_route(monkeypatch, tmp_path):
+    from medtok_tpu_torch.config import DataConfig
+    from medtok_tpu_torch.data import host_build, native, native_text
+    from medtok_tpu_torch.data.dataset import MedCodeDataset
+    from medtok_tpu_torch.data.kg import KnowledgeGraph
+    from medtok_tpu_torch.data.text import WordPieceTokenizer
+
+    cc = tmp_path / "cc"
+    cc.write_text('#!/bin/sh\ncase "$*" in *" -o "*) echo "cc: cannot compile here" >&2; '
+                  'exit 1;; esac\necho "-march= x86-64"\n')
+    cc.chmod(0o755)
+    monkeypatch.setattr(host_build, "GXX", str(cc))
+    monkeypatch.setattr(host_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(host_build, "_libs", {})
+    monkeypatch.setattr(host_build, "_target", None)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native_text, "_lib", None)
+    kg = KnowledgeGraph(np.array([0, 1]), np.array([1, 2]), np.zeros(2, np.int32),
+                        {"r": 0}, 3)
+    tok = WordPieceTokenizer({"[UNK]": 0, "[CLS]": 1, "[SEP]": 2, "[PAD]": 3, "a": 4})
+    args = (kg, ["C0"], ["a"], [[0, 1]], tok)
+    with pytest.raises(RuntimeError, match="cannot compile here"):
+        MedCodeDataset(*args, cfg=DataConfig())
+    assert not list((tmp_path / "build").glob("*.so"))
+    with pytest.raises(RuntimeError, match="cannot compile here"):
+        native_text.NativeWordPiece(tok)
+    # the numpy route is taken only when asked for
+    ds = MedCodeDataset(*args, cfg=DataConfig(), native=False)
+    assert ds.native is None and ds.make_batch([0]).edge_weight.sum() == 1
+    # no compiler at all raises too
+    monkeypatch.setattr(host_build, "GXX", str(tmp_path / "missing-g++"))
+    monkeypatch.setattr(host_build, "_target", None)
+    with pytest.raises(RuntimeError, match="was not found"):
+        MedCodeDataset(*args, cfg=DataConfig())

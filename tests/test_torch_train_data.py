@@ -1,5 +1,5 @@
-"""The training data path against the JAX package's numpy route, bit for
-bit: edge dropout, ``collate`` with an edge-dropout generator,
+"""The training data path's numpy route (``native=False``) against the JAX
+package's numpy route, bit for bit: edge dropout, ``collate`` with an edge-dropout generator,
 ``make_batch(aug_seed=)``, ``epoch_batches`` and the packing of a training
 batch's texts (``pack_code_batch``)."""
 
@@ -59,7 +59,7 @@ def datasets(tmp_path_factory):
                                    max_pkg_nodes=30)
     kg = synthetic_kg(rng, num_nodes=KG_NODES, num_edges=40_000, local_frac=0.8)
     ds = MedCodeDataset.from_columns(kg, cols, WordPieceTokenizer(vocab),
-                                     cfg=DataConfig(**DATA))
+                                     cfg=DataConfig(**DATA), native=False)
     return ds, jds
 
 
