@@ -169,7 +169,25 @@ Phases, each fatal on failure:
      earlier copies are queued behind a stall, each device batch against a
      fresh host pack; the same run without fences is logged); the export's
      host half (WordPiece, text rows and compact packs, no model) at 600,000
-     synthetic codes, in seconds and codes/s.
+     synthetic codes, in seconds and codes/s;
+ 20. the training variants: a GAT + kmeans + revival model at the verify
+     recipe's widths in fp32, three packed steps on the card against the
+     same steps on the CPU, each from the CPU's state (loss terms within
+     1e-5, parameters and the EMA buffers within 1e-5 of each tensor's
+     largest, noise-gradient elements set aside and counted, the usage
+     FIFO equal), then its export by phase 5's tie-gap rule; kmeans at
+     the init's full shape (2048 rows against 21000 means drawn with
+     replacement): the duplicated means' columns bit-identical on the
+     card, the first assignments, each sample's final counts and the
+     means (1e-6) the CPU's; then at ModelConfig() width over phase 5's
+     data as a user's files: medtok_tpu_torch.cli.train
+     --graph-model-name GAT --kmeans --codebook-revival (packed, bf16,
+     batch 1024, 4 steps: step ms, codes/s, peak memory, 6 K1 and 12 K2
+     launches a step, K1 on the first step's six sweeps of the k-means
+     codebook held to its plain version), cli.export --workdir of it
+     (launches, K2 on its first packing held to its plain version),
+     MedTok.from_checkpoint of it, and cli.train --text-dropout-in-train
+     (GCN, unpacked, 3 steps: 6 K1 and no K2 a step).
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
@@ -1125,16 +1143,19 @@ def check_reference(model, dataset, dev, n_codes: int = 64,
     from medtok_tpu_torch.data.dataset import MedCodeDataset
     from medtok_tpu_torch.export import export_all_packed
     from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+    from medtok_tpu_torch.utils.checkpoint import load_weights
 
     sub = MedCodeDataset(dataset.kg, dataset.med_codes[:n_codes], dataset.descs[:n_codes],
                          dataset.pkg_index_lists[:n_codes], dataset.tokenizer,
                          cfg=dataset.cfg)
     cfg32 = dataclasses.replace(model.cfg, compute_dtype="float32")
     state = {k: v.float() for k, v in model.state_dict().items()}
+    # the buffers the state_dict leaves out: the usage FIFO, the EMA codebook
+    buffers = {k: v for k, v in model.named_buffers() if k not in state}
     out = []
     for where in (dev, torch.device("cpu")):
-        m = MultimodalTokenizer(cfg32, device=where)
-        m.load_state_dict(state)
+        m = load_weights(MultimodalTokenizer(cfg32, device=where),
+                         {"model": state, "buffers": buffers})
         out.append(export_all_packed(m, sub, device=where, num_rows=8))
         del m
     summary = hold_to_tie_rule(*out, label)
@@ -3198,14 +3219,11 @@ def ehr_counts(patients: dict) -> dict:
             "events": sum(v.num_events for v in visits)}
 
 
-def write_export_workdir(root: Path, model_state: dict, buffers: dict, cfg, dataset) -> Path:
-    """A workdir the export CLI reads (args.json + one checkpoint) for phase
-    5's model in fp32 over phase 5's data, written as a user's files:
-    kg.csv, codes.jsonl, vocab.txt."""
+def write_user_files(root: Path, dataset):
+    """Phase 5's data as a user's files under ``root``: kg.csv, codes.jsonl,
+    vocab.txt. Returns phase 5's DataConfig with their paths."""
     import numpy as np
-    import torch
 
-    from medtok_tpu_torch.config import MedTokConfig
     from medtok_tpu_torch.data.dataset import write_jsonl
 
     kg = dataset.kg
@@ -3218,9 +3236,20 @@ def write_export_workdir(root: Path, model_state: dict, buffers: dict, cfg, data
                  "pkg_index_list": dataset.pkg_index_lists}, root / "codes.jsonl")
     vocab = dataset.tokenizer.vocab
     (root / "vocab.txt").write_text("\n".join(sorted(vocab, key=vocab.get)) + "\n")
-    data = dataclasses.replace(dataset.cfg, kg_path=str(root / "kg.csv"),
+    return dataclasses.replace(dataset.cfg, kg_path=str(root / "kg.csv"),
                                med_codes_pkg_map_path=str(root / "codes.jsonl"),
                                text_vocab_path=str(root / "vocab.txt"))
+
+
+def write_export_workdir(root: Path, model_state: dict, buffers: dict, cfg, dataset) -> Path:
+    """A workdir the export CLI reads (args.json + one checkpoint) for phase
+    5's model in fp32 over phase 5's data, written as a user's files:
+    kg.csv, codes.jsonl, vocab.txt."""
+    import torch
+
+    from medtok_tpu_torch.config import MedTokConfig
+
+    data = write_user_files(root, dataset)
     workdir = root / "export_workdir"
     (workdir / "checkpoints").mkdir(parents=True)
     MedTokConfig(model=dataclasses.replace(cfg.model, compute_dtype="float32"),
@@ -3666,6 +3695,386 @@ def run_host_runtime(dataset, dataset_np, dev, seed: int) -> None:
     log(f"host runtime: phase {time.perf_counter() - phase_t0:.2f} s")
 
 
+# ------------------------------------------------------ training variants --
+
+VARIANT_STEPS = 4       # cli.train steps of the GAT + kmeans + revival run
+DROPOUT_STEPS = 3       # cli.train steps of the text-dropout run
+VARIANT_REF_STEPS = 3   # card-against-CPU steps of the small fp32 variant
+VARIANT_REF_CODES = 64  # codes a batch of the small fp32 variant
+# rows the small fp32 variant starts dead (the others at the share 1 / C): a
+# row revived twice toward one feature lands within about 1e-6 of the other
+# rows revived twice toward it, where a card / CPU rounding difference may
+# pick either, so only a few rows start dead (tests/test_torch_train_variants.py)
+VARIANT_REVIVED = (3, 17, 40, 71, 88)
+KMEANS_SAMPLES = 2 * TRAIN_BATCH   # the init's rows at batch 1024: text and graph
+
+
+def variant_model_config():
+    """The verify recipe's widths with the GAT encoder and the EMA codebook
+    (+ revival), fp32, cross-attention dropout 0."""
+    from medtok_tpu_torch.config import (
+        GraphEncoderConfig,
+        ModelConfig,
+        QuantizerConfig,
+        TextEncoderConfig,
+    )
+
+    return ModelConfig(
+        text=TextEncoderConfig(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64),
+        graph=GraphEncoderConfig(model_name="GAT", in_channels=8, hidden_channels=16,
+                                 out_channels=16),
+        quantizer=QuantizerConfig(codebook_size=90, codebook_embed_dim=16,
+                                  cross_attn_dropout=0.0, use_kmeans=True,
+                                  codebook_revival=True),
+        compute_dtype="float32")
+
+
+def check_variant_reference(dataset, dev) -> None:
+    """Three packed fp32 steps of a GAT + kmeans + revival model at the
+    verify recipe's widths, kernels on the card against the plain versions
+    on the CPU (the EMA codebook random unit rows, the VARIANT_REVIVED rows
+    dead), each step from the CPU's state after the one before: loss terms
+    within 1e-5 relative (or 2e-6 absolute, an InfoNCE term being a
+    difference of values near 14); every trainable tensor and the EMA
+    buffers within 1e-5 of the tensor's largest, the usage FIFO equal.
+    Elements whose gradient is below 1e-6 of its tensor's largest on both
+    sides, and not 0 on both (rounding noise: the key biases, whose exact
+    gradient is 0, measured against the key weight's, and conv2.att_dst
+    where its shift cancels), are set aside and counted: Adam moves them by
+    about lr either way. Then
+    the trained model's fp32 export, card against CPU, by phase 5's tie-gap
+    rule."""
+    import torch
+
+    from medtok_tpu_torch.config import MedTokConfig, TrainConfig
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.train.trainer import Trainer, trainable_parameters
+    from medtok_tpu_torch.utils.checkpoint import load_weights
+
+    t0 = time.perf_counter()
+    cfg = MedTokConfig(model=variant_model_config(), data=dataset.cfg,
+                       train=TrainConfig(packed_text=True, global_batch_size=VARIANT_REF_CODES,
+                                         lr=1e-3, max_grad_norm=0.5))
+    cpu = Trainer(cfg, device="cpu")
+    card = Trainer(cfg, device=dev)
+    cpu_state, card_state = cpu.init_state(), card.init_state()
+    q = cpu.model.quantize
+    C = q.cfg.codebook_size
+    x = torch.randn(q.ema_codebook.shape, generator=torch.Generator().manual_seed(7))
+    q.ema_codebook = x / x.norm(dim=-1, keepdim=True)
+    q.ema_embed_prob = torch.full((C,), 1.0 / C).index_fill_(
+        0, torch.tensor(VARIANT_REVIVED), 0.0)
+    start = q.ema_codebook.clone()
+    batches = [dataset.make_batch(list(range(i * VARIANT_REF_CODES,
+                                             (i + 1) * VARIANT_REF_CODES)), aug_seed=i + 1)
+               for i in range(VARIANT_REF_STEPS)]
+    card_params = dict(trainable_parameters(card.model))
+    loss_err = param_err = buf_err = 0.0
+    set_aside = {}
+    fused_topk_l2.launches = 0
+    packed_segment_attention.launches = 0
+    for b in batches:
+        # each step starts the card from the CPU's state: the CPU's own
+        # scatter-adds (index_put_ with atomics) round in a varying order, and
+        # Adam's first steps move a noise-gradient element by about lr either
+        # way, so two runs drift apart over steps; one step at a time holds
+        # each step's computation
+        sd = cpu.model.state_dict()
+        load_weights(card.model, {"model": sd, "buffers": {
+            n: t for n, t in cpu.model.named_buffers() if n not in sd}})
+        card_state.opt_state.count = cpu_state.opt_state.count
+        with torch.no_grad():
+            for dst, src in ((card_state.opt_state.mu, cpu_state.opt_state.mu),
+                             (card_state.opt_state.nu, cpu_state.opt_state.nu)):
+                for d, t in zip(dst, src):
+                    d.copy_(t)
+        cpu_state, m_cpu = cpu.step_fn(cpu_state, b.to("cpu"), cpu.pack(b).to("cpu"))
+        card_state, m_card = card.step_fn(card_state, b.to(dev), card.pack(b).to(dev))
+        # within 1e-5 relative, or 2e-6 absolute: an InfoNCE term is the
+        # difference of two values near 1 / 0.07, whose fp32 ulp is ~1e-6
+        for k, v in m_cpu.items():
+            x, y = float(m_card[k]), float(v)
+            check(abs(x - y) <= max(1e-5 * abs(y), 2e-6),
+                  f"variant reference: {k} {x} on the card, {y} on the CPU")
+            loss_err = max(loss_err, abs(x - y) / max(abs(y), 1e-6))
+        grads = {name: p.grad.abs() for name, p in trainable_parameters(cpu.model)}
+        for name, p in trainable_parameters(cpu.model):
+            # the key bias's exact gradient is 0: its noise is measured
+            # against the key weight's gradient. An element is noise when
+            # both sides' gradients are below 1e-6 of the largest and not
+            # both exactly 0 (rows of nodes no graph holds stay 0 on both)
+            a, b = grads[name], card_params[name].grad.abs().cpu()
+            ref = grads[name.replace("bias", "weight")] if name.endswith("k_proj.bias") else a
+            small = 1e-6 * ref.max()
+            keep = ~((a < small) & (b < small) & ((a > 0) | (b > 0)))
+            set_aside[name] = set_aside.get(name, 0) + int((~keep).sum())
+            diff = (card_params[name].detach().cpu() - p.detach()).abs()[keep]
+            if diff.numel():
+                param_err = max(param_err, float(diff.max() / p.detach().abs().max()))
+        qc = card.model.quantize
+        buf_err = max(buf_err, *(float((getattr(qc, k).cpu() - getattr(q, k)).abs().max()
+                                       / getattr(q, k).abs().max())
+                                 for k in ("ema_codebook", "ema_cluster", "ema_embed_prob")))
+        check(torch.equal(qc.codebook_used.cpu(), q.codebook_used),
+              "variant reference: the usage FIFO differs")
+    launches = {"topk_l2": fused_topk_l2.launches,
+                "segment_attention": packed_segment_attention.launches}
+    want = {"topk_l2": TRAIN_SWEEPS * VARIANT_REF_STEPS,
+            "segment_attention": 2 * VARIANT_REF_STEPS}
+    check(launches == want, f"variant reference: launches {launches} != {want}")
+    check(param_err <= 1e-5, f"variant reference: parameters off by {param_err:.3e}")
+    check(buf_err <= 1e-5, f"variant reference: EMA buffers off by {buf_err:.3e}")
+    set_aside = {k: v for k, v in set_aside.items() if v}
+    revived = set(torch.nonzero((q.ema_codebook - start).norm(dim=-1) > 0.5)
+                  .flatten().tolist())
+    check(bool(revived) and revived <= set(VARIANT_REVIVED),
+          f"variant reference: revived rows {revived}")
+    log(f"variant reference (GAT + kmeans + revival, verify-recipe widths, fp32, "
+        f"{VARIANT_REF_STEPS} packed steps of {VARIANT_REF_CODES} codes, card vs CPU): loss "
+        f"terms within {loss_err:.3e} relative, parameters within {param_err:.3e} of each tensor's "
+        f"largest ({sum(set_aside.values())} noise elements set aside: {set_aside}), EMA "
+        f"buffers within {buf_err:.3e}, usage FIFO equal; rows {sorted(revived)} revived; "
+        f"launches {launches}; {time.perf_counter() - t0:.2f} s")
+    check_reference(card.model, dataset, dev,
+                    label="GAT + kmeans + revival after 3 steps, fp32")
+
+
+def check_kmeans_full(dev) -> dict:
+    """The k-means init at ModelConfig() and batch 1024: KMEANS_SAMPLES unit
+    rows against 21000 means drawn with replacement (so duplicated). The
+    first product's duplicated columns must be bit-identical on the card
+    (else an exact tie breaks another way than on the CPU) and the first
+    assignments equal the CPU's; after 10 iterations the means are within
+    1e-6 of the CPU's and each sample's rows (those drawn as its copies)
+    hold the CPU's counts. Returns the card's and the CPU's times."""
+    import torch
+
+    from medtok_tpu_torch.config import QuantizerConfig
+    from medtok_tpu_torch.ops.ema import kmeans, kmeans_init_indices
+    from medtok_tpu_torch.ops.vq import l2_normalize
+
+    qc = QuantizerConfig()
+    C, D = qc.codebook_size, qc.codebook_embed_dim
+    samples = l2_normalize(torch.randn(KMEANS_SAMPLES, D,
+                                       generator=torch.Generator().manual_seed(20)))
+    idx = kmeans_init_indices(KMEANS_SAMPLES, C)
+    first = torch.full((KMEANS_SAMPLES,), -1, dtype=torch.long)
+    for j, i in enumerate(idx.tolist()):       # each column's first copy
+        if first[i] < 0:
+            first[i] = j
+    first_col = first[idx].to(dev)
+    s_dev = samples.to(dev)
+    sims = s_dev @ s_dev[idx.to(dev)].T
+    dup = int((first_col != torch.arange(C, device=dev)).sum())
+    check(torch.equal(sims, sims[:, first_col]),
+          "kmeans: duplicated means' columns of the card's product differ")
+    assign = torch.argmax(sims, dim=-1).cpu()
+    check(torch.equal(assign, torch.argmax(samples @ samples[idx].T, dim=-1)),
+          "kmeans: the first assignments differ from the CPU's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means, bins = kmeans(s_dev, C, 10, True, init_idx=idx)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_means, cpu_bins = kmeans(samples, C, 10, True, init_idx=idx)
+    cpu_s = time.perf_counter() - t0
+    # from the second iteration a sample meets its cluster's re-normalised
+    # mean and the untouched copies of itself, equal but for the last bit:
+    # which one wins turns on rounding, so the bins are held per sample (the
+    # rows that started as its copies), the means row by row
+    bins = bins.cpu()
+    per_sample = [torch.zeros(KMEANS_SAMPLES).index_add_(0, idx, b) for b in (bins, cpu_bins)]
+    check(torch.equal(*per_sample), "kmeans: a sample's rows hold other counts than on the CPU")
+    err = float((means.cpu() - cpu_means).abs().max())
+    check(err <= 1e-6, f"kmeans: means off by {err:.3e}")
+    log(f"kmeans ({KMEANS_SAMPLES} x {C} x {D}, cosine, 10 iterations; {dup} of the {C} "
+        f"means are duplicates): duplicated columns bit-identical on the card, first "
+        f"assignments equal to the CPU's; final bins equal per sample's rows "
+        f"({int((bins != cpu_bins).sum())} rows differ, each between copies of one sample), "
+        f"means within {err:.3e}; card {1e3 * card_s:.3f} ms, CPU {1e3 * cpu_s:.3f} ms")
+    return dict(card_ms=1e3 * card_s, cpu_ms=1e3 * cpu_s)
+
+
+def variant_cli_run(label: str, argv: list, want: dict) -> tuple[Path, dict]:
+    """One cli.train run in this process: its wall, peak memory, launches
+    (K1 and K2 counted from 0), and the step times from metrics.jsonl
+    (steps_per_sec of each step past the first: batch build, pack, copies
+    and step)."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.cli import train as train_cli
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    fused_topk_l2.launches = 0
+    packed_segment_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    workdir = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"topk_l2": fused_topk_l2.launches,
+                "segment_attention": packed_segment_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    metrics = [json.loads(line) for line in open(workdir / "metrics.jsonl")]
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()),
+          f"{label}: non-finite metrics {metrics}")
+    step_ms = [1e3 / m["steps_per_sec"] for m in metrics[1:]]
+    run = dict(wall_s=wall, peak_gib=peak, launches=launches, step_ms=float(np.mean(step_ms)),
+               codes_per_s=TRAIN_BATCH * 1e3 / float(np.mean(step_ms)), losses=losses)
+    log(f"{label}: {len(metrics)} steps at batch {TRAIN_BATCH}, {wall:.3f} s wall (the "
+        f"CLI's reads and save inside); steps past the first {[round(v, 3) for v in step_ms]} "
+        f"ms: {run['step_ms']:.3f} ms/step, {run['codes_per_s']:.1f} codes/s (batch build, "
+        f"pack, copies, step); peak {peak:.2f} GiB; launches {launches}; losses "
+        f"{[round(v, 4) for v in losses]}")
+    return workdir, run
+
+
+def run_variant_clis(dataset, dev, gen) -> dict:
+    """(a) cli.train --graph-model-name GAT --kmeans --codebook-revival at
+    ModelConfig() width (bf16, packed, batch 1024) for VARIANT_STEPS steps
+    over phase 5's data as a user's files, then cli.export --workdir of it
+    over the same codes; (b) cli.train --text-dropout-in-train (GCN,
+    unpacked) for DROPOUT_STEPS steps. K1 on the first step's six sweeps
+    (the k-means-initialised EMA codebook, duplicated rows and all) and K2
+    on the export's first packing are held to their plain versions."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.api import MedTok
+    from medtok_tpu_torch.cli import export as export_cli
+    from medtok_tpu_torch.data.dataset import MedCodeDataset, epoch_batches
+    from medtok_tpu_torch.data.kg import KnowledgeGraph
+    from medtok_tpu_torch.data.text import WordPieceTokenizer
+    from medtok_tpu_torch.models import bert
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.utils.checkpoint import CheckpointManager
+
+    out = {}
+    n = len(dataset)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data = write_user_files(root, dataset)
+        log(f"variant CLI files: phase 5's {n} codes and {len(dataset.kg.edge_src)} KG edges "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        common = ["--kg-path", data.kg_path, "--med-codes-pkg-map-path",
+                  data.med_codes_pkg_map_path, "--text-vocab", data.text_vocab_path,
+                  "--global-batch-size", str(TRAIN_BATCH), "--epochs", "1",
+                  "--ckpt-every", "1000"]
+        # (a), recording the first step's K1 inputs
+        k1_inputs = []
+        distance_topk = vq.distance_topk
+
+        def recorded(z_n, e_n, k, **kw):
+            if len(k1_inputs) < TRAIN_SWEEPS:
+                k1_inputs.append((z_n.detach(), e_n.detach(), k))
+            return distance_topk(z_n, e_n, k, **kw)
+
+        vq.distance_topk = recorded
+        try:
+            workdir, out["train"] = variant_cli_run(
+                "cli.train GAT + kmeans + revival", [
+                    *common, "--results-dir", str(root / "a"), "--graph-model-name", "GAT",
+                    "--kmeans", "--codebook-revival", "--max-steps", str(VARIANT_STEPS)],
+                {"topk_l2": TRAIN_SWEEPS * VARIANT_STEPS,
+                 "segment_attention": 12 * VARIANT_STEPS})
+        finally:
+            vq.distance_topk = distance_topk
+        check("kmeans codebook init done" in (workdir / "log.txt").read_text(),
+              "cli.train --kmeans: no k-means init at step 0")
+        ck = CheckpointManager(workdir).load()
+        check("quantize.codebook" not in ck["model"]
+              and {"quantize.ema_codebook", "quantize.ema_embed_prob"} <= set(ck["buffers"]),
+              "cli.train --kmeans: the checkpoint lacks the EMA codebook")
+        cb = ck["buffers"]["quantize.ema_codebook"].float().cpu()
+        check(bool(torch.isfinite(cb).all())
+              and float((cb.norm(dim=-1) - 1).abs().max()) < 1e-4,
+              "cli.train --kmeans: the EMA codebook's rows are not unit rows")
+        for i, (z, e, k) in enumerate(k1_inputs):
+            check_k1_case(z, e, f"GAT + kmeans training sweep {i}", k=k)
+        # the export of that workdir, recording its first K2 packing
+        segs = []
+
+        def seg_recorded(q, k, v, seg, **kw):
+            if not segs:
+                segs.append(seg.detach())
+            return packed_segment_attention(q, k, v, seg, **kw)
+
+        fused_topk_l2.launches = 0
+        packed_segment_attention.launches = 0
+        bert.packed_segment_attention = seg_recorded
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            arrays = export_cli.main(["--workdir", str(workdir)])
+        finally:
+            bert.packed_segment_attention = packed_segment_attention
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"topk_l2": fused_topk_l2.launches,
+                    "segment_attention": packed_segment_attention.launches}
+        check(all(v > 0 for v in launches.values()), f"variant export: launches {launches}")
+        emb, tok = arrays["embeddings_all"], arrays["tokens_all"]
+        check(emb.shape == (n, 4 * D) and np.isfinite(emb).all()
+              and tok.min() >= 0 and tok.max() < 21000,
+              f"variant export: embeddings {emb.shape}, tokens in [{tok.min()}, {tok.max()}]")
+        out["export"] = dict(wall_s=wall, launches=launches)
+        log(f"cli.export --workdir of the GAT + kmeans run: {n} codes in {wall:.3f} s "
+            f"({n / wall:.1f} codes/s, the CLI's reads inside), launches {launches}; "
+            f"{len(np.unique(tok[:, 2:]))} distinct shared tokens")
+        seg = segs[0]
+        check_segment_case(gen, dev, seg, False,
+                           f"cli.export packing [{seg.shape[0]}, {seg.shape[1]}]")
+        cfg = CheckpointManager.load_config(workdir)
+        ds = MedCodeDataset.from_path(
+            KnowledgeGraph.from_csv(cfg.data.kg_path), cfg.data.med_codes_pkg_map_path,
+            WordPieceTokenizer.from_vocab_file(cfg.data.text_vocab_path), cfg=cfg.data)
+        first = next(epoch_batches(ds, batch_size=TRAIN_BATCH, seed=cfg.train.global_seed))
+        log(f"variant CLIs: the CLI's DataConfig buckets (text {cfg.data.text_buckets}, nodes "
+            f"{cfg.data.node_buckets}, edges {cfg.data.edge_buckets}); the first training "
+            f"batch's (Lt, Ln, Epg) = ({first.input_ids.shape[1]}, {first.node_ids.shape[1]}, "
+            f"{first.edge_src.shape[0] // TRAIN_BATCH}), "
+            f"{int(np.asarray(first.attention_mask).sum())} text tokens of "
+            f"{first.input_ids.size} slots")
+        api = MedTok.from_checkpoint(workdir, ds, device=dev)
+        check(torch.equal(api.model.quantize.ema_codebook.cpu(), cb),
+              "MedTok.from_checkpoint: the EMA codebook differs from the checkpoint's")
+        got = api.tokenize_batch(ds.med_codes[:3])
+        check(np.isfinite(got.embedding).all(), "MedTok.from_checkpoint: non-finite rows")
+        log("MedTok.from_checkpoint of the GAT + kmeans run: the EMA codebook restored bit "
+            "for bit, 3 codes tokenized")
+        del api
+        # (b)
+        _, out["dropout"] = variant_cli_run(
+            "cli.train --text-dropout-in-train", [
+                *common, "--results-dir", str(root / "b"), "--text-dropout-in-train",
+                "--max-steps", str(DROPOUT_STEPS)],
+            {"topk_l2": TRAIN_SWEEPS * DROPOUT_STEPS, "segment_attention": 0})
+    return out
+
+
+def run_training_variants(dataset, dev, gen) -> dict:
+    """Phase 20: the training variants."""
+    phase_t0 = time.perf_counter()
+    check_variant_reference(dataset, dev)
+    kmeans_times = check_kmeans_full(dev)
+    out = run_variant_clis(dataset, dev, gen)
+    out["kmeans"] = kmeans_times
+    log(f"training variants: phase {time.perf_counter() - phase_t0:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3761,6 +4170,7 @@ def main(argv=None) -> int:
     ehr_downstream = run_ehr_downstream(model_state, buffers, cfg, dataset, table, args.seed,
                                         dev)
     run_host_runtime(dataset, dataset_np, dev, args.seed)
+    variants = run_training_variants(dataset, dev, gen)
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]
@@ -3773,6 +4183,14 @@ def main(argv=None) -> int:
         "export (phase 5)": launches["topk_l2"],
         "cli.export --packed off (phase 18)":
             ehr_downstream["export"]["off"]["launches"]["topk_l2"]}
+    k2["launches_by_path"] = {"export (phase 5)": launches["segment_attention"]}
+    # phase 20's paths: the GAT + kmeans + revival run and its export, and
+    # the text-dropout run (its BERT is dense: no K2)
+    for label, key in (("cli.train GAT + kmeans + revival (phase 20)", "train"),
+                       ("cli.export --workdir of it (phase 20)", "export"),
+                       ("cli.train --text-dropout-in-train (phase 20)", "dropout")):
+        k1["launches_by_path"][label] = variants[key]["launches"]["topk_l2"]
+        k2["launches_by_path"][label] = variants[key]["launches"]["segment_attention"]
     for row, key in zip(k3, ("fwd", "dq", "dkv")):
         row["launches_by_path"] = {"EHRTrainer.fit + evaluate (phase 8)": k3_launches[key],
                                    "cli.ehr (phase 18)": ehr_downstream["cli"]["k3"][key]}

@@ -17,9 +17,10 @@ sweep takes no batch size). The vocabulary is a ``.parquet`` (needs pandas) or a
 copy of its columns; the KG is read without pandas. Writes
 embeddings_all.npy / tokens_all.npy / weights_all.npy in vocabulary order.
 Runs on CUDA unless ``--device`` names another device; without a GPU and
-without ``--device`` it stops before loading anything. fp32 matmuls and
-convolutions run in full fp32 (TF32 off), so fp32 exports stay comparable
-with the JAX package's.
+without ``--device`` it stops before loading anything. One device:
+``--mesh-dp`` (the JAX CLI's flag) takes -1 or 1; above 1 raises. fp32
+matmuls and convolutions run in full fp32 (TF32 off), so fp32 exports stay
+comparable with the JAX package's.
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ def main(argv=None) -> dict:
                    help="sequence-packed text encoder (the default) or the unpacked "
                         "sweep; the outputs agree but for fp32 ties")
     p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--mesh-dp", type=int, default=-1,
+                   help="-1 or 1: one device; above 1 raises (the data-parallel export "
+                        "is not ported)")
     p.add_argument("--out-dir", default=None, help="default: the workdir, or '.'")
     args = p.parse_args(argv)
     given = [f for f in _FILES if getattr(args, f) is not None]
@@ -55,6 +59,9 @@ def main(argv=None) -> dict:
                 + ", --".join(given))
     if args.workdir is None and len(given) < len(_FILES):
         p.error("give --workdir, or all of --" + ", --".join(_FILES))
+    if args.mesh_dp > 1:
+        raise NotImplementedError(f"mesh_dp={args.mesh_dp}: the export runs on one device "
+                                  "(the data-parallel export is not ported)")
 
     import torch
 

@@ -17,8 +17,9 @@ kernel in the JAX layout [256, H], the transpose of the Linear weight) and
 LoRA adapters, ``lora_a`` [in, r] and ``lora_b`` [r, out], and the
 projector). ``eval`` loads no adapter, as the JAX CLI loads none. Runs on
 CUDA unless ``--device`` names another device; without a GPU and without
-``--device`` it stops before reading anything. fp32 matmuls run in full
-fp32 (TF32 off).
+``--device`` it stops before reading anything. One device: ``--mesh-dp``
+and ``--mesh-tp`` (the JAX CLI's flags) take -1 or 1; above 1 raises.
+fp32 matmuls run in full fp32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="random tiny LLM (offline smoke mode)")
     p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--mesh-dp", type=int, default=1,
+                   help="-1 or 1: one device; above 1 raises (data-parallel finetuning "
+                        "is not ported)")
+    p.add_argument("--mesh-tp", type=int, default=1,
+                   help="-1 or 1: one device; above 1 raises (the tensor-parallel LLM "
+                        "is not ported)")
     p.add_argument("--lora-r", type=int, default=16)
     p.add_argument("--lora-alpha", type=float, default=32)
     p.add_argument("--cutoff-len", type=int, default=256)
@@ -66,6 +73,9 @@ def main(argv=None) -> dict:
     """Run a mode; returns ``{"losses": [...], "adapter_path": ...}`` after
     finetune and ``{"accuracy": ..., "predictions": [...]}`` after eval."""
     args = build_parser().parse_args(argv)
+    if args.mesh_dp > 1 or args.mesh_tp > 1:
+        raise NotImplementedError(f"mesh_dp={args.mesh_dp}, mesh_tp={args.mesh_tp}: QA runs "
+                                  "on one device (the multi-card QA mesh is not ported)")
     if not args.tiny and not args.tokenizer_json:
         raise SystemExit(
             "--tokenizer-json is required for non --tiny runs "

@@ -12,9 +12,13 @@ config winning over the flags. The vocabulary is a ``.parquet`` (needs
 pandas) or a ``.jsonl`` copy of its columns (``data/dataset.py``); the KG
 is read without pandas. Runs on CUDA unless ``--device`` names another
 device; without a GPU and without ``--device`` it stops before loading
-anything. Flags that select code the port does not have (the kmeans
-codebook, BERT dropout in training, a device mesh, wandb, multi-host
-bootstrapping, the GAT encoder) are refused at parse time.
+anything. ``--graph-model-name GAT`` trains the GAT encoder, ``--kmeans``
+the EMA codebook (set by cosine k-means over the first batch's shared
+features at step 0; a resumed run keeps its checkpointed codebook) and
+``--codebook-revival`` its dead-code revival, ``--text-dropout-in-train``
+BERT dropout (``--packed-text`` auto then goes off). Flags that select
+code the port does not have (a device mesh above one device, wandb,
+multi-host bootstrapping) are refused at parse time.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--commit-loss-beta", type=float, default=0.25)
     p.add_argument("--entropy-loss-ratio", type=float, default=0.0)
     p.add_argument("--kmeans", action="store_true",
-                   help="kmeans-init + norm-EMA codebook (not ported: refused)")
+                   help="kmeans-init + norm-EMA codebook")
     p.add_argument("--codebook-revival", action="store_true",
                    help="dead-code revival for the EMA codebook; requires --kmeans")
     p.add_argument("--shared-loss-beta", type=float, default=0.1)
@@ -79,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sequence-packed frozen-BERT forward in the train step (auto = "
                         "on unless --text-dropout-in-train is set)")
     p.add_argument("--text-dropout-in-train", action="store_true",
-                   help="BERT dropout in training (not ported: refused)")
+                   help="run the frozen BERT with dropout in training (unpacked; "
+                        "incompatible with --packed-text on)")
     p.add_argument("--edge-dropout-p", type=float, default=0.1,
                    help="graph-augmentation edge dropout")
     p.add_argument("--workdir", type=str, default=None,
@@ -96,13 +101,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.codebook_revival and not args.kmeans:
         p.error("--codebook-revival requires --kmeans")
-    refused = [(args.kmeans, "--kmeans (the EMA codebook and its kmeans init)"),
-               (args.text_dropout_in_train, "--text-dropout-in-train (BERT dropout)"),
-               (args.mesh_dp > 1 or args.mesh_tp > 1,
+    refused = [(args.mesh_dp > 1 or args.mesh_tp > 1,
                 "--mesh-dp / --mesh-tp above 1 (data-parallel training)"),
                (args.wandb, "--wandb (the wandb mirror; metrics go to metrics.jsonl)"),
-               (args.multihost, "--multihost"),
-               (args.graph_model_name == "GAT", "--graph-model-name GAT")]
+               (args.multihost, "--multihost")]
     for flag, what in refused:
         if flag:
             p.error(f"{what} is not ported to medtok_tpu_torch (ROADMAP Queue 1)")
@@ -182,7 +184,7 @@ def main(argv=None) -> Path:
     from medtok_tpu_torch.data.kg import KnowledgeGraph
     from medtok_tpu_torch.data.text import WordPieceTokenizer
     from medtok_tpu_torch.models.bert import convert_hf_bert
-    from medtok_tpu_torch.train.trainer import Trainer
+    from medtok_tpu_torch.train.trainer import Trainer, kmeans_init_codebook
     from medtok_tpu_torch.utils.checkpoint import CheckpointManager
     from medtok_tpu_torch.utils.logging import MetricsLogger, create_logger
 
@@ -221,8 +223,14 @@ def main(argv=None) -> Path:
         logger.info(f"Loading BERT weights from {args.bert_checkpoint}")
         sd = torch.load(args.bert_checkpoint, map_location="cpu", weights_only=True)
         trainer.model.text_model.load_state_dict(convert_hf_bert(sd, cfg.model.text))
-
     t = cfg.train
+    if cfg.model.quantizer.use_kmeans and state.step == 0:
+        # after the BERT weights: the init clusters the text encoder's features
+        first = next(iter(epoch_batches(dataset, batch_size=t.global_batch_size,
+                                        seed=t.global_seed, epoch=0)))
+        state = kmeans_init_codebook(trainer.model, state, [first])
+        logger.info("kmeans codebook init done")
+
     steps_per_epoch = len(dataset) // t.global_batch_size
     start_epoch = state.step // max(steps_per_epoch, 1)
     logger.info(f"Training for {t.epochs} epochs from epoch {start_epoch}...")

@@ -36,7 +36,7 @@ class TextEncoderConfig:
 
 @dataclass(frozen=True)
 class GraphEncoderConfig:
-    model_name: str = "GCN"  # "GCN" | "GAT" (GAT is not ported yet)
+    model_name: str = "GCN"  # "GCN" | "GAT"
     num_nodes: int = 130000
     in_channels: int = 64
     hidden_channels: int = 128

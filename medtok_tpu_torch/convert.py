@@ -10,6 +10,7 @@ module names), with these leaf renames:
     LayerNorm ``scale``         -> ``weight``
     Embed ``embedding``         -> ``weight``
     ``bias``, ``codebook``      -> unchanged
+    the GAT convs' attention vectors ``att_src``, ``att_dst`` [H, C] -> unchanged
     raw parameters ``miss_emb``, ``cls_emb`` (the EHR model's learned
     embedding rows, declared with ``self.param``) -> unchanged
     the QA Llama's raw parameters ``input_layernorm``,
@@ -26,7 +27,9 @@ A ``.npz`` holds the same tree flattened with ``/``-joined keys
 
 The whole flax variables dict ``{"params": ..., "usage": ...}`` also loads:
 its ``usage`` collection (``quantize/codebook_used``,
-``quantize/usage_counts``, int32) fills the quantizer's usage FIFO buffers.
+``quantize/usage_counts``, int32) fills the quantizer's usage FIFO buffers,
+and under ``use_kmeans`` its ``quantize/ema_codebook``, ``ema_cluster`` and
+(with revival) ``ema_embed_prob`` fill the EMA codebook's buffers.
 Values are cast to each tensor's dtype, so one tree loads into the eval
 model (parameters in the compute dtype) and into the training model (fp32
 parameters) alike.
@@ -43,6 +46,7 @@ from torch import nn
 
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "bias": "bias", "codebook": "codebook",
+           "att_src": "att_src", "att_dst": "att_dst",
            "miss_emb": "miss_emb", "cls_emb": "cls_emb",
            "input_layernorm": "input_layernorm",
            "post_attention_layernorm": "post_attention_layernorm", "norm": "norm",
@@ -103,7 +107,8 @@ def load_params(model: nn.Module, params: Mapping | str | Path) -> nn.Module:
     ``usage``, or a .npz of either, into ``model``. Every parameter must be
     present and nothing may be left over; values are cast to each
     parameter's dtype. A ``usage`` collection is copied into the buffers
-    of the same names (the quantizer's usage FIFO, int32)."""
+    of the same names (the quantizer's usage FIFO and EMA codebook), each
+    of the buffer's shape."""
     if not isinstance(params, Mapping):
         params = load_npz(params)
     usage = params.get("usage") if "params" in params else None
@@ -111,6 +116,8 @@ def load_params(model: nn.Module, params: Mapping | str | Path) -> nn.Module:
         params["params"] if "params" in params else params), strict=True)
     for path, arr in flatten_tree(usage or {}).items():
         buf = model.get_buffer(path.replace("/", "."))
+        if tuple(buf.shape) != np.shape(arr):
+            raise ValueError(f"usage {path!r}: shape {np.shape(arr)} != {tuple(buf.shape)}")
         buf.copy_(torch.from_numpy(np.array(arr)).to(buf.dtype))
     return model
 

@@ -6,6 +6,12 @@ attention is kernel K2 (block-diagonal, [B, NH, L, Dh] head layout); without
 them it is the dense masked softmax with a -1e9 fill (the unpacked API path).
 The projections are plain ``nn.Linear``. ``convert_hf_bert`` maps a
 HuggingFace ``BertModel`` state_dict onto this encoder.
+
+``dropout=True`` applies BERT's dropout at the JAX package's four sites,
+masks drawn from a ``torch.Generator``: the embeddings' output, the
+attention probabilities (the dense route: K2 takes no dropout, and segments
+with dropout raise), the attention output before its residual and the FFN
+output before its residual, at ``attention_dropout`` / ``hidden_dropout``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 from torch import nn
 
 from medtok_tpu_torch.config import TextEncoderConfig
+from medtok_tpu_torch.models.layers import dropout as drop
 from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
 from medtok_tpu_torch.ops.gelu import bert_gelu
 
@@ -30,9 +37,10 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size, **fk)
         self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size, **fk)
 
-    def forward(self, x, mask, segments=None):
+    def forward(self, x, mask, segments=None, generator=None, dropout: bool = False):
         """mask: [B, L] key mask or [B, L, L] pairwise mask; segments: [B, L]
-        int32 packed-segment ids (0 = padding). Returns [B, NH, L, Dh]."""
+        int32 packed-segment ids (0 = padding). ``dropout`` drops attention
+        probabilities (dense route only). Returns [B, NH, L, Dh]."""
         c = self.cfg
         B, L, _ = x.shape
         H = c.num_heads
@@ -52,6 +60,8 @@ class BertSelfAttention(nn.Module):
         pair = mask[:, None, :, :] if mask.dim() == 3 else mask[:, None, None, :]
         logits = torch.where(pair, logits, -1e9)
         attn = torch.softmax(logits, dim=-1).to(x.dtype)
+        if dropout:
+            attn = drop(attn, c.attention_dropout, generator)
         return torch.matmul(attn, v)
 
 
@@ -60,6 +70,7 @@ class BertLayer(nn.Module):
         super().__init__()
         fk = {"dtype": dtype, "device": device}
         E = cfg.hidden_size
+        self.hidden_dropout = cfg.hidden_dropout
         self.attention = BertSelfAttention(cfg, **fk)
         self.attention_output = nn.Linear(E, E, **fk)
         self.attention_ln = nn.LayerNorm(E, eps=cfg.layer_norm_eps, **fk)
@@ -67,12 +78,16 @@ class BertLayer(nn.Module):
         self.output = nn.Linear(cfg.intermediate_size, E, **fk)
         self.output_ln = nn.LayerNorm(E, eps=cfg.layer_norm_eps, **fk)
 
-    def forward(self, x, mask, segments=None):
+    def forward(self, x, mask, segments=None, generator=None, dropout: bool = False):
         B, L, E = x.shape
-        a = self.attention(x, mask, segments)          # [B, NH, L, Dh]
+        a = self.attention(x, mask, segments, generator, dropout)   # [B, NH, L, Dh]
         a = self.attention_output(a.transpose(1, 2).reshape(B, L, E))
+        if dropout:
+            a = drop(a, self.hidden_dropout, generator)
         x = self.attention_ln(x + a)
         h = self.output(bert_gelu(self.intermediate(x)))
+        if dropout:
+            h = drop(h, self.hidden_dropout, generator)
         return self.output_ln(x + h)
 
 
@@ -92,10 +107,16 @@ class BertEncoder(nn.Module):
             self.add_module(f"layer_{i}", BertLayer(cfg, **fk))
 
     def forward(self, input_ids, attention_mask=None, *, position_ids=None,
-                segments=None):
+                segments=None, generator: torch.Generator | None = None,
+                dropout: bool = False):
         """attention_mask [B, L] or [B, L, L]; position_ids [B, L] (packed rows
         pass within-segment offsets); segments [B, L] enables kernel K2, and
-        attention_mask may then be None."""
+        attention_mask may then be None. ``dropout`` turns the four dropout
+        sites on, their masks drawn from ``generator``; it takes no
+        segments (packed segments would share dropout noise)."""
+        if dropout and segments is not None:
+            raise ValueError("BERT dropout runs on the unpacked route only: packed "
+                             "segments would share dropout noise")
         ids = input_ids.long()
         L = ids.shape[1]
         if position_ids is None:
@@ -104,9 +125,11 @@ class BertEncoder(nn.Module):
              + self.position_embeddings(position_ids.long())
              + self.token_type_embeddings(torch.zeros_like(ids)))
         x = self.embeddings_ln(x)
+        if dropout:
+            x = drop(x, self.cfg.hidden_dropout, generator)
         mask = attention_mask.bool() if attention_mask is not None else None
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, mask, segments)
+            x = getattr(self, f"layer_{i}")(x, mask, segments, generator, dropout)
         return x
 
 

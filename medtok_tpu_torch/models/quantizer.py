@@ -15,6 +15,16 @@ the buffers ``codebook_used`` / ``usage_counts`` (the flax ``usage``
 collection) take the shared path's indices, then text, graph, text-aug and
 graph-aug, in that order. Its ``train.cross_attn`` and ``train.vq`` ranges
 name its two parts in a torch.profiler trace.
+
+With ``use_kmeans`` the codebook is no parameter but EMA state: the
+non-persistent buffers ``ema_codebook`` [C, D] (l2-unit rows), ``ema_cluster``
+[C] and, with ``codebook_revival``, ``ema_embed_prob`` [C], outside the
+state_dict as the flax ``usage`` collection is. Every sweep reads ``_cb()``.
+``forward_train`` writes them after its six sweeps from the top-1 rows of
+the shared text, shared graph, text-specific and graph-specific sweeps (the
+norm-EMA update, and with revival the dead-code rewrite toward the closest
+feature); the write assigns new tensors, so the autograd graph keeps the
+codebook its sweeps read.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from torch.profiler import record_function
 from medtok_tpu_torch.config import QuantizerConfig
 from medtok_tpu_torch.models.layers import CrossAttention, global_mean_pool
 from medtok_tpu_torch.ops import vq as vq_ops
+from medtok_tpu_torch.ops.ema import ema_update, norm_ema_update
 
 
 class SoftVQQuantizer(nn.Module):
@@ -35,13 +46,23 @@ class SoftVQQuantizer(nn.Module):
         its parameters' (default: ``dtype``); the codebook and the specific
         projections stay fp32."""
         super().__init__()
-        if cfg.use_kmeans:
-            raise NotImplementedError("the EMA (--kmeans) codebook is not ported")
         self.cfg = cfg
         self.split = split
-        D = cfg.codebook_embed_dim
-        self.codebook = nn.Parameter(torch.empty(
-            (cfg.codebook_size, D), dtype=torch.float32, device=device))
+        C, D = cfg.codebook_size, cfg.codebook_embed_dim
+        if cfg.use_kmeans:
+            # a placeholder of unit rows: kmeans_init_codebook overwrites it
+            placeholder = vq_ops.l2_normalize(torch.randn(
+                (C, D), generator=torch.Generator().manual_seed(0)))
+            self.register_buffer("ema_codebook", placeholder.to(device), persistent=False)
+            self.register_buffer("ema_cluster", torch.zeros(
+                C, dtype=torch.float32, device=device), persistent=False)
+            if cfg.codebook_revival:
+                # zero: every code may be revived on the first batch
+                self.register_buffer("ema_embed_prob", torch.zeros(
+                    C, dtype=torch.float32, device=device), persistent=False)
+        else:
+            self.codebook = nn.Parameter(torch.empty(
+                (C, D), dtype=torch.float32, device=device))
         self.cross_attn = CrossAttention(D, cfg.num_heads, cfg.cross_attn_layers,
                                          dropout=cfg.cross_attn_dropout, dtype=dtype,
                                          param_dtype=param_dtype, device=device)
@@ -57,10 +78,14 @@ class SoftVQQuantizer(nn.Module):
                 cfg.codebook_size, cfg.usage_buffer_size, device=device),
                 persistent=False)
 
+    def _cb(self) -> torch.Tensor:
+        """The codebook: the parameter, or the EMA buffer under use_kmeans."""
+        return self.ema_codebook if self.cfg.use_kmeans else self.codebook
+
     def _quantize(self, z, region=None, *, train: bool = False):
         c = self.cfg
         return vq_ops.soft_topk_quantize(
-            z, self.codebook, k=c.top_k, beta=c.commit_loss_beta, l2_norm=c.l2_norm,
+            z, self._cb(), k=c.top_k, beta=c.commit_loss_beta, l2_norm=c.l2_norm,
             train=train, region=region, backend=c.topk_backend,
         )
 
@@ -84,6 +109,44 @@ class SoftVQQuantizer(nn.Module):
         t_attn, g_attn = self.cross_attn(z_text, z_graph, text_mask, node_mask,
                                          generator=generator, deterministic=deterministic)
         return t_attn[:, 0, :], global_mean_pool(g_attn, node_mask)
+
+    def shared_pooled(self, z_text, z_graph, text_mask, node_mask):
+        """The shared path's pooled rows, l2-normalised in fp32, with no
+        dropout and no quantization (the k-means init's data)."""
+        t, g = self._shared_rows(z_text, z_graph, text_mask, node_mask)
+        return vq_ops.l2_normalize(t.float()), vq_ops.l2_normalize(g.float())
+
+    @torch.no_grad()
+    def _ema_codebook_update(self, flat_n: torch.Tensor, top1: torch.Tensor) -> None:
+        """The norm-EMA codebook write from l2-normalised features flat_n
+        [M, D] and their top-1 full-codebook rows top1 [M]: per-row bin
+        counts and feature sums (``index_put_``, deterministic on CUDA), the
+        normalised mean of each row's features (an empty row keeps its
+        codeword), ``norm_ema_update``, ``ema_update`` of the counts; with
+        revival the EMA of each row's share of the assignments, and rows
+        whose share decayed pulled toward the feature most similar to them
+        (the first on ties) by exp(-share * C * 10 / (1 - decay) - 1e-3),
+        then re-normalised."""
+        c = self.cfg
+        C, decay = c.codebook_size, c.codebook_ema_decay
+        w = self.ema_codebook
+        flat_n = flat_n.detach().float()
+        top1 = top1.long()
+        bins = torch.zeros(C, dtype=torch.float32, device=w.device).index_put_(
+            (top1,), torch.ones_like(top1, dtype=torch.float32), accumulate=True)
+        embed_sum = torch.zeros_like(w).index_put_((top1,), flat_n, accumulate=True)
+        zero = bins == 0
+        mean = vq_ops.l2_normalize(embed_sum / torch.where(zero, 1.0, bins)[:, None])
+        new_w = norm_ema_update(w, torch.where(zero[:, None], w, mean), decay)
+        self.ema_cluster = ema_update(self.ema_cluster, bins, decay)
+        if c.codebook_revival:
+            avg_probs = bins / torch.clamp(bins.sum(), min=1.0)
+            prob = ema_update(self.ema_embed_prob, avg_probs, decay)
+            self.ema_embed_prob = prob
+            anchor = flat_n[torch.argmax(flat_n @ new_w.T, dim=0)]        # [C, D]
+            revive = torch.exp(-(prob * C * 10.0) / (1.0 - decay) - 1e-3)[:, None]
+            new_w = vq_ops.l2_normalize(new_w * (1.0 - revive) + anchor * revive)
+        self.ema_codebook = new_w
 
     def get_shared_info(self, z_text, z_graph, text_mask, node_mask):
         """z_text [B, Lt, D], z_graph [B, Ln, D], masks True = valid.
@@ -127,7 +190,8 @@ class SoftVQQuantizer(nn.Module):
             return self._quantize_train(z, z_aug, z_flat_text, z_flat_graph)
 
     def _quantize_train(self, z, z_aug, z_flat_text, z_flat_graph) -> dict:
-        """forward_train's six sweeps, their losses and the usage FIFO."""
+        """forward_train's six sweeps, their losses and the usage FIFO; the
+        EMA codebook write under use_kmeans."""
         c = self.cfg
         s0 = self.split[0]
         q_text = self._quantize(z_flat_text, train=True)
@@ -176,8 +240,16 @@ class SoftVQQuantizer(nn.Module):
         if c.entropy_loss_ratio > 0:
             # the entropy term's input: minus the squared distances of the
             # normalized pooled rows to the whole normalized codebook
-            e_n = vq_ops.l2_normalize(self.codebook.float())
+            e_n = vq_ops.l2_normalize(self._cb().float())
             out["shared_affinity"] = -torch.cat(
                 [vq_ops.squared_distance(z_text_n, e_n),
                  vq_ops.squared_distance(z_graph_n, e_n)], dim=0)
+        if c.use_kmeans:
+            # all three sites feed the write (the shared path alone starves
+            # the specific regions); the aug sweeps would count samples twice
+            g_off = c.codebook_size - c.codebook_size // 3
+            self._ema_codebook_update(
+                torch.cat([z_text_n, z_graph_n, text_loss[2], graph_loss[2]]),
+                torch.cat([q_text.indices[:, 0], q_graph.indices[:, 0],
+                           q_t.indices[:, 0], q_g.indices[:, 0] + g_off]))
         return out

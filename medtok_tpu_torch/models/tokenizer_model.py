@@ -6,7 +6,9 @@
   h = cat(text [CLS], graph pool)
   eval:  SoftVQQuantizer -> embedding [B, 256], tokens [B, 4, k], weights [B, 4, k]
   train: the same on h, plus h_aug = cat(text [CLS], pool of the GCN over
-         the edge-dropped graph) -> the quantizer's loss dict
+         the edge-dropped graph) -> the quantizer's loss dict; with
+         ``text_dropout_in_train`` the BERT runs with dropout (unpacked) and
+         the augmented view's [CLS] comes from a second such forward
 
 The encoders, ``text_mapped`` and the cross-attention compute in
 ``cfg.compute_dtype`` (bf16 by default) and hold their parameters in
@@ -105,15 +107,18 @@ class MultimodalTokenizer(nn.Module):
         clean one. ``packed``: the batch's texts packed into shared rows
         (``data/packing.py::pack_code_batch``), which the frozen BERT runs
         over through kernel K2; without it the BERT runs over the batch's
-        padded texts with dense attention. ``generator`` draws the
-        cross-attention's dropout masks. The BERT runs without autograd and
-        K2 never sees a tensor that requires a gradient. The ``train.*``
-        ranges name the parts in a torch.profiler trace."""
+        padded texts with dense attention. With ``text_dropout_in_train``
+        the BERT runs unpacked with dropout (``packed`` raises) and a second
+        dropout forward, with fresh masks, gives the augmented view's
+        [CLS]. ``generator`` draws the dropout masks (BERT, then the
+        cross-attention). The BERT runs without autograd and K2 never sees a
+        tensor that requires a gradient. The ``train.*`` ranges name the
+        parts in a torch.profiler trace."""
         c = self.cfg
-        if c.text_dropout_in_train:
-            raise NotImplementedError(
-                "text_dropout_in_train needs dropout in the frozen BERT, which the "
-                "port lacks (ROADMAP Queue 1: BERT dropout for training)")
+        text_drop = c.text_dropout_in_train
+        if text_drop and packed is not None:
+            raise ValueError("packed text encoding requires text_dropout_in_train=False: "
+                             "dropout noise would leak across packed segments")
         with torch.no_grad(), record_function("train.bert"):
             if packed is not None:
                 flat = self.encode_text_packed(packed.input_ids, packed.seg_ids,
@@ -121,11 +126,15 @@ class MultimodalTokenizer(nn.Module):
                 text_hidden = flat[packed.gather_idx]
                 text_mask = packed.text_mask.bool()
             else:
-                text_hidden = self.text_model(batch.input_ids, batch.attention_mask)
+                views = [self.text_model(batch.input_ids, batch.attention_mask,
+                                         generator=generator, dropout=text_drop)
+                         for _ in range(2 if text_drop else 1)]
+                text_hidden = views[0]
                 text_mask = batch.attention_mask.bool()
         with record_function("train.text_mapped"):
             text_features = self.text_mapped(text_hidden)          # [B, Lt, D]
             text_cls = text_features[:, 0, :]
+            text_cls_aug = self.text_mapped(views[1][:, 0, :]) if text_drop else text_cls
         node_mask = batch.node_mask.bool()
         with record_function("train.gcn"):
             graph_nodes = self.graph_encoder(
@@ -135,6 +144,19 @@ class MultimodalTokenizer(nn.Module):
             graph_aug = self.graph_encoder(
                 batch.node_ids, batch.edge_src_aug, batch.edge_dst_aug,
                 batch.edge_weight_aug)[-1]
-            h_aug = torch.cat([text_cls, global_mean_pool(graph_aug, node_mask)], dim=-1)
+            h_aug = torch.cat([text_cls_aug, global_mean_pool(graph_aug, node_mask)], dim=-1)
         return self.quantize.forward_train(h, text_features, graph_nodes, text_mask,
                                            node_mask, h_aug, generator=generator)
+
+    @torch.no_grad()
+    def encode_shared(self, batch: CodeBatch) -> tuple[torch.Tensor, torch.Tensor]:
+        """The shared path's pooled, l2-normalised text and graph rows of the
+        deterministic unpacked encode (no quantization): the features the
+        k-means codebook init clusters."""
+        hidden = self.text_model(batch.input_ids, batch.attention_mask)
+        text_features = self.text_mapped(hidden)
+        graph_nodes = self.graph_encoder(
+            batch.node_ids, batch.edge_src, batch.edge_dst, batch.edge_weight)[-1]
+        return self.quantize.shared_pooled(text_features, graph_nodes,
+                                           batch.attention_mask.bool(),
+                                           batch.node_mask.bool())

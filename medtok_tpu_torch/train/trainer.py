@@ -6,9 +6,12 @@ and ``train/losses.py::assemble_losses``, back-propagates, clips the
 trainable gradients by their global norm and takes an Adam step, as optax's
 ``clip_by_global_norm`` + ``adam`` compute them, then updates the optional
 parameter EMA. The trainable parameters are all but the frozen text
-encoder's: it gets no gradient and no optimizer state. The model holds fp32
+encoder's: it gets no gradient and no optimizer state (nor does the EMA
+codebook of ``use_kmeans``, which is a buffer). The model holds fp32
 parameters and computes in ``ModelConfig.compute_dtype``; the quantizer's
-usage FIFO lives in its buffers and is written by each step.
+usage FIFO (and the EMA codebook) lives in its buffers and is written by
+each step. ``kmeans_init_codebook`` sets the codebook from the first
+batch's shared features before step 0 of a ``--kmeans`` run.
 
     trainer = Trainer(cfg, workdir="results/run")   # on CUDA
     state = trainer.init_state()      # resumes from the workdir's latest checkpoint
@@ -40,6 +43,7 @@ from medtok_tpu_torch.data.packing import pack_code_batch
 from medtok_tpu_torch.data.types import CodeBatch, PackedTextBatch
 from medtok_tpu_torch.models.layers import init_random_
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+from medtok_tpu_torch.ops.ema import kmeans
 from medtok_tpu_torch.train.losses import assemble_losses
 from medtok_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -110,7 +114,7 @@ class TrainState:
     model: MultimodalTokenizer      # parameters and the usage FIFO buffers
     opt_state: AdamState
     ema_params: list[torch.Tensor] | None   # EMA of the trainable parameters
-    generator: torch.Generator      # the cross-attention's dropout masks
+    generator: torch.Generator      # the dropout masks (BERT's, the cross-attention's)
 
 
 def create_train_state(cfg: MedTokConfig, model: MultimodalTokenizer, *,
@@ -134,12 +138,39 @@ def create_train_state(cfg: MedTokConfig, model: MultimodalTokenizer, *,
                       generator=torch.Generator(device=dev).manual_seed(seed + 1))
 
 
+@torch.no_grad()
+def kmeans_init_codebook(model: MultimodalTokenizer, state: TrainState,
+                         batches: Iterable[CodeBatch], *,
+                         generator: torch.Generator | None = None,
+                         init_idx: torch.Tensor | None = None) -> TrainState:
+    """Cosine k-means (10 iterations) over the batches' ``encode_shared``
+    rows (each batch's text rows, then its graph rows) into the codebook:
+    under ``use_kmeans`` the EMA codebook and its cluster sizes (the final
+    bins), otherwise the ``codebook`` parameter. The initial means are
+    ``init_idx``, or drawn by ``ops.ema.kmeans`` from ``generator`` (a CPU
+    generator, default seed 0). Returns ``state``."""
+    dev = next(model.parameters()).device
+    feats = []
+    for b in batches:
+        feats += list(model.encode_shared(b.to(dev)))
+    data = torch.cat(feats)
+    q = model.quantize
+    means, bins = kmeans(data, q.cfg.codebook_size, num_iters=10, use_cosine_sim=True,
+                         generator=generator, init_idx=init_idx)
+    if q.cfg.use_kmeans:
+        q.ema_codebook = means.to(q.ema_codebook.dtype)
+        q.ema_cluster = bins.to(q.ema_cluster.dtype)
+    else:
+        q.codebook.copy_(means)
+    return state
+
+
 def _loss_fn(model: MultimodalTokenizer, batch: CodeBatch, cfg: MedTokConfig, *,
              packed: PackedTextBatch | None = None,
              generator: torch.Generator | None = None
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(total loss, metrics) of the training forward; writes the usage
-    FIFO."""
+    FIFO (and the EMA codebook)."""
     out = model.forward_train(batch, packed=packed, generator=generator)
     with record_function("train.losses"):
         breakdown = assemble_losses(

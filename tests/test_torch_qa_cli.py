@@ -67,9 +67,9 @@ def test_the_written_tokenizer_is_byte_level_llama3(files):
 
 
 def test_refused_before_the_model_is_built(files, monkeypatch):
-    """No --mesh-* flags; without --tiny a tokenizer file is required, and
-    the run stops before building the 8B model."""
-    with pytest.raises(SystemExit):
+    """--mesh-* above 1 raise (one device); without --tiny a tokenizer file
+    is required, and the run stops before building the 8B model."""
+    with pytest.raises(NotImplementedError, match="one device"):
         cli.main(_args(files, "finetune", "--mesh-tp", "2"))
     import medtok_tpu_torch.qa.finetune as finetune
 

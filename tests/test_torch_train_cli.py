@@ -2,11 +2,16 @@
 weight bridge, on the CPU at the verify recipe's widths (text 32 / 4 heads,
 codebook 90 x 16, batch 8):
 
-- ``config_from_args`` equals the JAX CLI's for the same argv, and the
-  args.json the port writes loads in the JAX package to the same config;
+- ``config_from_args`` equals the JAX CLI's for the same argv (the GAT,
+  kmeans, revival and text-dropout flags too), and the args.json the port
+  writes loads in the JAX package to the same config;
 - the flags that select code the port lacks are refused at parse time;
 - ``cli.train`` at --max-steps 3 --ckpt-every 2 checkpoints and rotates,
   and resumes to step 4 with --workdir;
+- a GAT + kmeans + revival run: the k-means init at step 0 only, a
+  resumed run continuing bit for bit as one run without a break (the EMA
+  codebook and the rest of the state), ``cli.export --workdir`` on both
+  routes and ``MedTok.from_checkpoint`` of it; a text-dropout run;
 - ``cli.export --workdir`` equals ``--config / --params`` on the same
   weights bit for bit, and ``MedTok.from_checkpoint`` gives the export's
   rows;
@@ -85,6 +90,13 @@ ARGVS = {
                        "off", "--beta2", "0.99", "--max-checkpoints", "5",
                        "--edge-dropout-p", "0.25", "--shared-loss-beta", "0.3",
                        "--entropy-loss-ratio", "0.01", "--global-seed", "7"],
+    "kmeans": ["--text-vocab", "v.txt", "--kmeans"],
+    "text-dropout": ["--text-vocab", "v.txt", "--text-dropout-in-train"],
+    "gat": ["--text-vocab", "v.txt", "--graph-model-name", "GAT"],
+    "gat-kmeans-revival": ["--text-vocab", "v.txt", "--graph-model-name", "GAT", "--kmeans",
+                           "--codebook-revival", *TINY],
+    "text-dropout-packed-off": ["--text-vocab", "v.txt", "--text-dropout-in-train",
+                                "--packed-text", "off"],
 }
 
 
@@ -99,14 +111,11 @@ def test_config_from_args_matches_jax(name, tmp_path):
 
 
 REFUSED = {
-    "kmeans": (["--kmeans"], "--kmeans"),
     "revival-without-kmeans": (["--codebook-revival"], "requires --kmeans"),
-    "text-dropout": (["--text-dropout-in-train"], "--text-dropout-in-train"),
     "mesh-dp": (["--mesh-dp", "2"], "--mesh-dp"),
     "mesh-tp": (["--mesh-tp", "2"], "--mesh-tp"),
     "wandb": (["--wandb"], "--wandb"),
     "multihost": (["--multihost"], "--multihost"),
-    "gat": (["--graph-model-name", "GAT"], "GAT"),
 }
 
 
@@ -116,6 +125,15 @@ def test_flags_the_port_lacks_are_refused_at_parse_time(name, capsys):
     with pytest.raises(SystemExit) as e:
         train_cli.parse_args(["--text-vocab", "v.txt", *extra])
     assert e.value.code == 2 and what in capsys.readouterr().err
+
+
+def test_packed_text_on_with_text_dropout_is_refused_as_in_jax():
+    argv = ["--text-vocab", "v.txt", "--text-dropout-in-train", "--packed-text", "on"]
+    for cli in (train_cli, jax_train_cli):
+        args = (cli.parse_args(argv) if cli is train_cli
+                else cli.build_parser().parse_args(argv))
+        with pytest.raises(SystemExit, match="incompatible"):
+            cli.config_from_args(args)
 
 
 # ------------------------------------------------------- train and resume --
@@ -150,6 +168,80 @@ def test_train_cli_checkpoints_rotates_and_resumes(trained):
     assert all(np.isfinite(losses))
     ck = mgr.load()
     assert ck["step"] == 4 and ck["adam"]["count"] == 4 and ck["ema"] is not None
+
+
+# ------------------------------------------------------ training variants --
+
+VARIANT = ["--graph-model-name", "GAT", "--kmeans", "--codebook-revival"]
+
+
+@pytest.fixture(scope="module")
+def variant_runs(files, tmp_path_factory):
+    """A GAT + kmeans + revival run to step 2 (a checkpoint each step),
+    resumed with --workdir to step 3, and the same run to step 3 without a
+    break."""
+    argv = [*_data_flags(files), "--epochs", "3", "--ckpt-every", "1", "--device", "cpu",
+            *VARIANT, *TINY]
+    broken = train_cli.main([*argv, "--results-dir", str(tmp_path_factory.mktemp("a")),
+                             "--max-steps", "2"])
+    at_2 = CheckpointManager(broken).load(2)
+    train_cli.main([*argv, "--workdir", str(broken), "--max-steps", "3"])
+    straight = train_cli.main([*argv, "--results-dir", str(tmp_path_factory.mktemp("b")),
+                               "--max-steps", "3"])
+    return dict(broken=broken, straight=straight, at_2=at_2)
+
+
+def test_variant_resume_is_bitwise(variant_runs):
+    broken, straight = (CheckpointManager(variant_runs[k]) for k in ("broken", "straight"))
+    cfg = broken.load_config(broken.workdir)
+    assert cfg.model.graph.model_name == "GAT" and cfg.model.quantizer.codebook_revival
+    log = (broken.workdir / "log.txt").read_text()
+    assert log.count("kmeans codebook init done") == 1
+    assert "Resumed from the checkpoint at step 2" in log
+    a, b = broken.load(3), straight.load(3)
+    assert set(a["buffers"]) >= {"quantize.ema_codebook", "quantize.ema_cluster",
+                                 "quantize.ema_embed_prob"}
+    assert "quantize.codebook" not in a["model"]
+    for part in ("model", "buffers"):
+        for k, v in a[part].items():
+            assert torch.equal(v, b[part][k]), (part, k)
+    for x, y in zip(a["adam"]["mu"] + a["adam"]["nu"], b["adam"]["mu"] + b["adam"]["nu"]):
+        assert torch.equal(x, y)
+    # the EMA codebook moved after the restored step, from the restored value
+    at_2 = variant_runs["at_2"]["buffers"]["quantize.ema_codebook"]
+    assert not torch.equal(at_2, a["buffers"]["quantize.ema_codebook"])
+
+
+@pytest.mark.parametrize("packed", ["on", "off"])
+def test_variant_workdir_exports(variant_runs, files, tmp_path, packed):
+    """cli.export --workdir of the GAT + kmeans run on both routes, and
+    MedTok.from_checkpoint of it giving the export's rows."""
+    workdir = variant_runs["broken"]
+    arrays = export_cli.main(["--workdir", str(workdir), "--device", "cpu", "--packed", packed,
+                              "--batch-size", "8", "--out-dir", str(tmp_path)])
+    assert arrays["embeddings_all"].shape == (N_CODES, 64)
+    assert np.isfinite(arrays["embeddings_all"]).all()
+    cfg = CheckpointManager.load_config(workdir)
+    dataset = MedCodeDataset.from_path(KnowledgeGraph.from_csv(files["kg"]), files["codes"],
+                                       WordPieceTokenizer.from_vocab_file(files["vocab"]),
+                                       cfg=cfg.data)
+    tok = MedTok.from_checkpoint(workdir, dataset, device="cpu")
+    assert torch.equal(tok.model.quantize.ema_codebook,
+                       CheckpointManager(workdir).load()["buffers"]["quantize.ema_codebook"])
+    out = tok.tokenize_batch(dataset.med_codes[:8])
+    assert np.array_equal(out.tokens, arrays["tokens_all"][:8])
+
+
+def test_text_dropout_run(files, tmp_path):
+    """--text-dropout-in-train trains unpacked (packed-text auto goes off)
+    to finite losses."""
+    workdir = train_cli.main([*_data_flags(files), "--results-dir", str(tmp_path),
+                              "--max-steps", "2", "--text-dropout-in-train", "--device", "cpu",
+                              *TINY])
+    cfg = CheckpointManager.load_config(workdir)
+    assert cfg.model.text_dropout_in_train and not cfg.train.packed_text
+    losses = [json.loads(line)["loss"] for line in open(workdir / "metrics.jsonl")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 # ----------------------------------------------------------------- export --

@@ -1,8 +1,9 @@
 """The port's training entry point on the CPU: ``Trainer.fit`` over
 ``epoch_batches`` lowers the loss at the tiny config (as the JAX package's
 ``test_training_converges_tiny`` asks of its trainer), the cross-attention
-dropout of the training view, the trainer's refusals, and that ``fit``
-draws no batch past ``max_steps``."""
+dropout of the training view, the trainer's refusals (a mesh above one
+device; packed text with BERT dropout) and a step with BERT dropout, and
+that ``fit`` draws no batch past ``max_steps``."""
 
 import dataclasses
 
@@ -131,12 +132,19 @@ def test_trainer_refusals(dataset):
                        train=TrainConfig(global_batch_size=8, mesh_dp=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
+    # text dropout trains (unpacked); with packed text it raises
     cfg = MedTokConfig(model=dataclasses.replace(model, text_dropout_in_train=True),
                        data=dataset.cfg, train=TrainConfig(global_batch_size=8))
-    trainer = Trainer(cfg, device="cpu")
-    state = trainer.init_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.fit(state, epoch_batches(dataset, batch_size=8), max_steps=1)
+    logged = []
+    trainer = Trainer(cfg, device="cpu", log_fn=lambda step, m: logged.append(m))
+    state = trainer.fit(trainer.init_state(), epoch_batches(dataset, batch_size=8),
+                        max_steps=1)
+    assert state.step == 1 and np.isfinite(logged[0]["loss"])
+    packed_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, packed_text=True, packed_row_len=32))
+    trainer = Trainer(packed_cfg, device="cpu")
+    with pytest.raises(ValueError, match="text_dropout_in_train"):
+        trainer.fit(trainer.init_state(), epoch_batches(dataset, batch_size=8), max_steps=1)
     cfg = MedTokConfig(model=model, data=dataset.cfg,
                        train=TrainConfig(global_batch_size=8, packed_text=True,
                                          packed_row_len=32, packed_rows_per_shard=1))

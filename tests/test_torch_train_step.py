@@ -102,8 +102,8 @@ def port_inputs(batch, packed, route: str):
 def assert_grads_match(model, jgrads, tol: float, zero_tol: float) -> None:
     """Every trainable parameter's gradient within ``tol`` of that
     gradient's largest element (the zero-gradient key bias within
-    ``zero_tol`` of its layer's key-weight gradient); the text encoder gets
-    none."""
+    ``zero_tol`` of its layer's key-weight gradient; a gradient that is
+    exactly 0 in JAX exactly 0 here too); the text encoder gets none."""
     want = flax_params_to_state_dict(jax.tree.map(np.asarray, jgrads))
     trainable = dict(trainable_parameters(model))
     for name, p in model.named_parameters():
@@ -116,6 +116,9 @@ def assert_grads_match(model, jgrads, tol: float, zero_tol: float) -> None:
             scale = np.abs(want[name.replace("bias", "weight")].numpy()).max()
             assert np.abs(got).max() <= zero_tol * scale, name
             assert np.abs(w).max() <= zero_tol * scale, name
+            continue
+        if not w.any():
+            assert not got.any(), name
             continue
         err = np.abs(got - w).max() / np.abs(w).max()
         assert err <= tol, (name, err)
