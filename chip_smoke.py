@@ -187,7 +187,29 @@ Phases, each fatal on failure:
      codebook held to its plain version), cli.export --workdir of it
      (launches, K2 on its first packing held to its plain version),
      MedTok.from_checkpoint of it, and cli.train --text-dropout-in-train
-     (GCN, unpacked, 3 steps: 6 K1 and no K2 a step).
+     (GCN, unpacked, 3 steps: 6 K1 and no K2 a step);
+ 21. data parallel: (a) `python -m torch.distributed.run --standalone
+     --nproc-per-node 1 -m medtok_tpu_torch.cli.train` (world 1, NCCL) with
+     phase 16's files and flags to step 2, its checkpoint bitwise equal to
+     phase 16's (parameters, buffers, Adam state, generator), the group's
+     join and warm-up times logged; (b) in a world-1 NCCL group joined by
+     this process: phase 15's step (ModelConfig(), bf16, packed, batch
+     1024) with the group and without it, alternated on one model and the
+     same batches (ms/step of each, the bytes each grouped step
+     all-reduces and all-gathers, DataParallel.all_reduce_mean_ and the
+     NCCL all-reduce alone timed), 6 K1 and 12 K2 launches a grouped step,
+     K1 on its six sweeps and K2 on its packing held to their plain
+     versions; (c) EHRTrainer at EHRTrainConfig() width, 2 steps with the
+     group and without it: losses and parameters bitwise equal, 4
+     launches of each K3 kernel a step; (d) two rank processes sharing the
+     card over gloo (this script with --dp-rank): the k-means init of the
+     global batch, 3 packed fp32 steps of a GCN + kmeans + revival model at
+     the verify recipe's widths and 2 EHR steps (no dropout), the ranks'
+     parameters, buffers and Adam moments bitwise equal after every step,
+     each step held to its replay on the CPU from the same state in the
+     same group (loss terms within 1e-5, gradients within 1e-4 of each
+     tensor's largest, token rows by the tie-gap rule), the collectives
+     staged through the host on gloo logged.
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
@@ -201,6 +223,7 @@ convolutions run in full fp32 (TF32 off) throughout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -2543,7 +2566,7 @@ CLI_CODES = 4096
 CLI_KG_EDGES = 1_000_000  # phase 5 has 4 M; fewer keep the four CSV reads short
 
 
-def run_clis(seed: int, dev) -> dict:
+def run_clis(seed: int, dev, keep: Path) -> dict:
     """Phase 16: the train and export CLIs at ModelConfig() width, on files
     they read as a user's: a synthetic kg.csv of 130,000 nodes and
     CLI_KG_EDGES edges, a CLI_CODES-code codes.jsonl and the vocab.txt.
@@ -2553,10 +2576,11 @@ def run_clis(seed: int, dev) -> dict:
     MedTok.from_checkpoint on the first 256 codes held to the export's rows
     by phase 5's tie-gap rule. fp32 compute (--mixed-precision none): the
     API's unpacked text path and the export's packed one round differently
-    in bf16 (phase 15 trains in bf16). Returns the runs' wall times and
-    launches."""
+    in bf16 (phase 15 trains in bf16). The files, the first run's argv and
+    its step-2 checkpoint stay under ``keep`` for phase 21. Returns the
+    runs' wall times and launches, and the argv."""
     import json
-    import tempfile
+    import shutil
 
     import numpy as np
     import torch
@@ -2596,74 +2620,74 @@ def run_clis(seed: int, dev) -> dict:
         return out
 
     phase_t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        kg = synthetic_kg(rng, num_nodes=130_000, num_edges=CLI_KG_EDGES, local_frac=0.7,
-                          local_window=64)
-        names = np.array(sorted(kg.rel_vocab, key=kg.rel_vocab.get))
-        with open(root / "kg.csv", "w") as f:
-            f.write("x_index,y_index,display_relation\n")
-            f.writelines(map("{},{},{}\n".format, kg.edge_src.tolist(), kg.edge_dst.tolist(),
-                             names[kg.rel_index].tolist()))
-        write_jsonl(synthetic_vocab_columns(rng, num_codes=CLI_CODES, num_kg_nodes=130_000,
-                                            heavy_tail=True), root / "codes.jsonl")
-        vocab = make_test_vocab(MEDICAL_WORDS + SYLLABLES)
-        for s in SYLLABLES:
-            vocab.setdefault("##" + s, len(vocab))
-        (root / "vocab.txt").write_text("\n".join(sorted(vocab, key=vocab.get)) + "\n")
-        log(f"CLI data: kg.csv of 130000 nodes and {CLI_KG_EDGES} edges "
-            f"({(root / 'kg.csv').stat().st_size} bytes), codes.jsonl of {CLI_CODES} codes, "
-            f"vocab.txt of {len(vocab)} tokens, written in {time.perf_counter() - t0:.2f} s")
+    root = keep
+    t0 = time.perf_counter()
+    kg = synthetic_kg(rng, num_nodes=130_000, num_edges=CLI_KG_EDGES, local_frac=0.7,
+                      local_window=64)
+    names = np.array(sorted(kg.rel_vocab, key=kg.rel_vocab.get))
+    with open(root / "kg.csv", "w") as f:
+        f.write("x_index,y_index,display_relation\n")
+        f.writelines(map("{},{},{}\n".format, kg.edge_src.tolist(), kg.edge_dst.tolist(),
+                         names[kg.rel_index].tolist()))
+    write_jsonl(synthetic_vocab_columns(rng, num_codes=CLI_CODES, num_kg_nodes=130_000,
+                                        heavy_tail=True), root / "codes.jsonl")
+    vocab = make_test_vocab(MEDICAL_WORDS + SYLLABLES)
+    for s in SYLLABLES:
+        vocab.setdefault("##" + s, len(vocab))
+    (root / "vocab.txt").write_text("\n".join(sorted(vocab, key=vocab.get)) + "\n")
+    log(f"CLI data: kg.csv of 130000 nodes and {CLI_KG_EDGES} edges "
+        f"({(root / 'kg.csv').stat().st_size} bytes), codes.jsonl of {CLI_CODES} codes, "
+        f"vocab.txt of {len(vocab)} tokens, written in {time.perf_counter() - t0:.2f} s")
 
-        argv = ["--kg-path", str(root / "kg.csv"),
-                "--med-codes-pkg-map-path", str(root / "codes.jsonl"),
-                "--text-vocab", str(root / "vocab.txt"), "--results-dir", str(root / "results"),
-                "--global-batch-size", "1024", "--ckpt-every", "1", "--max-checkpoints", "2",
-                "--epochs", "2", "--mixed-precision", "none"]
-        workdir = run("train", train_cli.main, [*argv, "--max-steps", "2"])
-        mgr = CheckpointManager(workdir)
-        check(mgr.steps() == [1, 2], f"CLI train: checkpoints {mgr.steps()}, want [1, 2]")
-        size = mgr.path(2).stat().st_size
-        run("resume", train_cli.main, [*argv, "--workdir", str(workdir), "--max-steps", "4"])
-        files = sorted(p.name for p in mgr.ckpt_dir.iterdir())
-        check(files == ["0000003.pt", "0000004.pt"], f"CLI resume: checkpoints {files}")
-        check("Resumed from the checkpoint at step 2" in (workdir / "log.txt").read_text(),
-              "CLI resume: the run did not resume from step 2")
-        metrics = [json.loads(line) for line in open(workdir / "metrics.jsonl")]
-        check([m["step"] for m in metrics] == [1, 2, 3, 4] and
-              all(np.isfinite(m["loss"]) for m in metrics),
-              f"CLI train: metrics {[(m['step'], m['loss']) for m in metrics]}")
-        for label in ("train", "resume"):
-            want = {"topk_l2": 2 * TRAIN_SWEEPS, "segment_attention": 2 * 12}
-            check(runs[label]["launches"] == want,
-                  f"CLI {label}: launches {runs[label]['launches']} != {want}")
-        arrays = run("export", export_cli.main, ["--workdir", str(workdir)])
-        check(arrays["embeddings_all"].shape == (CLI_CODES, 4 * D)
-              and np.isfinite(arrays["embeddings_all"]).all(),
-              f"CLI export: embeddings_all {arrays['embeddings_all'].shape}")
+    argv = ["--kg-path", str(root / "kg.csv"),
+            "--med-codes-pkg-map-path", str(root / "codes.jsonl"),
+            "--text-vocab", str(root / "vocab.txt"), "--results-dir", str(root / "results"),
+            "--global-batch-size", "1024", "--ckpt-every", "1", "--max-checkpoints", "2",
+            "--epochs", "2", "--mixed-precision", "none"]
+    workdir = run("train", train_cli.main, [*argv, "--max-steps", "2"])
+    mgr = CheckpointManager(workdir)
+    check(mgr.steps() == [1, 2], f"CLI train: checkpoints {mgr.steps()}, want [1, 2]")
+    size = mgr.path(2).stat().st_size
+    shutil.copyfile(mgr.path(2), keep / "phase16_step2.pt")
+    run("resume", train_cli.main, [*argv, "--workdir", str(workdir), "--max-steps", "4"])
+    files = sorted(p.name for p in mgr.ckpt_dir.iterdir())
+    check(files == ["0000003.pt", "0000004.pt"], f"CLI resume: checkpoints {files}")
+    check("Resumed from the checkpoint at step 2" in (workdir / "log.txt").read_text(),
+          "CLI resume: the run did not resume from step 2")
+    metrics = [json.loads(line) for line in open(workdir / "metrics.jsonl")]
+    check([m["step"] for m in metrics] == [1, 2, 3, 4] and
+          all(np.isfinite(m["loss"]) for m in metrics),
+          f"CLI train: metrics {[(m['step'], m['loss']) for m in metrics]}")
+    for label in ("train", "resume"):
+        want = {"topk_l2": 2 * TRAIN_SWEEPS, "segment_attention": 2 * 12}
+        check(runs[label]["launches"] == want,
+              f"CLI {label}: launches {runs[label]['launches']} != {want}")
+    arrays = run("export", export_cli.main, ["--workdir", str(workdir)])
+    check(arrays["embeddings_all"].shape == (CLI_CODES, 4 * D)
+          and np.isfinite(arrays["embeddings_all"]).all(),
+          f"CLI export: embeddings_all {arrays['embeddings_all'].shape}")
 
-        cfg = CheckpointManager.load_config(workdir)
-        dataset = MedCodeDataset.from_path(
-            KnowledgeGraph.from_csv(cfg.data.kg_path), cfg.data.med_codes_pkg_map_path,
-            WordPieceTokenizer.from_vocab_file(cfg.data.text_vocab_path), cfg=cfg.data)
-        t0 = time.perf_counter()
-        out = MedTok.from_checkpoint(workdir, dataset, device=dev).tokenize_batch(
-            dataset.med_codes[:256])
-        runs["api"] = dict(wall_s=time.perf_counter() - t0)
-        gaps = tie_gaps(out.tokens, out.weights, arrays["tokens_all"][:256],
-                        arrays["weights_all"][:256])
-        max_gap = float(gaps.max(initial=0.0))
-        check(max_gap <= 1e-5, f"CLI: MedTok.from_checkpoint differs from the export beyond "
-              f"a tie (gaps {gaps.tolist()})")
-        differ = int((out.tokens != arrays["tokens_all"][:256]).any(-1).sum())
-        log(f"CLI: losses {[round(m['loss'], 4) for m in metrics]}; a checkpoint is {size} "
-            f"bytes; MedTok.from_checkpoint on 256 codes against the export: {differ} of "
-            f"1024 token rows differ, max tie gap {max_gap:.3e}; walls "
-            + ", ".join(f"{k} {v['wall_s']:.3f} s" for k, v in runs.items())
-            + f" (the API: reading the data, the checkpoint and 256 codes); the phase "
-            f"{time.perf_counter() - phase_t0:.3f} s")
-    return dict(runs=runs, checkpoint_bytes=size)
+    cfg = CheckpointManager.load_config(workdir)
+    dataset = MedCodeDataset.from_path(
+        KnowledgeGraph.from_csv(cfg.data.kg_path), cfg.data.med_codes_pkg_map_path,
+        WordPieceTokenizer.from_vocab_file(cfg.data.text_vocab_path), cfg=cfg.data)
+    t0 = time.perf_counter()
+    out = MedTok.from_checkpoint(workdir, dataset, device=dev).tokenize_batch(
+        dataset.med_codes[:256])
+    runs["api"] = dict(wall_s=time.perf_counter() - t0)
+    gaps = tie_gaps(out.tokens, out.weights, arrays["tokens_all"][:256],
+                    arrays["weights_all"][:256])
+    max_gap = float(gaps.max(initial=0.0))
+    check(max_gap <= 1e-5, f"CLI: MedTok.from_checkpoint differs from the export beyond "
+          f"a tie (gaps {gaps.tolist()})")
+    differ = int((out.tokens != arrays["tokens_all"][:256]).any(-1).sum())
+    log(f"CLI: losses {[round(m['loss'], 4) for m in metrics]}; a checkpoint is {size} "
+        f"bytes; MedTok.from_checkpoint on 256 codes against the export: {differ} of "
+        f"1024 token rows differ, max tie gap {max_gap:.3e}; walls "
+        + ", ".join(f"{k} {v['wall_s']:.3f} s" for k, v in runs.items())
+        + f" (the API: reading the data, the checkpoint and 256 codes); the phase "
+        f"{time.perf_counter() - phase_t0:.3f} s")
+    return dict(runs=runs, checkpoint_bytes=size, argv=argv)
 
 
 # -------------------------------------------------------------------- QA --
@@ -4075,11 +4099,595 @@ def run_training_variants(dataset, dev, gen) -> dict:
     return out
 
 
+# --------------------------------------------------------- data parallel --
+
+DP_TIMED_ROUNDS = 10     # grouped / ungrouped step pairs of phase 21 (b)
+DP_EHR_STEPS = 2         # EHR steps of phase 21 (c) and (d)
+DP_REF_STEPS = 3         # tokenizer steps of the two ranks of phase 21 (d)
+DP_REF_CODES = 64        # the global batch of phase 21 (d)
+DP_RANKS = 2             # ranks sharing the card over gloo in phase 21 (d)
+# the small EHR config of phase 21 (d): no dropout, so card and CPU compute
+# one function (tests/test_torch_ehr_train.py's widths)
+DP_EHR_CFG = dict(task="readmission", batch_size=8, num_layers=2, hidden_dim=32,
+                  input_dim=32, output_dim=32, num_heads=2, max_visits=10,
+                  max_medical_code=64, dropout=0.0, pe_dropout=0.0, lr=3e-3,
+                  flash_attention=True, flash_precision="highest")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_checkpoint(a: dict, b: dict) -> list[str]:
+    """The fields of two checkpoint dicts that are not bitwise equal."""
+    import torch
+
+    differ = [k for k in ("step", "pack_rows") if a[k] != b[k]]
+    for part in ("model", "buffers"):
+        differ += [f"{part} {n}" for n, t in a[part].items() if not torch.equal(t, b[part][n])]
+    if a["adam"]["count"] != b["adam"]["count"]:
+        differ.append("adam count")
+    for key in ("mu", "nu"):
+        differ += [f"adam {key} {i}" for i, (x, y) in enumerate(zip(a["adam"][key],
+                                                                  b["adam"][key]))
+                   if not torch.equal(x, y)]
+    if (a["ema"] is None) != (b["ema"] is None):
+        differ.append("ema")
+    if not torch.equal(a["generator"], b["generator"]):
+        differ.append("generator")
+    return differ
+
+
+def dp_cli_world1(keep: Path, argv: list) -> dict:
+    """Phase 21 (a): cli.train under the launcher at world size 1 over NCCL,
+    phase 16's files and flags to step 2; its checkpoint against phase 16's
+    of the same step, bit for bit."""
+    import os
+
+    import torch
+
+    results = keep / "results_dp"
+    i = argv.index("--results-dir")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "medtok_tpu_torch.cli.train",
+           *argv[:i + 1], str(results), *argv[i + 2:], "--max-steps", "2"]
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"data parallel (a): torchrun cli.train exited "
+          f"{run.returncode}:\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    workdir, = results.iterdir()
+    log_txt = (workdir / "log.txt").read_text()
+    line = next((ln for ln in log_txt.splitlines() if "data parallel:" in ln), "")
+    check("1 ranks over nccl" in line, f"data parallel (a): no NCCL group in the log: {line!r}")
+    ours = torch.load(workdir / "checkpoints" / "0000002.pt", weights_only=True)
+    theirs = torch.load(keep / "phase16_step2.pt", weights_only=True)
+    differ = same_checkpoint(ours, theirs)
+    check(not differ, f"data parallel (a): the world-1 NCCL checkpoint differs from phase "
+          f"16's in {len(differ)} fields: {differ[:8]}")
+    n = len(ours["model"]) + len(ours["buffers"]) + 2 * len(ours["adam"]["mu"])
+    log(f"data parallel (a): torchrun --nproc-per-node 1 cli.train to step 2 in {wall:.3f} s "
+        f"wall; {line.split('] ', 1)[-1]}; its 0000002.pt bitwise equal to phase 16's "
+        f"({n} tensors: parameters, usage FIFO buffers, Adam moments; step, count, "
+        f"generator, row budget)")
+    return dict(wall_s=wall, log=line)
+
+
+def dp_step_timing(dataset, dev, gen, dp) -> dict:
+    """Phase 21 (b): phase 15's step (ModelConfig(), bf16, packed, batch
+    1024) with the world-1 NCCL group and without it, on one model and the
+    same batches, alternated. Without it means no collective at all: the
+    step has no all-reduce and the quantizer's ``dp`` is None for the call
+    (no FIFO all-gather), which the phase checks by counting. Logs the
+    all-reduced and all-gathered bytes and the all-reduce's own time; K1
+    and K2 counted and held to their plain versions on the grouped step's
+    inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.config import MedTokConfig, ModelConfig, TrainConfig
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.train.trainer import Trainer, make_train_step, trainable_parameters
+
+    cfg = MedTokConfig(model=ModelConfig(), data=dataset.cfg,
+                       train=TrainConfig(packed_text=True, global_batch_size=TRAIN_BATCH))
+    batches, _ = train_batches(dataset, cfg, 9)     # the step cycles over 8
+    trainer = Trainer(cfg, device=dev, dp=dp)
+    grouped = trainer.step_fn
+    step_alone = make_train_step(cfg, trainer.model)
+    quantize = trainer.model.quantize
+
+    def alone(state, *batch):
+        quantize.dp = None
+        try:
+            return step_alone(state, *batch)
+        finally:
+            quantize.dp = dp
+    state = trainer.init_state()
+    ready = [(b.to(dev), trainer.pack(b).to(dev)) for b in batches]
+    k1_inputs = []
+    distance_topk = vq.distance_topk
+
+    def recorded(z_n, e_n, k, **kw):
+        k1_inputs.append((z_n.detach(), e_n.detach(), k))
+        return distance_topk(z_n, e_n, k, **kw)
+
+    vq.distance_topk = recorded
+    try:
+        state, _ = grouped(state, *ready[0])               # warm-up, K1's inputs
+    finally:
+        vq.distance_topk = distance_topk
+    state, _ = alone(state, *ready[0])
+    times = {"grouped": [], "alone": []}
+    fused_topk_l2.launches = 0
+    packed_segment_attention.launches = 0
+    counted = {}
+    with collective_bytes() as moved:
+        state, _ = grouped(state, *ready[1])
+    counted = {"topk_l2": fused_topk_l2.launches,
+               "segment_attention": packed_segment_attention.launches}
+    with collective_bytes() as moved_alone:
+        state, _ = alone(state, *ready[2])
+    check(moved_alone == {"all_reduce": [], "all_gather": []},
+          f"data parallel (b): the step without the group moved {moved_alone}")
+    check(bool(moved["all_reduce"]) and bool(moved["all_gather"]),
+          f"data parallel (b): the grouped step moved {moved}")
+    for i in range(DP_TIMED_ROUNDS):
+        # alternate which side goes first
+        order = (("grouped", grouped), ("alone", alone))
+        for label, fn in order if i % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fn(state, *ready[1 + (2 * i + (label == "alone")) % (len(ready) - 1)])
+            torch.cuda.synchronize()
+            times[label].append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(metrics["loss"])), "data parallel (b): non-finite loss")
+    want = {"topk_l2": TRAIN_SWEEPS, "segment_attention": cfg.model.text.num_layers}
+    check(counted == want, f"data parallel (b): launches of one grouped step {counted} != "
+          f"{want}")
+    params = [p for _, p in trainable_parameters(trainer.model)]
+    grads = [torch.randn_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    ar_ms = cuda_ms(lambda: dp.all_reduce_mean_(grads), 10)
+    nccl_ms = cuda_ms(lambda: dist.all_reduce(flat), 10)
+    copy_ms = cuda_ms(lambda: torch.cat([g.reshape(-1) for g in grads]), 10)
+    ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f"data parallel (b): phase 15's step (ModelConfig(), bf16, packed, batch "
+        f"{TRAIN_BATCH}) with the world-1 NCCL group {ms['grouped']:.3f} ms and without "
+        f"it {ms['alone']:.3f} ms (median of {DP_TIMED_ROUNDS} alternated steps each: "
+        f"grouped {[round(t, 3) for t in times['grouped']]}, alone "
+        f"{[round(t, 3) for t in times['alone']]}); difference "
+        f"{ms['grouped'] - ms['alone']:+.3f} ms (without the group: no all-reduce and no "
+        f"FIFO all-gather, counted {moved_alone})")
+    log(f"data parallel (b): one grouped step all-reduced {moved['all_reduce']} (bytes "
+        f"of each flat buffer: the {len(params)} trainable gradients, the metrics) and "
+        f"all-gathered {moved['all_gather']} (the usage FIFO's indices); "
+        f"DataParallel.all_reduce_mean_ of the gradients {ar_ms:.3f} ms of device time, "
+        f"of which the NCCL all-reduce of the flat buffer alone {nccl_ms:.3f} ms and "
+        f"building the buffer {copy_ms:.3f} ms; launches a grouped step {counted}")
+    check(len(k1_inputs) == TRAIN_SWEEPS, f"data parallel (b): {len(k1_inputs)} K1 sweeps")
+    for i, (z, e, k) in enumerate(k1_inputs):
+        check_k1_case(z, e, f"data-parallel sweep {i}", k=k)
+    seg = trainer.pack(batches[0]).to(dev).seg_ids
+    check_segment_case(gen, dev, seg, False, "data-parallel packing",
+                       H=cfg.model.text.num_heads,
+                       Dh=cfg.model.text.hidden_size // cfg.model.text.num_heads)
+    del trainer, state, ready
+    torch.cuda.empty_cache()
+    return dict(ms=ms, launches=counted, moved=moved, allreduce_ms=ar_ms)
+
+
+@contextlib.contextmanager
+def collective_bytes():
+    """Within the block, the bytes of each flat all-reduce and of each
+    all-gather's result that ``DataParallel`` sends, listed by kind."""
+    from medtok_tpu_torch.parallel.mesh import DataParallel
+
+    reduce_flat, gather = DataParallel._all_reduce_flat_, DataParallel.all_gather
+    moved: dict = {"all_reduce": [], "all_gather": []}
+
+    def counted_reduce(dp, tensors, divide):
+        n = reduce_flat(dp, tensors, divide)
+        moved["all_reduce"].append(n)
+        return n
+
+    def counted_gather(dp, tensor):
+        out = gather(dp, tensor)
+        moved["all_gather"].append(out.numel() * out.element_size())
+        return out
+
+    DataParallel._all_reduce_flat_, DataParallel.all_gather = counted_reduce, counted_gather
+    try:
+        yield moved
+    finally:
+        DataParallel._all_reduce_flat_, DataParallel.all_gather = reduce_flat, gather
+
+
+def dp_ehr_world1(table, ehr: dict, dev, dp) -> dict:
+    """Phase 21 (c): EHRTrainer at EHRTrainConfig() width with the world-1
+    NCCL group and without it, from one seed, DP_EHR_STEPS steps on the same
+    batches: losses and parameters bitwise equal, 4 launches of each K3
+    kernel a grouped step."""
+    import torch
+
+    from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer
+
+    cfg = EHRTrainConfig()
+    batches = (ehr["eval"] + ehr["val"])[:DP_EHR_STEPS]
+    runs = {}
+    for label, group in (("grouped", dp), ("alone", None)):
+        trainer = EHRTrainer(cfg, table, 2, device=dev, dp=group)
+        for f in k3_wrappers():
+            f.launches = 0
+        losses = [trainer.train_step(b)[0] for b in batches]
+        torch.cuda.synchronize()
+        runs[label] = dict(losses=torch.stack(losses).cpu(), counts=k3_counts(),
+                           params={n: p.detach().clone()
+                                   for n, p in trainer.model.state_dict().items()})
+        del trainer
+    g, a = runs["grouped"], runs["alone"]
+    check(torch.equal(g["losses"], a["losses"]),
+          f"data parallel (c): losses {g['losses'].tolist()} != {a['losses'].tolist()}")
+    differ = [n for n, t in g["params"].items() if not torch.equal(t, a["params"][n])]
+    check(not differ, f"data parallel (c): parameters differ: {differ[:8]}")
+    want = {k: cfg.num_layers * DP_EHR_STEPS for k in ("fwd", "dq", "dkv")}
+    check(g["counts"] == want, f"data parallel (c): K3 launches {g['counts']} != {want}")
+    log(f"data parallel (c): EHRTrainer at EHRTrainConfig() width, {DP_EHR_STEPS} steps "
+        f"with the world-1 NCCL group and without it: losses "
+        f"{[round(float(x), 6) for x in g['losses']]} and all {len(g['params'])} tensors of "
+        f"the state_dict bitwise equal; K3 launches {g['counts']} ({cfg.num_layers} of "
+        f"each a step)")
+    return dict(counts=g["counts"])
+
+
+def k3_wrappers():
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv
+
+
+def dp_spec(dataset, seed: int) -> dict:
+    """The inputs of phase 21 (d): DP_REF_STEPS global tokenizer batches of
+    phase 5's codes, and small EHR data (DP_EHR_CFG's shapes) with its
+    table."""
+    import numpy as np
+
+    from medtok_tpu_torch.ehr.train import prepare_task_features
+
+    batches = [dataset.make_batch(list(range(i * DP_REF_CODES, (i + 1) * DP_REF_CODES)),
+                                  aug_seed=i + 1) for i in range(DP_REF_STEPS)]
+    rng = np.random.default_rng(seed + 21)
+    vocab = 512
+    c = DP_EHR_CFG
+    n = c["batch_size"] * (DP_EHR_STEPS + 1)
+    data = ehr_samples(rng, n, vocab, c["max_medical_code"])
+    labels = np.asarray([d[0]["label"] for d in data])
+    feats, fz = prepare_task_features(data, labels, 2, "readmission", vocab_size=vocab,
+                                      max_visits=c["max_visits"],
+                                      max_medical_code=c["max_medical_code"])
+    bs = c["batch_size"]
+    ehr = [tuple(fz.collate(feats[i * bs:(i + 1) * bs])) for i in range(DP_EHR_STEPS)]
+    table = rng.normal(size=(vocab, 256)).astype(np.float32)
+    return dict(batches=[tuple(b) for b in batches], ehr=ehr, table=table)
+
+
+def dp_local(batch, rank: int, world: int):
+    """Rank ``rank``'s contiguous block of a global batch (NamedTuple of
+    numpy arrays; the flat edge fields by graph)."""
+    B = batch[0].shape[0]
+    lb = B // world
+    return type(batch)(*(a[rank * lb * (a.shape[0] // B if n.startswith("edge") else 1):
+                           (rank + 1) * lb * (a.shape[0] // B if n.startswith("edge") else 1)]
+                         for n, a in zip(batch._fields, batch)))
+
+
+def dp_rank(rank: int, world: int, root: Path) -> int:
+    """One rank of phase 21 (d), started by ``dp_two_ranks``: a gloo group
+    on the card shared with the other rank. Tokenizer: the k-means init of
+    the global first batch, then (from random unit rows, a few dead) three
+    packed fp32 steps of a GCN + kmeans + revival model at the verify
+    recipe's widths, each replayed on the CPU from the card's state (the
+    same group, CPU tensors); EHR: DP_EHR_STEPS steps, each replayed the
+    same way. Writes rank{rank}.pkl under root."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.config import DataConfig, MedTokConfig, TrainConfig
+    from medtok_tpu_torch.data.types import CodeBatch
+    from medtok_tpu_torch.ehr.dataset import EHRBatch
+    from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer
+    from medtok_tpu_torch.models.tokenizer_model import PATH_ORDER
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.parallel import mesh
+    from medtok_tpu_torch.train import trainer as tr
+    from medtok_tpu_torch.utils.checkpoint import load_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{root / 'group'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    card_dp = mesh.initialize_distributed(dev)
+    cpu_dp = mesh.DataParallel(rank, world, torch.device("cpu"))
+    spec = pickle.loads((root / "spec.pkl").read_bytes())
+    out: dict = {"tokenizer": [], "ehr": []}
+
+    model_cfg = variant_model_config()
+    model_cfg = dataclasses.replace(model_cfg, graph=dataclasses.replace(
+        model_cfg.graph, model_name="GCN"))
+    cfg = MedTokConfig(model=model_cfg, data=DataConfig(),
+                       train=TrainConfig(packed_text=True, global_batch_size=DP_REF_CODES,
+                                         lr=1e-3, max_grad_norm=0.5))
+    grads: list = []
+    adam_step = tr.ClippedAdam.step
+
+    def spy(self, params, gs, st):
+        grads.append([g.detach().float().cpu().clone() for g in gs])
+        return adam_step(self, params, gs, st)
+
+    tr.ClippedAdam.step = spy
+
+    def tokens_of(model):
+        seen = []
+        forward_train = model.forward_train
+
+        def spy_forward(*a, **kw):
+            o = forward_train(*a, **kw)
+            seen.append((torch.stack([o[f"{p}_tokens"] for p in PATH_ORDER], 1).cpu().numpy(),
+                         torch.stack([o[f"{p}_tokens_weights"] for p in PATH_ORDER], 1)
+                         .detach().cpu().numpy()))
+            return o
+
+        model.forward_train = spy_forward
+        return seen
+
+    logged = {"card": [], "cpu": []}
+    card = tr.Trainer(cfg, device=dev, dp=card_dp,
+                      log_fn=lambda s, m: logged["card"].append(m))
+    cpu = tr.Trainer(cfg, device="cpu", dp=cpu_dp, log_fn=lambda s, m: logged["cpu"].append(m))
+    card_state, cpu_state = card.init_state(), cpu.init_state()
+    local = [dp_local(CodeBatch(*b), rank, world) for b in spec["batches"]]
+    tr.kmeans_init_codebook(card.model, card_state, [local[0]], dp=card_dp)
+    q = card.model.quantize
+    out["kmeans"] = (q.ema_codebook.cpu().clone(), q.ema_cluster.cpu().clone())
+    C = q.cfg.codebook_size
+    x = torch.randn(q.ema_codebook.shape, generator=torch.Generator().manual_seed(7))
+    q.ema_codebook = (x / x.norm(dim=-1, keepdim=True)).to(dev)
+    q.ema_embed_prob = torch.full((C,), 1.0 / C).index_fill_(
+        0, torch.tensor(VARIANT_REVIVED), 0.0).to(dev)
+    card_tokens, cpu_tokens = tokens_of(card.model), tokens_of(cpu.model)
+    fused_topk_l2.launches = 0
+    packed_segment_attention.launches = 0
+    for b in local:
+        sd = {k: v.cpu() for k, v in card.model.state_dict().items()}
+        load_weights(cpu.model, {"model": sd, "buffers": {
+            n: t.cpu() for n, t in card.model.named_buffers() if n not in sd}})
+        cpu_state.opt_state.count = card_state.opt_state.count
+        with torch.no_grad():
+            for dst, src in ((cpu_state.opt_state.mu, card_state.opt_state.mu),
+                             (cpu_state.opt_state.nu, card_state.opt_state.nu)):
+                for d, t in zip(dst, src):
+                    d.copy_(t.cpu())
+        card_state = card.fit(card_state, [b])
+        card_grads = grads[-1]
+        cpu.pack_rows = card.pack_rows
+        cpu_state = cpu.fit(cpu_state, [b])
+        names = [n for n, _ in tr.trainable_parameters(card.model)]
+        out["tokenizer"].append(dict(
+            metrics=(logged["card"][-1], logged["cpu"][-1]),
+            grads=(dict(zip(names, card_grads)), dict(zip(names, grads[-1]))),
+            tokens=(card_tokens[-1], cpu_tokens[-1]),
+            state={**{f"param {n}": t.detach().cpu().clone()
+                      for n, t in card.model.state_dict().items()},
+                   **{f"buffer {n}": t.cpu().clone() for n, t in card.model.named_buffers()},
+                   **{f"mu {i}": t.cpu().clone()
+                      for i, t in enumerate(card_state.opt_state.mu)}}))
+    out["tokenizer_launches"] = {"topk_l2": fused_topk_l2.launches,
+                                 "segment_attention": packed_segment_attention.launches}
+    out["pack_rows"] = card.pack_rows
+
+    ecfg = EHRTrainConfig(**DP_EHR_CFG)
+    ecard = EHRTrainer(ecfg, spec["table"], 2, device=dev, dp=card_dp)
+    ecpu = EHRTrainer(ecfg, spec["table"], 2, device="cpu", dp=cpu_dp)
+    for f in k3_wrappers():
+        f.launches = 0
+    for b in spec["ehr"]:
+        block = dp_local(EHRBatch(*b), rank, world)
+        ecpu.model.load_state_dict({k: v.cpu() for k, v in ecard.model.state_dict().items()})
+        ecpu.optimizer.load_state_dict(ecard.optimizer.state_dict())
+        ecpu.step = ecard.step
+        loss_card, _ = ecard.train_step(block)
+        loss_cpu, _ = ecpu.train_step(block)
+        out["ehr"].append(dict(
+            loss=(float(loss_card), float(loss_cpu)),
+            grads=({n: p.grad.cpu().clone() for n, p in ecard.model.named_parameters()},
+                   {n: p.grad.clone() for n, p in ecpu.model.named_parameters()}),
+            state={n: t.detach().cpu().clone() for n, t in ecard.model.state_dict().items()}))
+    out["ehr_launches"] = k3_counts()
+    out["staged"] = sorted(mesh.STAGED_OPS)
+    out["backend"] = card_dp.backend
+    (root / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    card_dp.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_two_ranks(dataset, seed: int, root: Path) -> dict:
+    """Phase 21 (d): DP_RANKS ranks share the card over gloo (NCCL takes one
+    rank a device). Their parameters, buffers and Adam moments bitwise
+    equal after every step, and the k-means init's codebook; each step held
+    to its CPU replay from the same state: loss terms within 1e-5 relative
+    (2e-6 absolute for the InfoNCE terms), gradients within 1e-4 of each
+    tensor's largest (the key bias, exact gradient 0, against the key
+    weight's), token rows by phase 5's tie-gap rule."""
+    import os
+    import pickle
+
+    import torch
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "spec.pkl").write_bytes(pickle.dumps(dp_spec(dataset, seed)))
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(r), "--dp-world", str(DP_RANKS), "--dp-root", str(root)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(DP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"data parallel (d): rank {r} exited {p.returncode}:\n"
+              f"{text[-4000:]}")
+    ranks = [pickle.loads((root / f"rank{r}.pkl").read_bytes()) for r in range(DP_RANKS)]
+    a = ranks[0]
+    for r, other in enumerate(ranks[1:], 1):
+        check(all(torch.equal(x, y) for x, y in zip(a["kmeans"], other["kmeans"])),
+              f"data parallel (d): rank {r}'s k-means codebook differs from rank 0's")
+        for part in ("tokenizer", "ehr"):
+            for k, (s0, s1) in enumerate(zip(a[part], other[part])):
+                differ = [n for n, t in s0["state"].items() if not torch.equal(t, s1["state"][n])]
+                check(not differ, f"data parallel (d): rank {r}'s {part} state after step "
+                      f"{k + 1} differs from rank 0's in {differ[:8]}")
+    loss_err = grad_err = ehr_loss_err = ehr_grad_err = max_gap = 0.0
+    for rank in ranks:
+        for step in rank["tokenizer"]:
+            got, want = step["metrics"]
+            for name, w in want.items():
+                if name == "steps_per_sec":
+                    continue
+                x = got[name]
+                check(abs(x - w) <= max(1e-5 * abs(w), 2e-6),
+                      f"data parallel (d): {name} {x} on the card, {w} on the CPU")
+                loss_err = max(loss_err, abs(x - w) / max(abs(w), 1e-6))
+            grad_err = max(grad_err, dp_grad_err(*step["grads"]))
+            gaps = tie_gaps(step["tokens"][0][0], step["tokens"][0][1],
+                            step["tokens"][1][0], step["tokens"][1][1])
+            max_gap = max(max_gap, float(gaps.max(initial=0.0)))
+        for step in rank["ehr"]:
+            x, w = step["loss"]
+            check(abs(x - w) <= 1e-5 * abs(w), f"data parallel (d): EHR loss {x} vs {w}")
+            ehr_loss_err = max(ehr_loss_err, abs(x - w) / abs(w))
+            ehr_grad_err = max(ehr_grad_err, dp_grad_err(*step["grads"]))
+    check(grad_err <= 1e-4, f"data parallel (d): tokenizer gradients off by {grad_err:.3e}")
+    check(ehr_grad_err <= 1e-4, f"data parallel (d): EHR gradients off by {ehr_grad_err:.3e}")
+    check(max_gap <= 1e-5, f"data parallel (d): token rows differ beyond a tie ({max_gap})")
+    want = {"topk_l2": TRAIN_SWEEPS * DP_REF_STEPS, "segment_attention": 2 * DP_REF_STEPS}
+    for r, rank in enumerate(ranks):
+        check(rank["tokenizer_launches"] == want, f"data parallel (d): rank {r}'s launches "
+              f"{rank['tokenizer_launches']} != {want}")
+        ehr_want = {k: DP_EHR_CFG["num_layers"] * DP_EHR_STEPS for k in ("fwd", "dq", "dkv")}
+        check(rank["ehr_launches"] == ehr_want, f"data parallel (d): rank {r}'s K3 launches "
+              f"{rank['ehr_launches']} != {ehr_want}")
+    n_state = len(a["tokenizer"][0]["state"])
+    log(f"data parallel (d): {DP_RANKS} ranks on the card over {a['backend']} ({wall:.3f} s "
+        f"wall): the k-means init's codebook and, after each of {DP_REF_STEPS} tokenizer "
+        f"steps (GCN + kmeans + revival, verify-recipe widths, fp32, packed, {DP_REF_CODES} "
+        f"codes a global batch, row budget {a['pack_rows']}) and {DP_EHR_STEPS} EHR steps, all "
+        f"{n_state} tokenizer tensors (parameters, buffers, Adam first moments) and the EHR "
+        f"state_dict bitwise equal across the ranks; against the CPU replay of each step: "
+        f"loss terms within {loss_err:.3e}, gradients within {grad_err:.3e} of the largest, "
+        f"token rows max tie gap {max_gap:.3e}; EHR loss within {ehr_loss_err:.3e}, gradients "
+        f"within {ehr_grad_err:.3e}; launches a rank: {a['tokenizer_launches']} and K3 "
+        f"{a['ehr_launches']}; collectives staged through the host on gloo: "
+        f"{a['staged'] or 'none'}")
+    return dict(wall_s=wall, launches=a["tokenizer_launches"], k3=a["ehr_launches"],
+                staged=a["staged"])
+
+
+def dp_grad_err(got: dict, want: dict) -> float:
+    """The largest gradient error, relative to each tensor's largest CPU
+    gradient; the key bias (exact gradient 0) held within 1e-5 of the key
+    weight's largest."""
+    import numpy as np
+
+    err = 0.0
+    for name, w in want.items():
+        g, w = got[name].float().numpy(), w.float().numpy()
+        if name.endswith("k_proj.bias"):
+            scale = np.abs(want[name.replace("bias", "weight")].numpy()).max()
+            check(max(np.abs(g).max(), np.abs(w).max()) <= 1e-5 * scale,
+                  f"data parallel (d): {name} is not noise around 0")
+            continue
+        if not w.any():
+            check(not g.any(), f"data parallel (d): {name} is 0 on the CPU only")
+            continue
+        err = max(err, float(np.abs(g - w).max() / np.abs(w).max()))
+    return err
+
+
+def run_data_parallel(dataset, table, ehr: dict, dev, gen, keep: Path, argv: list,
+                      seed: int) -> dict:
+    """Phase 21: data parallel. (a) cli.train under torchrun at world size
+    1 over NCCL, its checkpoint bitwise phase 16's; (b) and (c) inside one
+    world-1 NCCL group joined here (the launcher's environment set by hand):
+    the tokenizer step with and without the group, the EHR steps with and
+    without it; (d) two ranks sharing the card over gloo, against the CPU."""
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.parallel.mesh import initialize_distributed, warmup_collectives
+
+    phase_t0 = time.perf_counter()
+    # the torchrun and rank processes share the card with this one: hand
+    # back what the caching allocator keeps from the earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"data parallel: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    out = {"cli": dp_cli_world1(keep, argv)}
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        dp = initialize_distributed(dev)
+        init_s = time.perf_counter() - t0
+        warmup_collectives(dp)
+        log(f"data parallel: world-1 NCCL group joined in {init_s:.3f} s, warmed up in "
+            f"{time.perf_counter() - t0 - init_s:.3f} s (backend {dp.backend})")
+        check(dp.backend == "nccl", f"data parallel: backend {dp.backend}, want nccl")
+        out["step"] = dp_step_timing(dataset, dev, gen, dp)
+        out["ehr"] = dp_ehr_world1(table, ehr, dev, dp)
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+    out["ranks"] = dp_two_ranks(dataset, seed, keep / "ranks")
+    log(f"data parallel: phase {time.perf_counter() - phase_t0:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--codes", type=int, default=16384)
+    # one rank of phase 21 (d), started by the phase itself
+    p.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dp-world", type=int, default=DP_RANKS, help=argparse.SUPPRESS)
+    p.add_argument("--dp-root", type=str, default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     repo = Path(__file__).resolve().parent
@@ -4093,6 +4701,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
+    if args.dp_rank is not None:
+        return dp_rank(args.dp_rank, args.dp_world, Path(args.dp_root))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4165,12 +4775,20 @@ def main(argv=None) -> int:
     train_launches = run_training(dataset, dataset_np, dev, gen)
     check_train_reference(dataset, dev)
     log(f"training launches: {train_launches}")
-    run_clis(args.seed, dev)
+    import shutil
+    import tempfile
+
+    keep = Path(tempfile.mkdtemp(prefix="medtok_cli_"))
+    clis = run_clis(args.seed, dev, keep)
     run_qa(table, dev, args.seed)
     ehr_downstream = run_ehr_downstream(model_state, buffers, cfg, dataset, table, args.seed,
                                         dev)
     run_host_runtime(dataset, dataset_np, dev, args.seed)
     variants = run_training_variants(dataset, dev, gen)
+    try:
+        dp = run_data_parallel(dataset, table, ehr, dev, gen, keep, clis["argv"], args.seed)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]
@@ -4191,9 +4809,22 @@ def main(argv=None) -> int:
                        ("cli.train --text-dropout-in-train (phase 20)", "dropout")):
         k1["launches_by_path"][label] = variants[key]["launches"]["topk_l2"]
         k2["launches_by_path"][label] = variants[key]["launches"]["segment_attention"]
+    # phase 21's paths: the world-1 NCCL step, and each of the two gloo ranks
+    k1["launches_by_path"]["data-parallel step, world-1 NCCL (phase 21 b)"] = \
+        dp["step"]["launches"]["topk_l2"]
+    k2["launches_by_path"]["data-parallel step, world-1 NCCL (phase 21 b)"] = \
+        dp["step"]["launches"]["segment_attention"]
+    k1["launches_by_path"]["data parallel, a gloo rank of 2 (phase 21 d)"] = \
+        dp["ranks"]["launches"]["topk_l2"]
+    k2["launches_by_path"]["data parallel, a gloo rank of 2 (phase 21 d)"] = \
+        dp["ranks"]["launches"]["segment_attention"]
     for row, key in zip(k3, ("fwd", "dq", "dkv")):
         row["launches_by_path"] = {"EHRTrainer.fit + evaluate (phase 8)": k3_launches[key],
-                                   "cli.ehr (phase 18)": ehr_downstream["cli"]["k3"][key]}
+                                   "cli.ehr (phase 18)": ehr_downstream["cli"]["k3"][key],
+                                   "EHRTrainer, world-1 NCCL (phase 21 c)":
+                                       dp["ehr"]["counts"][key],
+                                   "EHRTrainer, a gloo rank of 2 (phase 21 d)":
+                                       dp["ranks"]["k3"][key]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     log(card)

@@ -15,9 +15,17 @@ and ``config.json``; ``EHRTrainer.load`` reads them back) under
 time and writes ``hyper_search.json``, best validation AUPRC first. The
 vocabulary is a ``.jsonl`` (no pandas) or a ``.parquet`` (needs pandas).
 Runs on CUDA unless ``--device`` names another device; without a GPU and
-without ``--device`` it stops before reading anything. One device:
-``--mesh-dp`` above 1 raises. ``--wandb`` is refused (an argparse error),
-as in ``cli.train``: the wandb mirror is not ported.
+without ``--device`` it stops before reading anything. ``--wandb`` is
+refused (an argparse error), as in ``cli.train``: the wandb mirror is not
+ported.
+
+Under ``torchrun --nproc-per-node N`` the training is data parallel over N
+GPUs (NCCL; gloo with ``--device cpu``): ``--mesh-dp -1`` (the default)
+means the world size and any other value than the world size raises; a
+``--batch-size`` the world size does not divide is an argparse error (the
+JAX CLI falls back to one device there; N processes would each train the
+whole batch).
+Rank 0 builds the task cache first and writes the outputs.
 """
 
 from __future__ import annotations
@@ -57,8 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--save-result-path", type=str, default="task_results")
     p.add_argument("--mesh-dp", type=int, default=-1,
-                   help="-1 or 1: one device; above 1 raises (data-parallel EHR "
-                        "training is not ported)")
+                   help="data-parallel ranks: -1 or torchrun's world size")
     p.add_argument("--flash", type=str, default="auto", choices=["auto", "on", "off"],
                    help="kernel K3 in the encoder (auto: on CUDA, the dense path on "
                         "the CPU)")
@@ -83,13 +90,30 @@ def main(argv=None) -> dict:
     if args.wandb:
         p.error("--wandb (the wandb mirror; metrics go to metrics.jsonl) is not ported to "
                 "medtok_tpu_torch (ROADMAP Queue 1)")
-    if args.mesh_dp > 1:
-        raise NotImplementedError(f"mesh_dp={args.mesh_dp}: EHR training runs on one device "
-                                  "(data-parallel EHR training is not ported)")
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.parallel.mesh import (
+        check_mesh,
+        initialize_distributed,
+        warmup_collectives,
+        world_size,
+    )
+
+    world = world_size()
+    check_mesh(args.mesh_dp, 1, world)
+    if args.batch_size % world:
+        p.error(f"--batch-size {args.batch_size} is not divisible by the world size "
+                f"{world}: each rank trains on its block of every batch")
 
     from medtok_tpu_torch import resolve_device
 
     device = resolve_device(args.device)
+    owns_group = not dist.is_initialized()   # a group the caller made stays
+    dp = initialize_distributed(device)
+    warmup_collectives(dp)
+    rank = 0 if dp is None else dp.rank
+    if dp is not None:
+        device = dp.device
 
     from medtok_tpu_torch.ehr.parsers import EHRShotDataset, MIMIC3Dataset, MIMIC4Dataset
     from medtok_tpu_torch.ehr.tasks import CodeMapper, PatientEHRTasks, build_labels
@@ -102,7 +126,7 @@ def main(argv=None) -> dict:
     )
     from medtok_tpu_torch.utils.logging import MetricsLogger, create_logger
 
-    logger = create_logger(args.save_result_path)
+    logger = create_logger(args.save_result_path, process_index=rank)
     stages: dict[str, float] = {}
     clock = [time.perf_counter()]
 
@@ -123,7 +147,11 @@ def main(argv=None) -> dict:
         db.patients, mapper, dataset=args.dataset, phenotype_index=args.phenotype_index,
         cache_path=root / f"{args.dataset}_patient_{args.task}.pkl",
     )
+    if rank:                  # rank 0 writes the task cache the others read
+        dp.barrier()
     data = [d for d in tasks.build(args.task) if d and d[0]["label"] is not None]
+    if dp is not None and rank == 0:
+        dp.barrier()
     logger.info(f"Number of samples: {len(data)}")
     stage("tasks_s")
 
@@ -154,7 +182,7 @@ def main(argv=None) -> dict:
             seed=hp.get("seed", args.seed),
             flash_attention={"auto": "auto", "on": True, "off": False}[args.flash],
         )
-        trainer = EHRTrainer(cfg, table, num_class, device=device)
+        trainer = EHRTrainer(cfg, table, num_class, device=device, dp=dp)
         epochs = []
 
         def log_fn(epoch, m):
@@ -204,25 +232,41 @@ def main(argv=None) -> dict:
                     results.append({"hp": hp_name, "value": hp_value, "repeat": rep,
                                     "best_val": best, "test": test})
         results.sort(key=lambda r: -r["best_val"]["aupr"])
-        (out / "hyper_search.json").write_text(json.dumps(
-            {"task": args.task, "dataset": args.dataset, "results": results}, indent=2) + "\n")
+        if rank == 0:
+            (out / "hyper_search.json").write_text(json.dumps(
+                {"task": args.task, "dataset": args.dataset, "results": results},
+                indent=2) + "\n")
         logger.info(f"Best grid point: {results[0]}")
+        finish(dp, owns_group)
         return {"stages": stages, "results": results}
 
-    metrics = MetricsLogger(out)
+    metrics = MetricsLogger(out if rank == 0 else None)
     try:
         trainer, state, best, test = single_run({}, metrics)
     finally:
         metrics.close()
     logger.info(f"Best val: {best}")
     logger.info(f"Test: {test}")
-    trainer.save(out / "best_model", state)
-    (out / "test_metrics.json").write_text(json.dumps(
-        {"task": args.task, "dataset": args.dataset, "best_val": best, "test": test},
-        indent=2) + "\n")
-    logger.info(f"Saved best model + metrics under {out}")
+    if rank == 0:
+        trainer.save(out / "best_model", state)
+        (out / "test_metrics.json").write_text(json.dumps(
+            {"task": args.task, "dataset": args.dataset, "best_val": best, "test": test},
+            indent=2) + "\n")
+        logger.info(f"Saved best model + metrics under {out}")
+    finish(dp, owns_group)
     return {"stages": stages, "best_val": best, "test": test, "num_class": num_class,
             "test_batches": test_batches}
+
+
+def finish(dp, owns_group: bool) -> None:
+    """Wait for rank 0's writes; leave the group this run joined."""
+    if dp is None:
+        return
+    import torch.distributed as dist
+
+    dp.barrier()
+    if owns_group:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

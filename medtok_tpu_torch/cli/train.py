@@ -3,6 +3,7 @@
     python -m medtok_tpu_torch.cli.train --kg-path Dataset/primeKG/ \
         --med-codes-pkg-map-path codes.jsonl --text-vocab vocab.txt \
         --results-dir results/ [--device cuda]
+    torchrun --nproc-per-node 8 -m medtok_tpu_torch.cli.train ...same flags...
 
 The flags are the JAX CLI's, and so is the config they resolve to
 (``config_from_args``), frozen to ``<experiment>/args.json``; checkpoints
@@ -16,9 +17,18 @@ anything. ``--graph-model-name GAT`` trains the GAT encoder, ``--kmeans``
 the EMA codebook (set by cosine k-means over the first batch's shared
 features at step 0; a resumed run keeps its checkpointed codebook) and
 ``--codebook-revival`` its dead-code revival, ``--text-dropout-in-train``
-BERT dropout (``--packed-text`` auto then goes off). Flags that select
-code the port does not have (a device mesh above one device, wandb,
-multi-host bootstrapping) are refused at parse time.
+BERT dropout (``--packed-text`` auto then goes off).
+
+Under ``torchrun`` (``python -m torch.distributed.run``) the run is data
+parallel, one process a GPU over NCCL (gloo with ``--device cpu``):
+``--mesh-dp -1`` (the default) means the world size, and any other value
+than the world size raises. Each rank takes its block of every global batch
+(``--global-batch-size`` stays the global batch); rank 0 writes args.json,
+the log, ``metrics.jsonl`` and the checkpoints, and the k-means init
+clusters the whole first batch. ``--multihost`` is the same launcher across
+hosts (torchrun's ``--nnodes`` / ``--rdzv-endpoint``) and needs its
+environment. ``--mesh-tp`` above 1 (the tensor-parallel codebook sweep) and
+``--wandb`` are refused at parse time.
 """
 
 from __future__ import annotations
@@ -74,11 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-checkpoints", type=int, default=2)
     p.add_argument("--mixed-precision", type=str, default="bf16", choices=["none", "bf16"])
     p.add_argument("--ema", action="store_true")
-    p.add_argument("--mesh-dp", type=int, default=-1)
-    p.add_argument("--mesh-tp", type=int, default=1)
+    p.add_argument("--mesh-dp", type=int, default=-1,
+                   help="data-parallel ranks: -1 or torchrun's world size")
+    p.add_argument("--mesh-tp", type=int, default=1, help="1 (above 1: not ported)")
     p.add_argument("--wandb", action="store_true", help="not ported: refused")
     p.add_argument("--max-steps", type=int, default=None)
-    p.add_argument("--multihost", action="store_true", help="not ported: refused")
+    p.add_argument("--multihost", action="store_true",
+                   help="a torchrun launch across hosts (needs its environment)")
     p.add_argument("--packed-text", type=str, default="auto", choices=["auto", "on", "off"],
                    help="sequence-packed frozen-BERT forward in the train step (auto = "
                         "on unless --text-dropout-in-train is set)")
@@ -95,19 +107,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The flags, with those that select code the port lacks refused (an
-    argparse error, exit code 2)."""
+    """The flags, checked against the launcher's world size; those that
+    select code the port lacks are refused (an argparse error, exit code
+    2)."""
+    from medtok_tpu_torch.parallel.mesh import launched, world_size
+
     p = build_parser()
     args = p.parse_args(argv)
     if args.codebook_revival and not args.kmeans:
         p.error("--codebook-revival requires --kmeans")
-    refused = [(args.mesh_dp > 1 or args.mesh_tp > 1,
-                "--mesh-dp / --mesh-tp above 1 (data-parallel training)"),
-               (args.wandb, "--wandb (the wandb mirror; metrics go to metrics.jsonl)"),
-               (args.multihost, "--multihost")]
+    refused = [(args.mesh_tp > 1, "--mesh-tp above 1 (the tensor-parallel codebook sweep)"),
+               (args.wandb, "--wandb (the wandb mirror; metrics go to metrics.jsonl)")]
     for flag, what in refused:
         if flag:
             p.error(f"{what} is not ported to medtok_tpu_torch (ROADMAP Queue 1)")
+    world = world_size()
+    if args.mesh_dp not in (-1, world):
+        p.error(f"--mesh-dp {args.mesh_dp}: the world size is {world} (launch with "
+                f"`torchrun --nproc-per-node {args.mesh_dp}`, or pass --mesh-dp -1)")
+    if args.global_batch_size % world:
+        p.error(f"--global-batch-size {args.global_batch_size} is not divisible by the "
+                f"world size {world}")
+    if args.multihost and not launched():
+        p.error("--multihost needs torchrun's environment (RANK, WORLD_SIZE, "
+                "MASTER_ADDR, MASTER_PORT): launch with `torchrun --nnodes ...`")
     return args
 
 
@@ -173,10 +196,21 @@ def main(argv=None) -> Path:
     args = parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from medtok_tpu_torch import resolve_device
 
+    from medtok_tpu_torch.parallel.mesh import initialize_distributed, warmup_collectives
+
     device = resolve_device(args.device)
+    owns_group = not dist.is_initialized()   # a group the caller made stays
+    t0 = time.perf_counter()
+    dp = initialize_distributed(device)
+    init_s = time.perf_counter() - t0
+    warmup_collectives(dp)
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+    if dp is not None:
+        device = dp.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -197,24 +231,30 @@ def main(argv=None) -> Path:
     else:
         stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
         workdir = Path(args.results_dir) / f"{stamp}-{args.graph_model_name}"
-    logger = create_logger(workdir)
+        if dp is not None:   # rank 0's clock names the directory
+            workdir = dp.broadcast_object(workdir)
+    logger = create_logger(workdir, process_index=rank)
     logger.info(f"Experiment directory created at {workdir}")
     logger.info(f"device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    if dp is not None:
+        logger.info(f"data parallel: {world} ranks over {dp.backend}, the process group "
+                    f"joined in {init_s:.3f} s, warmed up in "
+                    f"{time.perf_counter() - t0 - init_s:.3f} s")
 
     dataset = MedCodeDataset.from_path(
         KnowledgeGraph.from_csv(cfg.data.kg_path), cfg.data.med_codes_pkg_map_path,
         WordPieceTokenizer.from_vocab_file(args.text_vocab), cfg=cfg.data)
     logger.info(f"Dataset contains {len(dataset):,} medical codes")
 
-    metrics_logger = MetricsLogger(workdir)
+    metrics_logger = MetricsLogger(workdir if rank == 0 else None)
 
     def log_fn(step, m):
         metrics_logger.log(step, m)
         logger.info(f"(step={step:07d}) Train Loss: {m.get('loss', float('nan')):.4f}, "
                     f"Train Steps/Sec: {m.get('steps_per_sec', 0):.2f}")
 
-    trainer = Trainer(cfg, device=device, workdir=workdir, log_fn=log_fn)
+    trainer = Trainer(cfg, device=device, workdir=workdir, log_fn=log_fn, dp=dp)
     state = trainer.init_state()
     if state.step:
         logger.info(f"Resumed from the checkpoint at step {state.step}")
@@ -224,11 +264,13 @@ def main(argv=None) -> Path:
         sd = torch.load(args.bert_checkpoint, map_location="cpu", weights_only=True)
         trainer.model.text_model.load_state_dict(convert_hf_bert(sd, cfg.model.text))
     t = cfg.train
+    shard = dict(process_index=rank, process_count=world)
     if cfg.model.quantizer.use_kmeans and state.step == 0:
-        # after the BERT weights: the init clusters the text encoder's features
+        # after the BERT weights: the init clusters the text encoder's
+        # features of the whole first batch
         first = next(iter(epoch_batches(dataset, batch_size=t.global_batch_size,
-                                        seed=t.global_seed, epoch=0)))
-        state = kmeans_init_codebook(trainer.model, state, [first])
+                                        seed=t.global_seed, epoch=0, **shard)))
+        state = kmeans_init_codebook(trainer.model, state, [first], dp=dp)
         logger.info("kmeans codebook init done")
 
     steps_per_epoch = len(dataset) // t.global_batch_size
@@ -237,13 +279,15 @@ def main(argv=None) -> Path:
     for epoch in range(start_epoch, t.epochs):
         logger.info(f"Beginning epoch {epoch}...")
         batches = epoch_batches(dataset, batch_size=t.global_batch_size,
-                                seed=t.global_seed, epoch=epoch)
+                                seed=t.global_seed, epoch=epoch, **shard)
         state = trainer.fit(state, batches, max_steps=args.max_steps)
         if args.max_steps is not None and state.step >= args.max_steps:
             break
     trainer.save(state)
     metrics_logger.close()
     logger.info("Done!")
+    if dp is not None and owns_group:
+        dist.destroy_process_group()
     return workdir
 
 

@@ -98,10 +98,12 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters (``train/trainer.py``). The port trains on
-    one device: ``mesh_dp`` / ``mesh_tp`` above 1 raise. ``ckpt_every`` and
-    ``max_checkpoints`` drive the trainer's checkpoints, ``results_dir`` the
-    train CLI's experiment directory; neither trainer reads
+    """Training hyperparameters (``train/trainer.py``). ``mesh_dp`` is the
+    data-parallel world size (-1: every rank of the process group; above 1
+    needs one, ``parallel/mesh.py``), ``mesh_tp`` above 1 raises (not
+    ported). ``ckpt_every`` and ``max_checkpoints`` drive the trainer's
+    checkpoints, ``results_dir`` the train CLI's experiment directory;
+    neither trainer reads
     ``weight_decay`` or ``mixed_precision`` (both CLIs turn the latter into
     ``ModelConfig.compute_dtype``)."""
 

@@ -636,16 +636,33 @@ def collate(
 
 
 def epoch_batches(dataset: MedCodeDataset, *, batch_size: int, seed: int = 0,
-                  epoch: int = 0) -> Iterator[CodeBatch]:
-    """One epoch of training batches: a permutation fixed by (seed, epoch),
-    the last partial batch dropped, and batch bi's edge dropout seeded by
-    ``(seed + 1) * 1_000_003 + epoch * 65_537 + bi``, as the JAX package's
-    single-process iterator shuffles and seeds them; the bits are drawn by
-    ``make_batch``'s route (the C++ packer's generator on the native one)."""
+                  epoch: int = 0, process_index: int = 0,
+                  process_count: int = 1) -> Iterator[CodeBatch]:
+    """One epoch of training batches, as the JAX package's iterator draws
+    them: a permutation fixed by (seed, epoch), the last partial batch
+    dropped, and batch bi's edge dropout seeded by ``((seed + 1) *
+    1_000_003 + epoch * 65_537 + bi) * process_count + process_index``; the
+    bits are drawn by ``make_batch``'s route (the C++ packer's generator on
+    the native one).
+
+    Data parallel (``process_count`` above 1): ``batch_size`` stays the
+    global batch; every rank walks the same permutation and yields its
+    contiguous 1 / process_count block of each global batch, padded to the
+    global batch's ``batch_shapes`` so every rank's tensors have one shape."""
+    if batch_size % process_count:
+        raise ValueError(f"global batch {batch_size} is not divisible by "
+                         f"{process_count} processes")
+    local_bs = batch_size // process_count
     n = len(dataset)
     order = np.arange(n)
     np.random.default_rng(seed + epoch).shuffle(order)
     for bi, start in enumerate(range(0, n - n % batch_size, batch_size)):
-        aug_seed = (seed + 1) * 1_000_003 + epoch * 65_537 + bi
-        yield dataset.make_batch([int(i) for i in order[start:start + batch_size]],
-                                 aug_seed=aug_seed)
+        idxs = [int(i) for i in order[start:start + batch_size]]
+        aug_seed = (((seed + 1) * 1_000_003 + epoch * 65_537 + bi) * process_count
+                    + process_index)
+        if process_count == 1:
+            yield dataset.make_batch(idxs, aug_seed=aug_seed)
+        else:
+            yield dataset.make_batch(
+                idxs[process_index * local_bs:(process_index + 1) * local_bs],
+                aug_seed=aug_seed, force_shapes=dataset.batch_shapes(idxs))

@@ -35,8 +35,8 @@ def pack_code_batch(
     order, as a PackedTextBatch of numpy arrays whose gather map is [B, Lt].
     A description longer than a row raises; so does a fill that needs more
     than ``num_rows`` rows, naming the rows. (The JAX package packs each
-    data-parallel shard into its own block; the port trains on one device,
-    one shard.)"""
+    data-parallel shard into its own block; a data-parallel rank of the
+    port packs its own block.)"""
     B, Lt = input_ids.shape
     lens = np.asarray(attention_mask, np.int64).sum(axis=1)
     if lens.max(initial=0) > row_len:

@@ -8,6 +8,12 @@ periodic cosine learning rate (T_max 10, eta_min 1e-3), early stop on the
 validation AUPRC. The metrics are numpy (the GPU machine has no sklearn);
 they follow sklearn's definitions (average precision as the step sum, not
 the trapezoid).
+
+Data parallel (``EHRTrainer(..., dp=)``, one process a GPU under torchrun):
+every rank draws the same global weighted batch and collates its own
+block, the gradients and the loss are averaged over the ranks by one flat
+all-reduce before Adam, each rank draws its own dropout masks, and
+evaluation runs the whole batches on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from medtok_tpu_torch import resolve_device
 from medtok_tpu_torch.ehr.dataset import EHRBatch, EHRFeaturizer, make_label_vec
 from medtok_tpu_torch.ehr.model import EHRModel, to_device
 from medtok_tpu_torch.models.layers import init_random_, resolve_use_flash
+from medtok_tpu_torch.parallel.mesh import DataParallel, rank_seed
 
 MULTI_TASKS = ("lenofstay", "phenotype", "drugrec")
 ETA_MIN = 1e-3
@@ -206,14 +213,19 @@ def sample_weights(labels: np.ndarray, task: str) -> np.ndarray:
 
 def weighted_batches(feats: list[dict], weights: np.ndarray,
                      featurizer: EHRFeaturizer, *, batch_size: int,
-                     rng: np.random.Generator) -> Iterator[EHRBatch]:
+                     rng: np.random.Generator, process_index: int = 0,
+                     process_count: int = 1) -> Iterator[EHRBatch]:
     """One epoch of weighted sampling with replacement (the JAX package's
-    numpy draws)."""
+    numpy draws); with ``process_count`` above 1 each global batch's
+    contiguous block ``process_index`` (every rank draws the same
+    order)."""
     n = len(feats)
     p = weights / weights.sum()
     order = rng.choice(n, size=n, replace=True, p=p)
+    local = batch_size // process_count
     for start in range(0, n - batch_size + 1, batch_size):
-        yield featurizer.collate([feats[i] for i in order[start:start + batch_size]])
+        lo = start + process_index * local
+        yield featurizer.collate([feats[i] for i in order[lo:lo + local]])
 
 
 # ---------------------------------------------------------------- loop ------
@@ -245,15 +257,21 @@ class EHRTrainConfig:
 
 class EHRTrainer:
     """Trains an ``EHRModel`` on one device: CUDA unless ``device`` names
-    another (without a GPU, ``device=None`` raises). Parameters start from
-    ``init_random_`` with a CPU generator seeded by ``cfg.seed``, so every
-    device starts from the same weights; dropout draws from a generator on
-    the device seeded by ``cfg.seed + 2``."""
+    another (without a GPU, ``device=None`` raises), or on this rank's
+    device of a data-parallel group ``dp`` (whose world size must divide
+    ``cfg.batch_size``). Parameters start from ``init_random_`` with a CPU
+    generator seeded by ``cfg.seed``, so every device and rank starts from
+    the same weights; dropout draws from a generator on the device seeded by
+    ``rank_seed(cfg.seed + 2, rank)``."""
 
     def __init__(self, cfg: EHRTrainConfig, embedding_table: np.ndarray,
-                 num_class: int, *, device=None):
+                 num_class: int, *, device=None, dp: DataParallel | None = None):
+        if dp is not None and cfg.batch_size % dp.world:
+            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by the world "
+                             f"size {dp.world}")
         self.cfg = cfg
         self.num_class = num_class
+        self.dp = dp
         self.device = resolve_device(device)
         self.use_flash = resolve_use_flash(cfg.flash_attention, self.device)
         self.model = EHRModel(
@@ -271,7 +289,8 @@ class EHRTrainer:
         cfg = self.cfg
         init_random_(self.model.cpu(), torch.Generator().manual_seed(cfg.seed))
         self.model.to(self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(cfg.seed + 2, 0 if self.dp is None else self.dp.rank))
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
         self.steps_per_epoch = max(steps_per_epoch, 1)
@@ -284,7 +303,8 @@ class EHRTrainer:
         return ETA_MIN + (cfg.lr - ETA_MIN) * 0.5 * (1.0 + math.cos(math.pi * epoch / T_MAX))
 
     def train_step(self, batch: EHRBatch) -> tuple[torch.Tensor, torch.Tensor]:
-        """One Adam step on a numpy batch; (loss, probs) on the device."""
+        """One Adam step on a numpy batch (data parallel, this rank's block);
+        (loss, probs) on the device, the loss averaged over the ranks."""
         self.model.train()
         b = to_device(batch, self.device)
         for group in self.optimizer.param_groups:
@@ -293,6 +313,9 @@ class EHRTrainer:
         _, logits = self.model(b, generator=self.generator)
         loss = task_loss(self.cfg.task, logits, b.label_onehot)
         loss.backward()
+        if self.dp is not None:
+            loss = loss.detach()
+            self.dp.all_reduce_mean_([p.grad for p in self.model.parameters()] + [loss])
         self.optimizer.step()
         self.step += 1
         return loss.detach(), task_probs(self.cfg.task, logits.detach())
@@ -321,9 +344,11 @@ class EHRTrainer:
         best_state = self._state()
         patience = 0
         loss = torch.tensor(float("nan"))  # no train batch yet (tiny datasets)
+        shard = {} if self.dp is None else dict(process_index=self.dp.rank,
+                                                process_count=self.dp.world)
         for epoch in range(cfg.epochs):
             for batch in weighted_batches(feats_train, weights_train, featurizer,
-                                          batch_size=cfg.batch_size, rng=rng_np):
+                                          batch_size=cfg.batch_size, rng=rng_np, **shard):
                 loss, _ = self.train_step(batch)
             metrics = self.evaluate(val_batches)
             if log_fn:

@@ -25,6 +25,11 @@ the shared text, shared graph, text-specific and graph-specific sweeps (the
 norm-EMA update, and with revival the dead-code rewrite toward the closest
 feature); the write assigns new tensors, so the autograd graph keeps the
 codebook its sweeps read.
+
+Data parallel (``dp``, the JAX module's ``dp_axis``): the usage FIFO takes
+the ranks' indices gathered in rank order, the EMA write sums the bin counts
+and feature sums over the ranks, and revival picks its anchors from the
+gathered features, so every rank holds the same buffers.
 """
 
 from __future__ import annotations
@@ -41,13 +46,15 @@ from medtok_tpu_torch.ops.ema import ema_update, norm_ema_update
 
 class SoftVQQuantizer(nn.Module):
     def __init__(self, cfg: QuantizerConfig, split: tuple[int, int], *,
-                 dtype=None, param_dtype=None, device=None):
+                 dtype=None, param_dtype=None, device=None, dp=None):
         """``dtype`` is the cross-attention's compute dtype, ``param_dtype``
         its parameters' (default: ``dtype``); the codebook and the specific
-        projections stay fp32."""
+        projections stay fp32. ``dp``: the ``parallel.mesh.DataParallel`` of a
+        data-parallel run, or None."""
         super().__init__()
         self.cfg = cfg
         self.split = split
+        self.dp = dp
         C, D = cfg.codebook_size, cfg.codebook_embed_dim
         if cfg.use_kmeans:
             # a placeholder of unit rows: kmeans_init_codebook overwrites it
@@ -95,6 +102,8 @@ class SoftVQQuantizer(nn.Module):
         c = self.cfg
         if not c.show_usage:
             return torch.zeros((), dtype=torch.float32, device=indices.device)
+        if self.dp is not None:
+            indices = self.dp.all_gather(indices)
         buf, counts, usage = vq_ops.usage_update(
             self.codebook_used, self.usage_counts, indices, c.codebook_size)
         self.codebook_used.copy_(buf)
@@ -135,6 +144,8 @@ class SoftVQQuantizer(nn.Module):
         bins = torch.zeros(C, dtype=torch.float32, device=w.device).index_put_(
             (top1,), torch.ones_like(top1, dtype=torch.float32), accumulate=True)
         embed_sum = torch.zeros_like(w).index_put_((top1,), flat_n, accumulate=True)
+        if self.dp is not None:
+            self.dp.all_reduce_sum_([bins, embed_sum])
         zero = bins == 0
         mean = vq_ops.l2_normalize(embed_sum / torch.where(zero, 1.0, bins)[:, None])
         new_w = norm_ema_update(w, torch.where(zero[:, None], w, mean), decay)
@@ -143,7 +154,8 @@ class SoftVQQuantizer(nn.Module):
             avg_probs = bins / torch.clamp(bins.sum(), min=1.0)
             prob = ema_update(self.ema_embed_prob, avg_probs, decay)
             self.ema_embed_prob = prob
-            anchor = flat_n[torch.argmax(flat_n @ new_w.T, dim=0)]        # [C, D]
+            feats = flat_n if self.dp is None else self.dp.all_gather(flat_n)
+            anchor = feats[torch.argmax(feats @ new_w.T, dim=0)]          # [C, D]
             revive = torch.exp(-(prob * C * 10.0) / (1.0 - decay) - 1e-3)[:, None]
             new_w = vq_ops.l2_normalize(new_w * (1.0 - revive) + anchor * revive)
         self.ema_codebook = new_w

@@ -46,7 +46,10 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class MultimodalTokenizer(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, param_dtype=None, device=None):
+    def __init__(self, cfg: ModelConfig, *, param_dtype=None, device=None, dp=None):
+        """``dp``: the ``parallel.mesh.DataParallel`` of a data-parallel
+        training run (the quantizer's usage FIFO and EMA codebook then take
+        the ranks' indices and statistics), or None."""
         super().__init__()
         self.cfg = cfg
         dt = compute_dtype(cfg)
@@ -55,7 +58,7 @@ class MultimodalTokenizer(nn.Module):
         self.text_model.requires_grad_(False)
         self.graph_encoder = GraphEncoder(cfg.graph, **fk)
         self.text_mapped = CastLinear(cfg.text.hidden_size, cfg.graph.out_channels, **fk)
-        self.quantize = SoftVQQuantizer(cfg.quantizer, cfg.split, **fk)
+        self.quantize = SoftVQQuantizer(cfg.quantizer, cfg.split, **fk, dp=dp)
 
     def _tokenize(self, text_features, text_mask, batch: CodeBatch) -> TokenizedCodes:
         graph_nodes = self.graph_encoder(

@@ -1,5 +1,5 @@
-"""Single-device tokenizer training (counterpart of
-``medtok_tpu/train/trainer.py``).
+"""Tokenizer training on one device or data parallel over
+``torch.distributed`` (counterpart of ``medtok_tpu/train/trainer.py``).
 
 A step runs the training forward (``MultimodalTokenizer.forward_train``)
 and ``train/losses.py::assemble_losses``, back-propagates, clips the
@@ -20,8 +20,18 @@ batch's shared features before step 0 of a ``--kmeans`` run.
 With a ``workdir``, ``fit`` saves a checkpoint every ``ckpt_every`` steps
 (``utils/checkpoint.py``, rotated to ``max_checkpoints``) and ``init_state``
 restores the latest one; ``cli/train.py`` is the command line around it.
-Data-parallel training (``mesh_dp`` / ``mesh_tp`` above 1) is not ported
-yet.
+
+Data parallel (``Trainer(..., dp=initialize_distributed(device))``, one
+process a GPU under torchrun): each rank trains on its block of every
+global batch (``epoch_batches(process_index=, process_count=)``), its
+InfoNCE negatives its own. After backward one flat all-reduce averages the
+trainable gradients, another the metrics, before the clip and Adam, so
+every rank takes the same step; the quantizer's usage FIFO and EMA codebook
+take the ranks' indices and statistics (``models/quantizer.py``). Each rank
+draws its own dropout masks (``parallel.mesh.rank_seed``; a restored rank
+takes its own generator state from the checkpoint), the packed row budget
+is the largest rank's, and rank 0 writes the checkpoints (with every rank's
+generator state) while the others wait. ``mesh_tp`` above 1 is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from medtok_tpu_torch.data.types import CodeBatch, PackedTextBatch
 from medtok_tpu_torch.models.layers import init_random_
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
 from medtok_tpu_torch.ops.ema import kmeans
+from medtok_tpu_torch.parallel.mesh import DataParallel, check_mesh, rank_seed
 from medtok_tpu_torch.train.losses import assemble_losses
 from medtok_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -118,13 +129,15 @@ class TrainState:
 
 
 def create_train_state(cfg: MedTokConfig, model: MultimodalTokenizer, *,
-                       params: Mapping | str | Path | None = None) -> TrainState:
+                       params: Mapping | str | Path | None = None,
+                       rank: int = 0) -> TrainState:
     """A fresh state on the model's device. Parameters are drawn by
     ``init_random_`` from a generator seeded by ``TrainConfig.global_seed``,
     or loaded from ``params``: a flax params tree, a variables dict with
     its ``usage`` collection, or a .npz of either (``convert.load_params``).
     Adam's state starts at zero, the EMA as a copy of the parameters, the
-    dropout generator at the seed + 1."""
+    dropout generator at ``rank_seed(seed + 1, rank)`` (the seed + 1 on
+    one device)."""
     seed = cfg.train.global_seed
     dev = next(model.parameters()).device
     if params is None:
@@ -135,28 +148,41 @@ def create_train_state(cfg: MedTokConfig, model: MultimodalTokenizer, *,
     ema = [p.detach().clone() for p in trainable] if cfg.train.ema else None
     return TrainState(step=0, model=model, opt_state=ClippedAdam.init(trainable),
                       ema_params=ema,
-                      generator=torch.Generator(device=dev).manual_seed(seed + 1))
+                      generator=torch.Generator(device=dev).manual_seed(
+                          rank_seed(seed + 1, rank)))
 
 
 @torch.no_grad()
 def kmeans_init_codebook(model: MultimodalTokenizer, state: TrainState,
                          batches: Iterable[CodeBatch], *,
                          generator: torch.Generator | None = None,
-                         init_idx: torch.Tensor | None = None) -> TrainState:
+                         init_idx: torch.Tensor | None = None,
+                         dp: DataParallel | None = None) -> TrainState:
     """Cosine k-means (10 iterations) over the batches' ``encode_shared``
     rows (each batch's text rows, then its graph rows) into the codebook:
     under ``use_kmeans`` the EMA codebook and its cluster sizes (the final
     bins), otherwise the ``codebook`` parameter. The initial means are
     ``init_idx``, or drawn by ``ops.ema.kmeans`` from ``generator`` (a CPU
-    generator, default seed 0). Returns ``state``."""
+    generator, default seed 0). Data parallel, ``batches`` are each rank's
+    blocks and the rows clustered are the global batch's (the ranks' text
+    rows in rank order, then their graph rows), clustered on rank 0 and
+    broadcast, so every rank holds the same codebook. Returns ``state``."""
     dev = next(model.parameters()).device
     feats = []
     for b in batches:
-        feats += list(model.encode_shared(b.to(dev)))
-    data = torch.cat(feats)
+        rows = model.encode_shared(b.to(dev))
+        feats += [r if dp is None else dp.all_gather(r) for r in rows]
     q = model.quantize
-    means, bins = kmeans(data, q.cfg.codebook_size, num_iters=10, use_cosine_sim=True,
-                         generator=generator, init_idx=init_idx)
+    C, D = q.cfg.codebook_size, q.cfg.codebook_embed_dim
+    if dp is None or dp.rank == 0:
+        means, bins = kmeans(torch.cat(feats), C, num_iters=10, use_cosine_sim=True,
+                             generator=generator, init_idx=init_idx)
+    else:
+        means = torch.empty((C, D), dtype=torch.float32, device=dev)
+        bins = torch.empty(C, dtype=torch.float32, device=dev)
+    if dp is not None:
+        means, bins = means.float().contiguous(), bins.float().contiguous()
+        dp.broadcast_([means, bins])
     if q.cfg.use_kmeans:
         q.ema_codebook = means.to(q.ema_codebook.dtype)
         q.ema_cluster = bins.to(q.ema_cluster.dtype)
@@ -181,13 +207,17 @@ def _loss_fn(model: MultimodalTokenizer, batch: CodeBatch, cfg: MedTokConfig, *,
     return breakdown.total, breakdown.metrics
 
 
-def make_train_step(cfg: MedTokConfig, model: MultimodalTokenizer
+def make_train_step(cfg: MedTokConfig, model: MultimodalTokenizer,
+                    dp: DataParallel | None = None
                     ) -> Callable[..., tuple[TrainState, dict]]:
     """The step ``(state, batch, packed=None) -> (state, metrics)`` on
     device tensors: forward, backward, clip + Adam, EMA. The state is
     updated in place and returned; the metrics are detached device
-    scalars. The ``train.*`` ranges (here, in ``_loss_fn`` and in the
-    model) name the step's parts in a torch.profiler trace."""
+    scalars. With ``dp`` (the model built with the same) the trainable
+    gradients, then the metrics, are averaged over the ranks by one flat
+    all-reduce each after backward (``train.allreduce``). The ``train.*``
+    ranges (here, in ``_loss_fn`` and in the model) name the step's parts
+    in a torch.profiler trace."""
     t = cfg.train
     tx = ClippedAdam(t.lr, t.beta1, t.beta2, t.max_grad_norm)
     params = [p for _, p in trainable_parameters(model)]
@@ -202,6 +232,13 @@ def make_train_step(cfg: MedTokConfig, model: MultimodalTokenizer
                                  generator=state.generator)
         with record_function("train.backward"):
             loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if dp is not None:
+            with record_function("train.allreduce"):
+                dp.all_reduce_mean_([p.grad for p in params])
+                values = torch.stack([v.float() for v in metrics.values()])
+                dp.all_reduce_mean_([values])
+                metrics = dict(zip(metrics, values.unbind()))
         with record_function("train.optimizer"):
             tx.step(params, [p.grad for p in params], state.opt_state)
             if state.ema_params is not None:
@@ -209,58 +246,83 @@ def make_train_step(cfg: MedTokConfig, model: MultimodalTokenizer
                     torch._foreach_mul_(state.ema_params, decay)
                     torch._foreach_add_(state.ema_params, params, alpha=1.0 - decay)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step_fn
 
 
-def packed_rows_budget(attention_mask: np.ndarray, row_len: int) -> int:
+def packed_rows_budget(attention_mask: np.ndarray, row_len: int,
+                       dp: DataParallel | None = None) -> int:
     """The automatic row budget of the packed text path: 1.3 times the
-    rows the batch's tokens fill, at least 2."""
-    return max(2, int(np.ceil(1.3 * attention_mask.sum() / row_len)))
+    rows the batch's tokens fill, at least 2; data parallel, the largest
+    of the ranks' budgets (the JAX trainer's multi-process rule)."""
+    est = max(2, int(np.ceil(1.3 * attention_mask.sum() / row_len)))
+    return est if dp is None else dp.all_reduce_max(est)
 
 
 class Trainer:
     """Host loop on one device (CUDA unless ``device`` names another;
-    without a GPU ``device=None`` raises): packs each batch's texts when
+    without a GPU ``device=None`` raises), or on this rank's device of a
+    data-parallel group ``dp`` (``parallel.mesh.initialize_distributed``;
+    ``mesh_dp`` -1 or its world size, ``mesh_tp`` 1): packs each batch's texts when
     ``TrainConfig.packed_text`` is set, runs the step, every ``log_every``
     steps passes the metrics as floats with ``steps_per_sec`` to
     ``log_fn(step, metrics)``, and with a ``workdir`` saves a checkpoint
-    every ``ckpt_every`` steps (``args.json`` written there once)."""
+    every ``ckpt_every`` steps (``args.json`` written there once; rank 0
+    writes, every rank takes part). Without ``dp`` a ``mesh_dp`` above 1
+    raises."""
 
     def __init__(self, cfg: MedTokConfig, *, device=None, workdir: str | Path | None = None,
-                 log_fn: Callable[[int, dict], None] | None = None):
+                 log_fn: Callable[[int, dict], None] | None = None,
+                 dp: DataParallel | None = None):
         t = cfg.train
-        if t.mesh_dp > 1 or t.mesh_tp > 1:
-            raise NotImplementedError(
-                f"mesh_dp={t.mesh_dp}, mesh_tp={t.mesh_tp}: training runs on one "
-                "device (data-parallel training is ROADMAP Queue 1, tokenizer "
-                "training variants)")
+        check_mesh(t.mesh_dp, t.mesh_tp, 1 if dp is None else dp.world)
         self.cfg = cfg
+        self.dp = dp
+        self.rank = 0 if dp is None else dp.rank
         self.device = resolve_device(device)
         self.model = MultimodalTokenizer(cfg.model, param_dtype=torch.float32,
-                                         device=self.device)
+                                         device=self.device, dp=dp)
         self.log_fn = log_fn
-        self.step_fn = make_train_step(cfg, self.model)
+        self.step_fn = make_train_step(cfg, self.model, dp)
         self.pack_rows = t.packed_rows_per_shard
         self.ckpt = None
         if workdir is not None:
-            self.ckpt = CheckpointManager(workdir, max_to_keep=t.max_checkpoints, config=cfg)
+            self.ckpt = CheckpointManager(workdir, max_to_keep=t.max_checkpoints,
+                                          config=cfg if self.rank == 0 else None)
 
     def init_state(self, params: Mapping | str | Path | None = None) -> TrainState:
         """A fresh state (random parameters from ``TrainConfig.global_seed``,
         or ``params`` as ``create_train_state`` takes them), then, when the
-        workdir holds a checkpoint, the latest one restored into it."""
-        state = create_train_state(self.cfg, self.model, params=params)
+        workdir holds a checkpoint, the latest one restored into it (on every
+        rank: each takes its own generator state)."""
+        state = create_train_state(self.cfg, self.model, params=params, rank=self.rank)
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            state, self.pack_rows = self.ckpt.restore(state)
+            ck = self.ckpt.load(map_location=next(self.model.parameters()).device)
+            state, self.pack_rows = self.ckpt.restore(state, payload=ck)
+            if self.rank:   # the file's generator is rank 0's
+                gens = ck.get("generators")
+                if gens is not None and len(gens) == self.dp.world:
+                    state.generator.set_state(gens[self.rank].cpu())
+                else:       # saved by another world size: decorrelate by rank and step
+                    state.generator.manual_seed(rank_seed(
+                        state.generator.initial_seed() + state.step, self.rank))
         return state
 
     def save(self, state: TrainState) -> Path | None:
-        """Checkpoint ``state`` into the workdir (None without one)."""
+        """Checkpoint ``state`` into the workdir (None without one). Data
+        parallel, every rank calls it: rank 0 writes (above one rank, every
+        rank's generator state in the file), the others wait for the write."""
         if self.ckpt is None:
             return None
-        return self.ckpt.save(state, pack_rows=self.pack_rows)
+        if self.dp is None:
+            return self.ckpt.save(state, pack_rows=self.pack_rows)
+        gens = (self.dp.all_gather_object(state.generator.get_state())
+                if self.dp.world > 1 else None)
+        if self.rank == 0:
+            self.ckpt.save(state, pack_rows=self.pack_rows, generators=gens)
+        self.dp.barrier()
+        return self.ckpt.path(state.step)
 
     def pack(self, batch: CodeBatch) -> PackedTextBatch:
         """The batch's texts packed into the row budget (numpy); the budget
@@ -268,7 +330,7 @@ class Trainer:
         t = self.cfg.train
         am = np.asarray(batch.attention_mask)
         if self.pack_rows == 0:
-            self.pack_rows = packed_rows_budget(am, t.packed_row_len)
+            self.pack_rows = packed_rows_budget(am, t.packed_row_len, self.dp)
         try:
             return pack_code_batch(np.asarray(batch.input_ids), am,
                                    num_rows=self.pack_rows,
@@ -282,8 +344,9 @@ class Trainer:
     def fit(self, state: TrainState, batches: Iterable[CodeBatch], *,
             max_steps: int | None = None) -> TrainState:
         """Train over host CodeBatches (numpy, as ``epoch_batches`` yields
-        them) until they run out or ``state.step`` reaches ``max_steps``;
-        with a workdir, checkpoint after every ``ckpt_every``-th step."""
+        them; data parallel, this rank's blocks) until they run out or
+        ``state.step`` reaches ``max_steps``; with a workdir, checkpoint
+        after every ``ckpt_every``-th step."""
         t = self.cfg.train
         log_t0, log_steps = time.perf_counter(), 0
         batches = iter(batches)

@@ -18,11 +18,16 @@ it loads with ``torch.load(weights_only=True)``:
                   non-persistent usage FIFO)
     adam          {"count", "mu", "nu"}: the trainable parameters' moments
     ema           the EMA of the trainable parameters, or None
-    generator     the cross-attention dropout generator's state
+    generator     the cross-attention dropout generator's state (rank 0's)
     pack_rows     the trainer's packed-row budget (fixed by the first batch)
+    generators    data parallel only: every rank's generator state, in rank
+                  order
 
 Restoring all of it and drawing the same batches continues the run bit for
 bit. A ``mirror_dir`` gets a copy of every checkpoint, never rotated.
+A data-parallel run writes the same file from rank 0 (its ranks hold one
+state but for their generators), so the readers take its workdir as one
+from a single device.
 """
 
 from __future__ import annotations
@@ -64,9 +69,11 @@ class CheckpointManager:
     def path(self, step: int) -> Path:
         return self.ckpt_dir / f"{step:07d}.pt"
 
-    def save(self, state: "TrainState", *, pack_rows: int = 0) -> Path:
+    def save(self, state: "TrainState", *, pack_rows: int = 0,
+             generators: list[torch.Tensor] | None = None) -> Path:
         """Write ``state`` as checkpoints/{step:07d}.pt (and into the
-        mirror), then drop the oldest beyond ``max_to_keep``."""
+        mirror), then drop the oldest beyond ``max_to_keep``. ``generators``:
+        a data-parallel run's generator states, one a rank."""
         model = state.model
         weights = model.state_dict()
         payload = {
@@ -79,6 +86,8 @@ class CheckpointManager:
             "generator": state.generator.get_state(),
             "pack_rows": int(pack_rows),
         }
+        if generators is not None:
+            payload["generators"] = list(generators)
         path = self.path(state.step)
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         _save_atomic(payload, path)
@@ -97,12 +106,13 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.ckpt_dir}")
         return torch.load(self.path(step), map_location=map_location, weights_only=True)
 
-    def restore(self, state: "TrainState", step: int | None = None) -> tuple["TrainState", int]:
-        """Load a checkpoint into ``state`` in place (its model, Adam
-        state, EMA and generator); returns the state and the saved
-        packed-row budget."""
+    def restore(self, state: "TrainState", step: int | None = None, *,
+                payload: dict | None = None) -> tuple["TrainState", int]:
+        """Load a checkpoint (``step``'s, or a ``payload`` the caller already
+        loaded) into ``state`` in place (its model, Adam state, EMA and
+        generator); returns the state and the saved packed-row budget."""
         dev = next(state.model.parameters()).device
-        ck = self.load(step, map_location=dev)
+        ck = self.load(step, map_location=dev) if payload is None else payload
         load_weights(state.model, ck)
         adam = ck["adam"]
         with torch.no_grad():

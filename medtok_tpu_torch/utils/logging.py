@@ -1,7 +1,8 @@
 """The run's logger and metrics stream (own copy of
 ``medtok_tpu/utils/logging.py``): a logger writing to the console and to
 ``log.txt`` in the experiment directory, and ``MetricsLogger`` appending one
-JSON object a logged step to ``metrics.jsonl``. The wandb mirror of the JAX
+JSON object a logged step to ``metrics.jsonl``; on a data-parallel run
+rank 0 writes both. The wandb mirror of the JAX
 package is not ported: the train and EHR CLIs refuse ``--wandb``.
 """
 
@@ -14,12 +15,16 @@ from pathlib import Path
 from typing import Any
 
 
-def create_logger(logging_dir: str | Path | None) -> logging.Logger:
+def create_logger(logging_dir: str | Path | None, *, process_index: int = 0) -> logging.Logger:
     """The ``medtok_tpu_torch`` logger with a console handler and, given a
-    directory, a ``log.txt`` handler there (created if missing)."""
+    directory, a ``log.txt`` handler there (created if missing). On a
+    data-parallel rank other than 0 (``process_index``) it writes nothing."""
     logger = logging.getLogger("medtok_tpu_torch")
     logger.handlers.clear()
     logger.propagate = False  # no duplicate lines through the root logger
+    if process_index != 0:
+        logger.addHandler(logging.NullHandler())
+        return logger
     logger.setLevel(logging.INFO)
     fmt = logging.Formatter("[%(asctime)s] %(message)s", "%Y-%m-%d %H:%M:%S")
     handlers: list[logging.Handler] = [logging.StreamHandler()]

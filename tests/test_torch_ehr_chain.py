@@ -162,7 +162,8 @@ def test_ehr_cli_writes_and_reloads(workspace, tmp_path, root, task):
 def test_ehr_cli_refuses_a_mesh_and_needs_a_device(workspace, monkeypatch):
     from medtok_tpu_torch.cli import ehr as cli
 
-    with pytest.raises(NotImplementedError, match="one device"):
+    # data parallel needs torchrun: a plain run's world size is 1
+    with pytest.raises(ValueError, match="world size is 1"):
         cli.main(["--mesh-dp", "2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

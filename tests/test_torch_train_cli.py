@@ -5,7 +5,9 @@ codebook 90 x 16, batch 8):
 - ``config_from_args`` equals the JAX CLI's for the same argv (the GAT,
   kmeans, revival and text-dropout flags too), and the args.json the port
   writes loads in the JAX package to the same config;
-- the flags that select code the port lacks are refused at parse time;
+- the flags the port refuses at parse time: code it lacks (--mesh-tp,
+  --wandb), a --mesh-dp other than the world size, --multihost without
+  a launcher;
 - ``cli.train`` at --max-steps 3 --ckpt-every 2 checkpoints and rotates,
   and resumes to step 4 with --workdir;
 - a GAT + kmeans + revival run: the k-means init at step 0 only, a

@@ -1,0 +1,203 @@
+"""One rank of the data-parallel tests (``tests/test_torch_dp_*.py``): it
+joins a gloo group through a file under the test's tmp_path, runs one task
+of the port on the CPU and pickles what it saw for the test to hold against
+the JAX package and against the other ranks. It imports neither JAX nor the
+JAX package.
+
+    python -m tests.torch_dp_ranks TASK RANK WORLD INIT_FILE SPEC OUT
+
+``spawn_ranks`` starts WORLD of them and waits, each join and the whole run
+bounded by TIMEOUT_S.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+TIMEOUT_S = 120
+
+
+def spawn_ranks(task: str, world: int, tmp: Path, spec: dict) -> list[dict]:
+    """Run ``task`` in ``world`` gloo ranks; every rank's pickled result,
+    in rank order. A rank that fails or outlives TIMEOUT_S fails the test
+    with its output."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    spec_path = tmp / "spec.pkl"
+    spec_path.write_bytes(pickle.dumps(spec))
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tests.torch_dp_ranks", task, str(r), str(world),
+         str(tmp / "group"), str(spec_path), str(tmp / f"rank{r}.pkl")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return [pickle.loads((tmp / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def local_block(batch, rank: int, world: int):
+    """Rank ``rank``'s contiguous block of a global batch (a NamedTuple of
+    numpy arrays): rows of the [B, ...] fields, and of the flat per-graph
+    edge fields [B * Epg]."""
+    B = batch[0].shape[0]
+    lb = B // world
+    out = []
+    for name, a in zip(batch._fields, batch):
+        per = a.shape[0] // B if name.startswith("edge") else 1
+        out.append(a[rank * lb * per:(rank + 1) * lb * per])
+    return type(batch)(*out)
+
+
+def snapshot(model) -> dict[str, torch.Tensor]:
+    """Every parameter and buffer (the state_dict leaves the FIFO and the
+    EMA codebook out), cloned."""
+    out = {f"param {n}": t.detach().clone() for n, t in model.state_dict().items()}
+    out.update({f"buffer {n}": t.detach().clone() for n, t in model.named_buffers()})
+    return out
+
+
+def task_train(dp, spec: dict) -> dict:
+    """Tokenizer steps through ``Trainer.fit``, one global batch at a time
+    (this rank's block): each step's state before, the metrics, the
+    averaged gradients Adam received, the state after; then the automatic
+    row budget of the first batch's block and the k-means init's EMA
+    codebook and cluster sizes."""
+    from medtok_tpu_torch.config import MedTokConfig
+    from medtok_tpu_torch.data.types import CodeBatch
+    from medtok_tpu_torch.train import trainer as tr
+
+    cfg = MedTokConfig.from_dict(spec["cfg"])
+    logged: list[dict] = []
+    trainer = tr.Trainer(cfg, device="cpu", dp=dp, log_fn=lambda s, m: logged.append(m))
+    state = trainer.init_state(params=spec["variables"])
+    grads: list[list[torch.Tensor]] = []
+    step = tr.ClippedAdam.step
+
+    def spy(self, params, gs, st):
+        grads.append([g.clone() for g in gs])
+        return step(self, params, gs, st)
+
+    tr.ClippedAdam.step = spy
+    names = [n for n, _ in tr.trainable_parameters(trainer.model)]
+    steps = []
+    for b in spec["batches"]:
+        local = local_block(CodeBatch(*b), dp.rank, dp.world)
+        before = snapshot(trainer.model)
+        packed = trainer.pack(local)
+        state = trainer.fit(state, [local])
+        steps.append(dict(before=before, after=snapshot(trainer.model), metrics=logged[-1],
+                          grads=dict(zip(names, grads[-1])), local=local, packed=packed,
+                          mu=[m.clone() for m in state.opt_state.mu]))
+    first = local_block(CodeBatch(*spec["batches"][0]), dp.rank, dp.world)
+    budget = tr.packed_rows_budget(np.asarray(first.attention_mask),
+                                   cfg.train.packed_row_len, dp)
+    # the k-means init over the ranks' blocks of the first batch, from the
+    # initial rows the test gives
+    tr.kmeans_init_codebook(trainer.model, state, [first], dp=dp,
+                            init_idx=torch.from_numpy(spec["kmeans_init_idx"]))
+    q = trainer.model.quantize
+    return dict(steps=steps, budget=budget, own=tr.packed_rows_budget(
+        np.asarray(first.attention_mask), cfg.train.packed_row_len),
+        kmeans=(q.ema_codebook.clone(), q.ema_cluster.clone()))
+
+
+def task_ehr(dp, spec: dict) -> dict:
+    """EHR Adam steps on this rank's blocks (loss, averaged gradients and
+    parameters after each), then a short ``fit`` from fresh weights."""
+    from medtok_tpu_torch.ehr import train
+    from medtok_tpu_torch.ehr.dataset import EHRBatch
+
+    cfg = train.EHRTrainConfig(**spec["cfg"])
+    t = train.EHRTrainer(cfg, spec["table"], spec["num_class"], device="cpu", dp=dp)
+    t.model.load_state_dict(spec["params"], strict=True)
+    steps = []
+    for b in spec["batches"]:
+        loss, _ = t.train_step(local_block(EHRBatch(*b), dp.rank, dp.world))
+        steps.append(dict(loss=float(loss),
+                          grads={n: p.grad.clone() for n, p in t.model.named_parameters()},
+                          params=snapshot(t.model)))
+    fit_state, best = t.fit(spec["fit_feats"], spec["fit_weights"],
+                            [EHRBatch(*b) for b in spec["val"]], spec["featurizer"])
+    return dict(steps=steps, fit_state=fit_state, best=best, fit_steps=t.step)
+
+
+def task_cli(dp, spec: dict) -> dict:
+    """``cli.train.main`` to step 2, then resumed with --workdir to step 3:
+    each rank's state as it saved a step and as it restored one, and the
+    ranks that called ``CheckpointManager.save``; then ``cli.ehr.main``
+    (its validation and test metrics)."""
+    from medtok_tpu_torch.cli import ehr as ehr_cli
+    from medtok_tpu_torch.cli import train as train_cli
+    from medtok_tpu_torch.train.trainer import Trainer
+    from medtok_tpu_torch.utils.checkpoint import CheckpointManager
+
+    seen: dict = {"saves": [], "states": {}}
+    save, init_state, ckpt_save = Trainer.save, Trainer.init_state, CheckpointManager.save
+
+    def record(label, trainer, state):
+        seen["states"][label] = {**snapshot(trainer.model),
+                                 "generator": state.generator.get_state(),
+                                 "mu": [m.clone() for m in state.opt_state.mu],
+                                 "step": state.step, "pack_rows": trainer.pack_rows}
+
+    def spy_save(self, state):
+        record(f"saved {state.step}", self, state)
+        return save(self, state)
+
+    def spy_init(self, params=None):
+        state = init_state(self, params)
+        record(f"started {state.step}", self, state)
+        return state
+
+    def spy_ckpt(self, state, **kw):
+        seen["saves"].append((dp.rank, state.step))
+        return ckpt_save(self, state, **kw)
+
+    Trainer.save, Trainer.init_state, CheckpointManager.save = spy_save, spy_init, spy_ckpt
+    workdir = train_cli.main([*spec["argv"], "--max-steps", "2"])
+    again = train_cli.main([*spec["argv"], "--workdir", str(workdir), "--max-steps", "3"])
+    ehr = ehr_cli.main(spec["ehr_argv"])
+    return dict(workdir=str(workdir), again=str(again), ehr={k: ehr[k] for k in (
+        "best_val", "test", "num_class")}, **seen)
+
+
+TASKS = {"train": task_train, "ehr": task_ehr, "cli": task_cli}
+
+
+def main(argv: list[str]) -> None:
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.parallel.mesh import initialize_distributed
+
+    task, rank, world, init_file, spec_path, out = argv
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=int(rank),
+                            world_size=int(world),
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    dp = initialize_distributed("cpu")
+    result = TASKS[task](dp, pickle.loads(Path(spec_path).read_bytes()))
+    Path(out).write_bytes(pickle.dumps(result))
+    dp.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
