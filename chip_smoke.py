@@ -137,9 +137,9 @@ Phases, each fatal on failure:
      against the CPU (loss within 1e-5, trainable gradients within 1e-4 of
      the largest, greedy tokens equal unless the top-2 gap at the first
      differing step is below 1e-4 of the largest logit); then
-     python -m medtok_tpu_torch.cli.qa finetune and eval with --tiny and
-     a byte-level tokenizer.json written by the phase (the regex-free
-     BPE and the chat template);
+     python -m medtok_tpu_torch.cli.qa finetune and eval (16 new tokens a
+     question) with --tiny and a byte-level tokenizer.json written by the
+     phase (the regex-free BPE and the chat template);
  18. the EHR downstream entry point and the export routes that feed it:
      the pandas-free EHR parsers over tests/fixtures/mimic3_demo with every
      table (patient, visit and event counts equal to the constants the CPU
@@ -209,12 +209,28 @@ Phases, each fatal on failure:
      each step held to its replay on the CPU from the same state in the
      same group (loss terms within 1e-5, gradients within 1e-4 of each
      tensor's largest, token rows by the tie-gap rule), the collectives
-     staged through the host on gloo logged.
+     staged through the host on gloo logged;
+ 22. tensor parallel: two rank processes sharing the card over gloo (this
+     script with --tp-rank) on a (dp 1, tp 2) mesh. (a) phase 15's
+     training (ModelConfig(), bf16, packed, batch 1024), 3 steps, each
+     rank sweeping its half of the 21000-row codebook with K1 (4 launches
+     a step each: the shared sweeps, and the one specific region its block
+     meets), held to the one-device run on the same card and batches:
+     tokens by the tie-gap rule, losses and trained tensors bitwise equal
+     unless a token row differed at a tie, the ranks bitwise equal after
+     every step, each first-step K1 call held to its plain version;
+     (b) QA at LLAMA31_8B's widths cut to 2 layers and B = 4 (bf16, LoRA
+     r = 16, nonzero lora_b, remat, total_len 512), 2 steps against the
+     one-device port: losses within 1e-2 relative, the gathered lora_b
+     within 5e-2 of its largest entry, 16 greedy tokens equal wherever the
+     one-device top-2 logit gap exceeds 1e-2; the bytes a step all-reduces
+     and its ms beside the one-device step's.
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
 It then prints the card, one JSON line of kernel measurements (K1's and
-K3's rows add their launches on each path that runs them) and, last,
+K3's rows add their launches on each path that runs them, K1's on each
+tp rank of phase 22) and, last,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result. fp32 matmuls and
 convolutions run in full fp32 (TF32 off) throughout.
@@ -2704,6 +2720,7 @@ QA_REF_LAYERS = 2
 QA_REF_BATCH = 2
 QA_REF_CUTOFF = 64
 QA_REF_NEW_TOKENS = 16
+QA_CLI_NEW_TOKENS = 16      # cli.qa eval's tokens a question (its own default: 64)
 QA_TOKENIZER_MERGES = 240   # 256 bytes + 240 merges + 5 specials: ids < 512
 LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
                    "<|end_header_id|>", "<|eot_id|>")
@@ -3135,10 +3152,12 @@ def qa_cli(table, dev) -> dict:
         common = ["--data", str(QA_FIXTURE), "--embedding-path", str(root / "emb.npy"),
                   "--tiny", "--tokenizer-json", str(root / "tokenizer.json"),
                   "--adapter-path", str(root / "adapter")]
-        for mode in ("finetune", "eval"):
+        # eval generates QA_CLI_NEW_TOKENS a question (the CLI's default is 64)
+        for mode, extra in (("finetune", []),
+                            ("eval", ["--max-new-tokens", str(QA_CLI_NEW_TOKENS)])):
             t0 = time.perf_counter()
             run = subprocess.run([sys.executable, "-m", "medtok_tpu_torch.cli.qa", mode,
-                                  *common], cwd=Path(__file__).resolve().parent,
+                                  *common, *extra], cwd=Path(__file__).resolve().parent,
                                  capture_output=True, text=True, timeout=600)
             out[mode] = time.perf_counter() - t0
             check(run.returncode == 0, f"QA CLI {mode} failed:\n{run.stderr[-4000:]}")
@@ -3160,7 +3179,8 @@ def qa_cli(table, dev) -> dict:
                 out["accuracy"] = acc[0]
     log(f"QA CLI (--tiny, byte-level BPE of {n_ids} ids, {QA_TOKENIZER_MERGES} merges): "
         f"finetune {out['finetune']:.2f} s wall ({len(losses)} steps, last loss "
-        f"{losses[-1]:.4f}), eval {out['eval']:.2f} s wall, accuracy {out['accuracy']:.3f} "
+        f"{losses[-1]:.4f}), eval ({QA_CLI_NEW_TOKENS} new tokens) {out['eval']:.2f} s wall, "
+        f"accuracy {out['accuracy']:.3f} "
         "(random weights: only its range is checked)")
     return out
 
@@ -4101,7 +4121,7 @@ def run_training_variants(dataset, dev, gen) -> dict:
 
 # --------------------------------------------------------- data parallel --
 
-DP_TIMED_ROUNDS = 10     # grouped / ungrouped step pairs of phase 21 (b)
+DP_TIMED_ROUNDS = 6      # grouped / ungrouped step pairs of phase 21 (b)
 DP_EHR_STEPS = 2         # EHR steps of phase 21 (c) and (d)
 DP_REF_STEPS = 3         # tokenizer steps of the two ranks of phase 21 (d)
 DP_REF_CODES = 64        # the global batch of phase 21 (d)
@@ -4286,28 +4306,40 @@ def dp_step_timing(dataset, dev, gen, dp) -> dict:
 
 @contextlib.contextmanager
 def collective_bytes():
-    """Within the block, the bytes of each flat all-reduce and of each
-    all-gather's result that ``DataParallel`` sends, listed by kind."""
+    """Within the block, the bytes of each flat all-reduce, each one-tensor
+    all-reduce and each all-gather's result that ``DataParallel`` sends,
+    listed by kind (collectives of an axis of one rank send nothing)."""
     from medtok_tpu_torch.parallel.mesh import DataParallel
 
-    reduce_flat, gather = DataParallel._all_reduce_flat_, DataParallel.all_gather
+    reduce_flat, reduce_one = DataParallel._all_reduce_flat_, DataParallel.all_reduce_
+    gather = DataParallel.all_gather
     moved: dict = {"all_reduce": [], "all_gather": []}
 
-    def counted_reduce(dp, tensors, divide):
-        n = reduce_flat(dp, tensors, divide)
-        moved["all_reduce"].append(n)
+    def counted_reduce(dp, tensors, divide, axis="dp"):
+        n = reduce_flat(dp, tensors, divide, axis)
+        if not dp.alone(axis):
+            moved["all_reduce"].append(n)
         return n
 
-    def counted_gather(dp, tensor):
-        out = gather(dp, tensor)
-        moved["all_gather"].append(out.numel() * out.element_size())
+    def counted_reduce_one(dp, tensor, axis, op="sum"):
+        out = reduce_one(dp, tensor, axis, op)
+        if not dp.alone(axis):
+            moved["all_reduce"].append(out.numel() * out.element_size())
         return out
 
-    DataParallel._all_reduce_flat_, DataParallel.all_gather = counted_reduce, counted_gather
+    def counted_gather(dp, tensor, axis="dp"):
+        out = gather(dp, tensor, axis)
+        if not dp.alone(axis):
+            moved["all_gather"].append(out.numel() * out.element_size())
+        return out
+
+    DataParallel._all_reduce_flat_, DataParallel.all_reduce_ = counted_reduce, counted_reduce_one
+    DataParallel.all_gather = counted_gather
     try:
         yield moved
     finally:
-        DataParallel._all_reduce_flat_, DataParallel.all_gather = reduce_flat, gather
+        DataParallel._all_reduce_flat_, DataParallel.all_reduce_ = reduce_flat, reduce_one
+        DataParallel.all_gather = gather
 
 
 def dp_ehr_world1(table, ehr: dict, dev, dp) -> dict:
@@ -4679,6 +4711,406 @@ def run_data_parallel(dataset, table, ehr: dict, dev, gen, keep: Path, argv: lis
     return out
 
 
+# ----------------------------------------------------- tensor parallel --
+
+TP_RANKS = 2            # tp ranks sharing the card over gloo in phase 22
+TP_STEPS = 3            # tokenizer steps of phase 22 (a)
+TP_QA_LAYERS = 2        # phase 22 (b): LLAMA31_8B's widths, depth cut to 2 layers
+TP_QA_BATCH = 4         # and B to 4, so gloo's host-staged all-reduces stay short
+TP_QA_STEPS = 2
+TP_QA_NEW_TOKENS = 16
+
+
+def tp_digests(trainer, state) -> dict:
+    """A SHA-1 of every trained tensor's bytes: the trainable parameters,
+    the quantizer's buffers (usage FIFO) and Adam's first moments (the
+    frozen BERT never changes)."""
+    import hashlib
+
+    import torch
+
+    named = [(n, t) for n, t in trainer.model.state_dict().items()
+             if not n.startswith("text_model.")]
+    named += [(f"buffer {n}", t) for n, t in trainer.model.named_buffers()]
+    named += [(f"mu {i}", t) for i, t in enumerate(state.opt_state.mu)]
+    return {n: hashlib.sha1(t.detach().contiguous().flatten().view(torch.uint8).cpu()
+                            .numpy().tobytes()).hexdigest() for n, t in named}
+
+
+def tp_train_run(cfg_dict: dict, batches: list, dev, mesh) -> dict:
+    """Phase 22 (a)'s run: TP_STEPS steps of Trainer.fit at ModelConfig()
+    width on ``mesh`` (None: one device) from the seed's weights, over the
+    global batches (every tp rank takes the whole batch: dp 1). Per step
+    the metrics, the four paths' tokens and weights, tp_digests and the
+    step's ms; K1's launches over the steps, and each K1 call of the first
+    step held to the plain version afterwards."""
+    import torch
+
+    from medtok_tpu_torch.config import MedTokConfig
+    from medtok_tpu_torch.data.types import CodeBatch
+    from medtok_tpu_torch.models.tokenizer_model import PATH_ORDER
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+    from medtok_tpu_torch.train.trainer import Trainer
+
+    cfg = MedTokConfig.from_dict(cfg_dict)
+    tp = 1 if mesh is None else mesh.tp_size
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_tp=tp))
+    logged = []
+    trainer = Trainer(cfg, device=dev, dp=mesh, log_fn=lambda step, m: logged.append(m))
+    state = trainer.init_state()
+    seen = []
+    forward_train = trainer.model.forward_train
+
+    def spy_forward(*a, **kw):
+        o = forward_train(*a, **kw)
+        seen.append((torch.stack([o[f"{p}_tokens"] for p in PATH_ORDER], 1).cpu().numpy(),
+                     torch.stack([o[f"{p}_tokens_weights"] for p in PATH_ORDER], 1)
+                     .detach().float().cpu().numpy()))
+        return o
+
+    trainer.model.forward_train = spy_forward
+    # the first step's K1 inputs: the block of each sweep a rank launches on
+    calls, one_dev, tp_sweep = [], vq.distance_topk, vq.distance_topk_tp
+
+    def rec_one(z_n, e_n, k, **kw):
+        if not seen:
+            calls.append((z_n.detach().clone(), e_n.detach().clone(), k))
+        return one_dev(z_n, e_n, k, **kw)
+
+    def rec_tp(z_n, e_n, k, mesh, *, region=None):
+        n = e_n.shape[0]
+        lo, hi = (0, n) if region is None else region
+        block = n // mesh.tp_size
+        a, b = max(lo, mesh.tp_index * block), min(hi, (mesh.tp_index + 1) * block)
+        if not seen and b > a:
+            calls.append((z_n.detach().clone(), e_n.detach()[a:b].clone(), min(k, b - a)))
+        return tp_sweep(z_n, e_n, k, mesh, region=region)
+
+    vq.distance_topk, vq.distance_topk_tp = rec_one, rec_tp
+    kernel = fused_topk_l2
+    kernel.launches = 0
+    steps = []
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.fit(state, [CodeBatch(*b)])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            steps.append(dict(metrics={k: v for k, v in logged[-1].items()
+                                       if k != "steps_per_sec"},
+                              tokens=seen[-1][0], weights=seen[-1][1],
+                              digests=tp_digests(trainer, state), ms=ms))
+    finally:
+        vq.distance_topk, vq.distance_topk_tp = one_dev, tp_sweep
+    launches = kernel.launches
+    where = "one device" if mesh is None else f"tp rank {mesh.tp_index} of {tp}"
+    errs = [check_k1_case(z, e, f"phase 22 (a) {where}, sweep {i}", k=k)
+            for i, (z, e, k) in enumerate(calls)]
+    shapes = [(tuple(z.shape), tuple(e.shape)) for z, e, _ in calls]
+    del trainer, state
+    torch.cuda.empty_cache()
+    return dict(steps=steps, launches=launches, k1_err=max(errs, default=0.0), k1_shapes=shapes)
+
+
+def tp_qa_run(spec: dict, dev, mesh) -> dict:
+    """Phase 22 (b)'s run: QAFinetuner at LLAMA31_8B's widths cut to
+    TP_QA_LAYERS layers, bf16, LoRA r = 16 (its lora_b drawn nonzero from a
+    CPU generator, each rank keeping its slice), remat, B = TP_QA_BATCH,
+    total_len 512, on ``mesh`` (None: one device). Greedy generate of
+    TP_QA_NEW_TOKENS tokens on TP_QA_BATCH prompts from the initial
+    weights, then TP_QA_STEPS train steps (loss, ms, the bytes each step's
+    collectives moved), the lora_b tensors gathered to the one-device
+    layout, and greedy generate again from the trained weights. Each
+    generate comes with the prompts' last-position logits and, on one
+    device, the top-2 logit gap of each chosen token."""
+    import torch
+
+    from medtok_tpu_torch.qa import sharding
+    from medtok_tpu_torch.qa.finetune import QAFinetuneConfig, QAFinetuner, _collate_rows
+    from medtok_tpu_torch.qa.llama import LLAMA31_8B, LlamaModel, generate
+
+    llm = dataclasses.replace(LLAMA31_8B, num_layers=TP_QA_LAYERS, remat=True)
+    tp = 1 if mesh is None else mesh.tp_size
+    qcfg = QAFinetuneConfig(lora_rank=QA_LORA_RANK, cutoff_len=QA_CUTOFF, total_len=QA_TOTAL,
+                            batch_size=TP_QA_BATCH, seed=spec["seed"], mesh_tp=tp)
+    ft = QAFinetuner(llm, spec["table"], qcfg, device=dev, dtype=torch.bfloat16, dp=mesh)
+    ft.init_params()
+    full = dict(LlamaModel(ft.llm_cfg, device="meta").named_parameters())
+    g = torch.Generator().manual_seed(spec["seed"] + 1)
+    with torch.no_grad():   # nonzero lora_b, so the adapters act on the outputs
+        for name, p in ft.model.named_parameters():
+            if name.endswith("lora_b"):
+                t = torch.empty(full[name].shape).normal_(0.0, 0.02, generator=g)
+                p.copy_(t if mesh is None else sharding.local_slice(
+                    name, t, ft.llm_cfg, tp, mesh.tp_index))
+    pb = _collate_rows(spec["prompts"][:TP_QA_BATCH], cutoff_len=QA_CUTOFF)
+
+    def greedy() -> dict:
+        with torch.no_grad():
+            packed = ft.soft_prompt(
+                torch.as_tensor(pb["input_ids"], dtype=torch.long, device=dev),
+                torch.as_tensor(pb["attention_mask"], dtype=torch.long, device=dev),
+                None, ft.model.embed, qcfg.total_len)
+            hidden, _ = ft.model(inputs_embeds=packed.inputs_embeds,
+                                 attention_mask=packed.attention_mask, return_hidden=True)
+            logits = ft.model.full_logits(hidden[:, -1]).float().cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(ft.model, packed.inputs_embeds, packed.attention_mask,
+                        max_new_tokens=TP_QA_NEW_TOKENS, temperature=0.0, device=dev)
+        return dict(tokens=toks, logits=logits, s=time.perf_counter() - t0,
+                    gaps=qa_top2_gap(qa_step_logits(ft, packed, toks)) if mesh is None
+                    else None)
+
+    ft.model.eval()
+    before = greedy()
+    ft.model.train()
+    rows = spec["rows"]
+    losses, times, moved = [], [], []
+    for s in range(TP_QA_STEPS):
+        batch = _collate_rows(rows[s * TP_QA_BATCH:(s + 1) * TP_QA_BATCH],
+                              cutoff_len=QA_CUTOFF)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_bytes() as m:
+            loss = ft.train_step(batch)
+            losses.append(float(loss))
+        times.append(1e3 * (time.perf_counter() - t0))
+        moved.append({k: sum(v) for k, v in m.items()} | {"calls": sum(map(len, m.values()))})
+    lora_b = {n: sharding.gather_param(n, p.detach(), ft.model.mesh, ft.llm_cfg).float().cpu()
+              for n, p in ft.model.named_parameters() if n.endswith("lora_b")}
+    ft.model.eval()
+    after = greedy()
+    del ft
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=times, moved=moved, lora_b=lora_b, before=before,
+                after=after)
+
+
+def tp_rank(rank: int, world: int, root: Path) -> int:
+    """One rank of phase 22, started by ``run_tensor_parallel``: a gloo
+    group on the card shared with the other rank, the (dp 1, tp world)
+    mesh over it; phase 22 (a), then (b). Writes rank{rank}.pkl under
+    root."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{root / 'group'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    mesh = mesh_mod.initialize_distributed(dev, dp=1, tp=world)
+    spec = pickle.loads((root / "spec.pkl").read_bytes())
+    t0 = time.perf_counter()
+    out = {"tokenizer": tp_train_run(spec["cfg"], spec["batches"], dev, mesh)}
+    out["tokenizer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["qa"] = tp_qa_run(spec, dev, mesh)
+    out["qa_s"] = time.perf_counter() - t0
+    out["tp_index"], out["backend"] = mesh.tp_index, mesh.backend
+    out["staged"] = sorted(mesh_mod.STAGED_OPS)
+    (root / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    mesh.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_hold(one: dict, ranks: list) -> None:
+    """Phase 22's checks of the ranks' results (``tp_rank``) against the
+    one-device runs (``tp_train_run`` and ``tp_qa_run`` without a mesh), in
+    the order of ``run_tensor_parallel``'s docstring; logs what it held."""
+    import numpy as np
+
+    check(sorted(r["tp_index"] for r in ranks) == list(range(TP_RANKS)),
+          "tensor parallel: the ranks' tp indices")
+
+    # (a) the tokenizer
+    ref = one["tokenizer"]
+    check(ref["launches"] == TP_STEPS * TRAIN_SWEEPS, f"tensor parallel (a): the one-device "
+          f"run launched K1 {ref['launches']} times, want {TP_STEPS * TRAIN_SWEEPS}")
+    want_launches = TP_STEPS * (2 + 2)      # shared text and graph, the rank's region twice
+    for r, rank in enumerate(ranks):
+        a = rank["tokenizer"]
+        check(a["launches"] == want_launches, f"tensor parallel (a): rank {r} launched K1 "
+              f"{a['launches']} times, want {want_launches}")
+        for k, (x, y) in enumerate(zip(a["steps"], ranks[0]["tokenizer"]["steps"])):
+            differ = [n for n, d in x["digests"].items() if d != y["digests"][n]]
+            check(not differ and x["metrics"] == y["metrics"]
+                  and np.array_equal(x["tokens"], y["tokens"]),
+                  f"tensor parallel (a): rank {r} differs from rank 0 after step {k + 1} in "
+                  f"{differ[:8]}")
+    notes, tied = [], False
+    for k, (x, y) in enumerate(zip(ranks[0]["tokenizer"]["steps"], ref["steps"])):
+        rows = int((x["tokens"] != y["tokens"]).any(axis=-1).sum())
+        gaps = tie_gaps(x["tokens"], x["weights"], y["tokens"], y["weights"])
+        max_gap = float(gaps.max(initial=0.0))
+        check(max_gap <= 1e-5, f"tensor parallel (a): step {k + 1}: token rows differ "
+              f"beyond a tie (gap {max_gap})")
+        tied = tied or rows > 0
+        differ = [n for n, d in x["digests"].items() if d != y["digests"][n]]
+        losses_equal = x["metrics"] == y["metrics"]
+        check(tied or (not differ and losses_equal),
+              f"tensor parallel (a): step {k + 1}: no token row differs, yet the metrics "
+              f"(equal: {losses_equal}) or tensors {differ[:8]} do")
+        notes.append(f"step {k + 1}: {rows} of {x['tokens'].shape[0] * 4} token rows differ "
+                     f"(max tie gap {max_gap:.3e}), {len(differ)} of {len(x['digests'])} "
+                     f"tensors and {'equal' if losses_equal else 'different'} metrics")
+    tp_ms = [round(s["ms"], 3) for s in ranks[0]["tokenizer"]["steps"]]
+    one_ms = [round(s["ms"], 3) for s in ref["steps"]]
+    log(f"tensor parallel (a): phase 15's training (ModelConfig(), bf16, packed, batch "
+        f"{TRAIN_BATCH}), {TP_STEPS} steps on the (dp 1, tp {TP_RANKS}) mesh over "
+        f"{ranks[0]['backend']} against one device: " + "; ".join(notes)
+        + f"; the ranks bitwise equal after every step; K1 launches a rank "
+        f"{[r['tokenizer']['launches'] for r in ranks]} (one device {ref['launches']}), "
+        f"shapes of rank 0's first step {ranks[0]['tokenizer']['k1_shapes']}, K1 held to its "
+        f"plain version (max |value err| "
+        f"{max(r['tokenizer']['k1_err'] for r in ranks):.3e}); step ms tp rank 0 {tp_ms}, one "
+        f"device {one_ms}; loss {ranks[0]['tokenizer']['steps'][-1]['metrics']['loss']:.6f}")
+
+    # (b) QA
+    q1 = one["qa"]
+    for r, rank in enumerate(ranks):
+        q = rank["qa"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(q["losses"], q1["losses"]))
+        check(rel <= 1e-2, f"tensor parallel (b): rank {r} losses {q['losses']}, one device "
+              f"{q1['losses']}")
+        worst = 0.0
+        for n, w in q1["lora_b"].items():
+            err = float((q["lora_b"][n] - w).abs().max() / w.abs().max())
+            worst = max(worst, err)
+            check(err <= 5e-2, f"tensor parallel (b): rank {r}'s gathered {n} off by {err:.3e} "
+                  f"of its largest entry")
+        q["rel"], q["lora_err"] = rel, worst
+    for key in ("before", "after"):
+        check(all(np.array_equal(r["qa"][key]["tokens"], ranks[0]["qa"][key]["tokens"])
+                  for r in ranks), f"tensor parallel (b): the ranks' greedy tokens differ "
+              f"({key} training)")
+
+    def first_differences(key) -> list:
+        """(row, step, one-device top-2 gap) where each row first differs."""
+        toks, ref = ranks[0]["qa"][key], q1[key]
+        out = []
+        for row in range(toks["tokens"].shape[0]):
+            diff = np.flatnonzero(toks["tokens"][row] != ref["tokens"][row])
+            if len(diff):
+                out.append((row, int(diff[0]), float(ref["gaps"][row, int(diff[0])])))
+        return out
+
+    def logit_err(key) -> float:
+        got, want = ranks[0]["qa"][key]["logits"], q1[key]["logits"]
+        return float((got - want).abs().max() / want.abs().max())
+
+    q = ranks[0]["qa"]
+    first = {key: first_differences(key) for key in ("before", "after")}
+    notes = {key: (f"rows first differ at (row, step, one-device gap) {first[key]}"
+                   if first[key] else "identical (smallest one-device top-2 gap "
+                   f"{float(q1[key]['gaps'].min()):.3e})") for key in first}
+    log(f"tensor parallel (b): QA at LLAMA31_8B widths, {TP_QA_LAYERS} layers, bf16, LoRA "
+        f"r={QA_LORA_RANK}, remat, B={TP_QA_BATCH}, total_len {QA_TOTAL}, {TP_QA_STEPS} steps "
+        f"on the (dp 1, tp {TP_RANKS}) mesh over gloo against one device: losses "
+        f"{[round(x, 5) for x in q['losses']]} vs {[round(x, 5) for x in q1['losses']]} "
+        f"(rel {max(r['qa']['rel'] for r in ranks):.3e}), gathered lora_b within "
+        f"{max(r['qa']['lora_err'] for r in ranks):.3e} of the largest entry; step ms "
+        f"{[round(t, 3) for t in q['step_ms']]} vs one device "
+        f"{[round(t, 3) for t in q1['step_ms']]}; a step moved {q['moved']} bytes (rank 0; "
+        f"the one-device step {q1['moved']}); the prompts' last logits off by "
+        f"{logit_err('before'):.3e} of the largest before training, {logit_err('after'):.3e} "
+        f"after; greedy {TP_QA_NEW_TOKENS} tokens from the same weights: {notes['before']}; "
+        f"from the trained weights: {notes['after']}; generate {q['before']['s']:.3f} s vs "
+        f"{q1['before']['s']:.3f} s")
+    for row, step, gap in first["before"]:
+        check(gap <= 1e-2, f"tensor parallel (b): row {row}'s greedy token {step} differs "
+              f"where the one-device top-2 gap is {gap:.3e} of its largest logit")
+
+
+def run_tensor_parallel(dataset, table, dev, seed: int, root: Path) -> dict:
+    """Phase 22: the (dp 1, tp TP_RANKS) mesh, its ranks sharing the card
+    over gloo (NCCL refuses two ranks on one device). (a) the tokenizer's
+    tensor-parallel codebook sweep in phase 15's training (ModelConfig(),
+    bf16, packed, batch 1024) against the one-device step on the same
+    batches: tokens, losses and trained tensors bitwise equal, or else each
+    differing token row tied within 1e-5; the two ranks bitwise equal after
+    every step; K1 launched on each rank whose block meets a sweep's region
+    (4 a step each: the shared sweeps, and the rank's one specific region)
+    and held to its plain version on each first-step call. (b) QA at
+    LLAMA31_8B's widths (2 layers, B 4) against the one-device port:
+    losses within 1e-2 relative, the gathered lora_b within 5e-2 of its
+    largest entry, greedy tokens equal wherever the one-device top-2 logit
+    gap exceeds 1e-2; bytes all-reduced a step and the step's ms beside the
+    one-device step's."""
+    import gc
+    import os
+    import pickle
+
+    import torch
+
+    from medtok_tpu_torch.cli.qa import _simple_tokenize
+    from medtok_tpu_torch.config import MedTokConfig, ModelConfig, TrainConfig
+    from medtok_tpu_torch.qa.inference import extend_with_miss_rows
+    from medtok_tpu_torch.qa.llama import LLAMA31_8B
+
+    phase_t0 = time.perf_counter()
+    cfg = MedTokConfig(model=ModelConfig(), data=dataset.cfg,
+                       train=TrainConfig(packed_text=True, global_batch_size=TRAIN_BATCH))
+    batches, _ = train_batches(dataset, cfg, TP_STEPS)
+
+    def tokenize(text):
+        return _simple_tokenize(text, LLAMA31_8B.vocab_size)
+
+    spec = dict(cfg=dataclasses.asdict(cfg), batches=[tuple(b) for b in batches], seed=seed,
+                table=extend_with_miss_rows(table, QA_MISS_ROWS, seed=seed),
+                rows=qa_rows(tokenize, QA_CUTOFF, True)[:TP_QA_BATCH * TP_QA_STEPS],
+                prompts=qa_rows(tokenize, QA_CUTOFF, False)[:TP_QA_BATCH])
+    t0 = time.perf_counter()
+    one = {"tokenizer": tp_train_run(spec["cfg"], spec["batches"], dev, None)}
+    t1 = time.perf_counter()
+    one["qa"] = tp_qa_run(spec, dev, None)
+    t2 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "spec.pkl").write_bytes(pickle.dumps(spec))
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t3 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+                               str(r), "--tp-world", str(TP_RANKS), "--tp-root", str(root)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(TP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t3
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"tensor parallel: rank {r} exited {p.returncode}:\n"
+              f"{text[-4000:]}")
+    for r, text in enumerate(outs):
+        for line in text.splitlines():
+            if line.startswith("K1 phase 22"):
+                log(f"  rank {r}: {line}")
+    ranks = [pickle.loads((root / f"rank{r}.pkl").read_bytes()) for r in range(TP_RANKS)]
+    tp_hold(one, ranks)
+    log(f"tensor parallel: one-device references (a) {t1 - t0:.2f} s, (b) {t2 - t1:.2f} s; "
+        f"{TP_RANKS} rank processes {wall:.2f} s wall (tokenizer "
+        f"{[round(r['tokenizer_s'], 2) for r in ranks]} s, QA "
+        f"{[round(r['qa_s'], 2) for r in ranks]} s); staged through the host on gloo "
+        f"{ranks[0]['staged']}; phase "
+        f"{time.perf_counter() - phase_t0:.2f} s")
+    return dict(launches=[r["tokenizer"]["launches"] for r in ranks], wall_s=wall)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4688,6 +5120,10 @@ def main(argv=None) -> int:
     p.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dp-world", type=int, default=DP_RANKS, help=argparse.SUPPRESS)
     p.add_argument("--dp-root", type=str, default=None, help=argparse.SUPPRESS)
+    # one rank of phase 22, started by the phase itself
+    p.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--tp-world", type=int, default=TP_RANKS, help=argparse.SUPPRESS)
+    p.add_argument("--tp-root", type=str, default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     repo = Path(__file__).resolve().parent
@@ -4703,6 +5139,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(repo))
     if args.dp_rank is not None:
         return dp_rank(args.dp_rank, args.dp_world, Path(args.dp_root))
+    if args.tp_rank is not None:
+        return tp_rank(args.tp_rank, args.tp_world, Path(args.tp_root))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4787,6 +5225,7 @@ def main(argv=None) -> int:
     variants = run_training_variants(dataset, dev, gen)
     try:
         dp = run_data_parallel(dataset, table, ehr, dev, gen, keep, clis["argv"], args.seed)
+        tp = run_tensor_parallel(dataset, table, dev, args.seed, keep / "tp")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -4818,6 +5257,10 @@ def main(argv=None) -> int:
         dp["ranks"]["launches"]["topk_l2"]
     k2["launches_by_path"]["data parallel, a gloo rank of 2 (phase 21 d)"] = \
         dp["ranks"]["launches"]["segment_attention"]
+    # phase 22's path: the tensor-parallel sweep on each gloo rank
+    for t, n in enumerate(tp["launches"]):
+        k1["launches_by_path"][
+            f"tensor-parallel sweep, gloo rank {t} of {TP_RANKS} (phase 22 a)"] = n
     for row, key in zip(k3, ("fwd", "dq", "dkv")):
         row["launches_by_path"] = {"EHRTrainer.fit + evaluate (phase 8)": k3_launches[key],
                                    "cli.ehr (phase 18)": ehr_downstream["cli"]["k3"][key],

@@ -5,6 +5,7 @@
         --embedding-path results/<exp>/embeddings_all.npy \
         --llama-checkpoint <hf-torch-state-dict.pt> --tokenizer-json tokenizer.json
     python -m medtok_tpu_torch.cli.qa eval --data Afrimedqa_dataset.json ...
+    torchrun --nproc-per-node 8 -m medtok_tpu_torch.cli.qa finetune ... --mesh-dp 2 --mesh-tp 4
 
 Dataset JSON rows: {"input": [question, answer], "medical_codes": [...]}.
 The LLM checkpoint is a HF PyTorch state_dict (``qa.llama.convert_hf_llama``);
@@ -15,17 +16,25 @@ with ``--tiny`` a random tiny model runs the whole pipeline and, without
 kernel in the JAX layout [256, H], the transpose of the Linear weight) and
 ``lora_params.pt`` (``torch.save`` of every trainable tensor by name: the
 LoRA adapters, ``lora_a`` [in, r] and ``lora_b`` [r, out], and the
-projector). ``eval`` loads no adapter, as the JAX CLI loads none. Runs on
-CUDA unless ``--device`` names another device; without a GPU and without
-``--device`` it stops before reading anything. One device: ``--mesh-dp``
-and ``--mesh-tp`` (the JAX CLI's flags) take -1 or 1; above 1 raises.
-fp32 matmuls run in full fp32 (TF32 off).
+projector), in the one-device layout whatever the mesh. ``eval`` loads no
+adapter, as the JAX CLI loads none. Runs on CUDA unless ``--device`` names
+another device; without a GPU and without ``--device`` it stops before
+reading anything. fp32 matmuls run in full fp32 (TF32 off).
+
+Under ``torchrun`` the run takes a (dp, tp) mesh of the world's ranks, as
+``cli.train`` does: ``--mesh-tp T`` ranks split the LLM (Megatron layout,
+``qa/sharding.py``), ``--mesh-dp`` blocks (-1: world / T) split each
+batch; dp x tp other than the world size is refused at parse time, and so
+is any axis above 1 without the launcher. Rank 0 logs and writes the
+adapter, its tp-split ``lora_b`` gathered first, so a one-device
+``QAFinetuner`` loads it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -46,11 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="random tiny LLM (offline smoke mode)")
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--mesh-dp", type=int, default=1,
-                   help="-1 or 1: one device; above 1 raises (data-parallel finetuning "
-                        "is not ported)")
+                   help="data-parallel blocks: -1 (world / mesh-tp) or world / mesh-tp")
     p.add_argument("--mesh-tp", type=int, default=1,
-                   help="-1 or 1: one device; above 1 raises (the tensor-parallel LLM "
-                        "is not ported)")
+                   help="tensor-parallel ranks of the LLM; divides the world")
     p.add_argument("--lora-r", type=int, default=16)
     p.add_argument("--lora-alpha", type=float, default=32)
     p.add_argument("--cutoff-len", type=int, default=256)
@@ -65,17 +72,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _simple_tokenize(text: str, vocab_size: int) -> list[int]:
-    """Hash-based fallback tokenizer for --tiny mode (no real LLM vocab)."""
-    return [hash(w) % (vocab_size - 10) + 10 for w in text.split()][:200]
+    """Hash-based fallback tokenizer for --tiny mode (no real LLM vocab).
+    CRC-32, not ``hash``: every process of a run (the ranks of a mesh) must
+    give a word the same id, and ``hash`` of a str is salted per process."""
+    return [zlib.crc32(w.encode()) % (vocab_size - 10) + 10 for w in text.split()][:200]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The flags, the mesh checked against the launcher's world size (an
+    argparse error, exit code 2)."""
+    from medtok_tpu_torch.parallel.mesh import check_mesh, world_size
+
+    p = build_parser()
+    args = p.parse_args(argv)
+    try:
+        check_mesh(args.mesh_dp, args.mesh_tp, world_size())
+    except ValueError as e:
+        p.error(f"--mesh-dp {args.mesh_dp} --mesh-tp {args.mesh_tp}: {e}")
+    return args
 
 
 def main(argv=None) -> dict:
     """Run a mode; returns ``{"losses": [...], "adapter_path": ...}`` after
     finetune and ``{"accuracy": ..., "predictions": [...]}`` after eval."""
-    args = build_parser().parse_args(argv)
-    if args.mesh_dp > 1 or args.mesh_tp > 1:
-        raise NotImplementedError(f"mesh_dp={args.mesh_dp}, mesh_tp={args.mesh_tp}: QA runs "
-                                  "on one device (the multi-card QA mesh is not ported)")
+    args = parse_args(argv)
     if not args.tiny and not args.tokenizer_json:
         raise SystemExit(
             "--tokenizer-json is required for non --tiny runs "
@@ -83,10 +103,16 @@ def main(argv=None) -> dict:
         )
 
     import torch
+    import torch.distributed as dist
 
     from medtok_tpu_torch import resolve_device
+    from medtok_tpu_torch.parallel.mesh import initialize_distributed, warmup_collectives
 
     device = resolve_device(args.device)
+    owns_group = not dist.is_initialized()   # a group the caller made stays
+    mesh = initialize_distributed(device, dp=args.mesh_dp, tp=args.mesh_tp)
+    warmup_collectives(mesh)
+    rank = 0 if mesh is None else mesh.rank
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -94,9 +120,10 @@ def main(argv=None) -> dict:
     from medtok_tpu_torch.qa.inference import evaluate_qa, extend_with_miss_rows
     from medtok_tpu_torch.qa.llama import LLAMA31_8B, TINY_LLAMA, convert_hf_llama
     from medtok_tpu_torch.qa.prompting import build_prompt, pack_example
+    from medtok_tpu_torch.qa.sharding import gather_param
     from medtok_tpu_torch.utils.logging import create_logger
 
-    logger = create_logger(None)
+    logger = create_logger(None, process_index=rank)
     rows_json = json.loads(Path(args.data).read_text())
     embeddings = extend_with_miss_rows(
         np.load(args.embedding_path), num_miss_rows=args.num_miss_rows
@@ -108,8 +135,9 @@ def main(argv=None) -> dict:
         lora_rank=args.lora_r, lora_alpha=args.lora_alpha,
         cutoff_len=args.cutoff_len, total_len=total_len,
         lr=args.lr, batch_size=args.batch_size, epochs=args.epochs,
+        mesh_dp=args.mesh_dp, mesh_tp=args.mesh_tp,
     )
-    ft = QAFinetuner(llm_cfg, embeddings, cfg, device=device)
+    ft = QAFinetuner(llm_cfg, embeddings, cfg, device=device, dp=mesh)
 
     llm_params = None
     if args.llama_checkpoint:
@@ -165,22 +193,32 @@ def main(argv=None) -> dict:
 
         ft.fit(packed, log_fn=log_fn)
         out = Path(args.adapter_path)
-        out.mkdir(parents=True, exist_ok=True)
-        np.save(out / "projector.npy",
-                ft.soft_prompt.projector.weight.detach().T.cpu().numpy())
-        torch.save({name: p.detach().cpu() for name, p in ft.named_parameters()
-                    if p.requires_grad}, out / "lora_params.pt")
-        logger.info(f"Saved adapter to {out}")
-        return {"losses": losses, "adapter_path": out}
-    acc, preds = evaluate_qa(
-        ft, packed, labels,
-        decode_fn=decode,
-        max_new_tokens=args.max_new_tokens,
-        temperature=args.temperature, top_p=args.top_p,
-        batch_size=args.batch_size,
-    )
-    logger.info(f"Accuracy: {acc}")
-    return {"accuracy": acc, "predictions": preds}
+        # the one-device layout: every rank of a tp axis takes part in each gather
+        adapter = {name: gather_param(name.removeprefix("llm."), p.detach(), ft.model.mesh,
+                                      ft.llm_cfg).cpu()
+                   for name, p in ft.named_parameters() if p.requires_grad}
+        if rank == 0:
+            out.mkdir(parents=True, exist_ok=True)
+            np.save(out / "projector.npy",
+                    ft.soft_prompt.projector.weight.detach().T.cpu().numpy())
+            torch.save(adapter, out / "lora_params.pt")
+            logger.info(f"Saved adapter to {out}")
+        result = {"losses": losses, "adapter_path": out}
+    else:
+        acc, preds = evaluate_qa(
+            ft, packed, labels,
+            decode_fn=decode,
+            max_new_tokens=args.max_new_tokens,
+            temperature=args.temperature, top_p=args.top_p,
+            batch_size=args.batch_size,
+        )
+        logger.info(f"Accuracy: {acc}")
+        result = {"accuracy": acc, "predictions": preds}
+    if mesh is not None:
+        mesh.barrier()
+        if owns_group:
+            dist.destroy_process_group()
+    return result
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@
         --med-codes-pkg-map-path codes.jsonl --text-vocab vocab.txt \
         --results-dir results/ [--device cuda]
     torchrun --nproc-per-node 8 -m medtok_tpu_torch.cli.train ...same flags...
+    torchrun --nproc-per-node 4 -m medtok_tpu_torch.cli.train ... --mesh-dp 2 --mesh-tp 2
 
 The flags are the JAX CLI's, and so is the config they resolve to
 (``config_from_args``), frozen to ``<experiment>/args.json``; checkpoints
@@ -19,16 +20,20 @@ features at step 0; a resumed run keeps its checkpointed codebook) and
 ``--codebook-revival`` its dead-code revival, ``--text-dropout-in-train``
 BERT dropout (``--packed-text`` auto then goes off).
 
-Under ``torchrun`` (``python -m torch.distributed.run``) the run is data
-parallel, one process a GPU over NCCL (gloo with ``--device cpu``):
-``--mesh-dp -1`` (the default) means the world size, and any other value
-than the world size raises. Each rank takes its block of every global batch
-(``--global-batch-size`` stays the global batch); rank 0 writes args.json,
-the log, ``metrics.jsonl`` and the checkpoints, and the k-means init
-clusters the whole first batch. ``--multihost`` is the same launcher across
-hosts (torchrun's ``--nnodes`` / ``--rdzv-endpoint``) and needs its
-environment. ``--mesh-tp`` above 1 (the tensor-parallel codebook sweep) and
-``--wandb`` are refused at parse time.
+Under ``torchrun`` (``python -m torch.distributed.run``) the run takes a
+(dp, tp) mesh of the world's ranks, one process a GPU over NCCL (gloo with
+``--device cpu``): ``--mesh-tp T`` ranks split each codebook sweep's rows,
+and ``--mesh-dp`` (-1, the default, means world / T) blocks split each
+global batch; a world that T does not divide, or a dp x tp other than the
+world size, is refused at parse time. Each dp block takes its block of
+every global batch (``--global-batch-size`` stays the global batch), and
+the tp ranks of a block the same one; rank 0 writes args.json (the mesh in
+it), the log, ``metrics.jsonl`` and the checkpoints, and the k-means init
+clusters the whole first batch. Without the launcher ``--mesh-dp`` or
+``--mesh-tp`` above 1 is refused, naming the torchrun launch it needs.
+``--multihost`` is the same launcher across hosts (torchrun's ``--nnodes``
+/ ``--rdzv-endpoint``) and needs its environment. ``--wandb`` is refused at
+parse time.
 """
 
 from __future__ import annotations
@@ -85,8 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mixed-precision", type=str, default="bf16", choices=["none", "bf16"])
     p.add_argument("--ema", action="store_true")
     p.add_argument("--mesh-dp", type=int, default=-1,
-                   help="data-parallel ranks: -1 or torchrun's world size")
-    p.add_argument("--mesh-tp", type=int, default=1, help="1 (above 1: not ported)")
+                   help="data-parallel blocks: -1 (world / mesh-tp) or world / mesh-tp")
+    p.add_argument("--mesh-tp", type=int, default=1,
+                   help="tensor-parallel ranks of the codebook sweep; divides the world")
     p.add_argument("--wandb", action="store_true", help="not ported: refused")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--multihost", action="store_true",
@@ -110,24 +116,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     """The flags, checked against the launcher's world size; those that
     select code the port lacks are refused (an argparse error, exit code
     2)."""
-    from medtok_tpu_torch.parallel.mesh import launched, world_size
+    from medtok_tpu_torch.parallel.mesh import check_mesh, launched, world_size
 
     p = build_parser()
     args = p.parse_args(argv)
     if args.codebook_revival and not args.kmeans:
         p.error("--codebook-revival requires --kmeans")
-    refused = [(args.mesh_tp > 1, "--mesh-tp above 1 (the tensor-parallel codebook sweep)"),
-               (args.wandb, "--wandb (the wandb mirror; metrics go to metrics.jsonl)")]
-    for flag, what in refused:
-        if flag:
-            p.error(f"{what} is not ported to medtok_tpu_torch (ROADMAP Queue 1)")
+    if args.wandb:
+        p.error("--wandb (the wandb mirror; metrics go to metrics.jsonl) is not ported to "
+                "medtok_tpu_torch (ROADMAP Queue 1)")
     world = world_size()
-    if args.mesh_dp not in (-1, world):
-        p.error(f"--mesh-dp {args.mesh_dp}: the world size is {world} (launch with "
-                f"`torchrun --nproc-per-node {args.mesh_dp}`, or pass --mesh-dp -1)")
-    if args.global_batch_size % world:
+    try:
+        check_mesh(args.mesh_dp, args.mesh_tp, world)
+    except ValueError as e:
+        p.error(f"--mesh-dp {args.mesh_dp} --mesh-tp {args.mesh_tp}: {e}")
+    blocks = world // args.mesh_tp
+    if args.global_batch_size % blocks:
         p.error(f"--global-batch-size {args.global_batch_size} is not divisible by the "
-                f"world size {world}")
+                f"world size {world}" + (f" / mesh-tp {args.mesh_tp} = {blocks} data-parallel "
+                                         f"blocks" if args.mesh_tp > 1 else ""))
     if args.multihost and not launched():
         p.error("--multihost needs torchrun's environment (RANK, WORLD_SIZE, "
                 "MASTER_ADDR, MASTER_PORT): launch with `torchrun --nnodes ...`")
@@ -201,11 +208,16 @@ def main(argv=None) -> Path:
     from medtok_tpu_torch import resolve_device
 
     from medtok_tpu_torch.parallel.mesh import initialize_distributed, warmup_collectives
+    from medtok_tpu_torch.utils.checkpoint import CheckpointManager
 
+    cfg = config_from_args(args)
+    if args.workdir and (Path(args.workdir) / "args.json").exists():
+        # the config-freezing contract: the stored config (its mesh too) wins on resume
+        cfg = CheckpointManager.load_config(Path(args.workdir))
     device = resolve_device(args.device)
     owns_group = not dist.is_initialized()   # a group the caller made stays
     t0 = time.perf_counter()
-    dp = initialize_distributed(device)
+    dp = initialize_distributed(device, dp=cfg.train.mesh_dp, tp=cfg.train.mesh_tp)
     init_s = time.perf_counter() - t0
     warmup_collectives(dp)
     rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
@@ -219,15 +231,10 @@ def main(argv=None) -> Path:
     from medtok_tpu_torch.data.text import WordPieceTokenizer
     from medtok_tpu_torch.models.bert import convert_hf_bert
     from medtok_tpu_torch.train.trainer import Trainer, kmeans_init_codebook
-    from medtok_tpu_torch.utils.checkpoint import CheckpointManager
     from medtok_tpu_torch.utils.logging import MetricsLogger, create_logger
 
-    cfg = config_from_args(args)
     if args.workdir:
         workdir = Path(args.workdir)
-        if (workdir / "args.json").exists():
-            # the config-freezing contract: the stored config wins on resume
-            cfg = CheckpointManager.load_config(workdir)
     else:
         stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
         workdir = Path(args.results_dir) / f"{stamp}-{args.graph_model_name}"
@@ -238,7 +245,8 @@ def main(argv=None) -> Path:
     logger.info(f"device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     if dp is not None:
-        logger.info(f"data parallel: {world} ranks over {dp.backend}, the process group "
+        logger.info(f"data parallel: {world} ranks over {dp.backend} as a mesh of dp "
+                    f"{dp.dp_size} x tp {dp.tp_size}, the process group "
                     f"joined in {init_s:.3f} s, warmed up in "
                     f"{time.perf_counter() - t0 - init_s:.3f} s")
 
@@ -264,7 +272,9 @@ def main(argv=None) -> Path:
         sd = torch.load(args.bert_checkpoint, map_location="cpu", weights_only=True)
         trainer.model.text_model.load_state_dict(convert_hf_bert(sd, cfg.model.text))
     t = cfg.train
-    shard = dict(process_index=rank, process_count=world)
+    # the dp blocks split each global batch; the tp ranks of a block read the same rows
+    shard = ({} if dp is None else
+             dict(process_index=dp.dp_index, process_count=dp.dp_size))
     if cfg.model.quantizer.use_kmeans and state.step == 0:
         # after the BERT weights: the init clusters the text encoder's
         # features of the whole first batch

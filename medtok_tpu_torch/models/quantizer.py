@@ -26,10 +26,15 @@ norm-EMA update, and with revival the dead-code rewrite toward the closest
 feature); the write assigns new tensors, so the autograd graph keeps the
 codebook its sweeps read.
 
-Data parallel (``dp``, the JAX module's ``dp_axis``): the usage FIFO takes
-the ranks' indices gathered in rank order, the EMA write sums the bin counts
-and feature sums over the ranks, and revival picks its anchors from the
-gathered features, so every rank holds the same buffers.
+On a mesh (``dp``, the JAX module's ``dp_axis`` and ``tp_axis``): the
+usage FIFO takes the dp blocks' indices gathered in order, the EMA write
+sums the bin counts and feature sums over the dp axis, and revival picks
+its anchors from the features gathered over it, so every rank holds the
+same buffers. Each of these runs over the dp axis only: the tp ranks of a
+block hold the same rows, and over the world they would count tp times.
+With a tp axis above 1 every sweep, the eval ones too, is the
+tensor-parallel one (``ops.vq.distance_topk_tp``): the specific sweeps by
+their region's global rows.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ class SoftVQQuantizer(nn.Module):
         """``dtype`` is the cross-attention's compute dtype, ``param_dtype``
         its parameters' (default: ``dtype``); the codebook and the specific
         projections stay fp32. ``dp``: the ``parallel.mesh.DataParallel`` of a
-        data-parallel run, or None."""
+        run on a (dp, tp) mesh, or None."""
         super().__init__()
         self.cfg = cfg
         self.split = split
@@ -93,7 +98,7 @@ class SoftVQQuantizer(nn.Module):
         c = self.cfg
         return vq_ops.soft_topk_quantize(
             z, self._cb(), k=c.top_k, beta=c.commit_loss_beta, l2_norm=c.l2_norm,
-            train=train, region=region, backend=c.topk_backend,
+            train=train, region=region, backend=c.topk_backend, mesh=self.dp,
         )
 
     def _track_usage(self, indices: torch.Tensor) -> torch.Tensor:
@@ -103,7 +108,7 @@ class SoftVQQuantizer(nn.Module):
         if not c.show_usage:
             return torch.zeros((), dtype=torch.float32, device=indices.device)
         if self.dp is not None:
-            indices = self.dp.all_gather(indices)
+            indices = self.dp.all_gather(indices, axis="dp")
         buf, counts, usage = vq_ops.usage_update(
             self.codebook_used, self.usage_counts, indices, c.codebook_size)
         self.codebook_used.copy_(buf)
@@ -145,7 +150,7 @@ class SoftVQQuantizer(nn.Module):
             (top1,), torch.ones_like(top1, dtype=torch.float32), accumulate=True)
         embed_sum = torch.zeros_like(w).index_put_((top1,), flat_n, accumulate=True)
         if self.dp is not None:
-            self.dp.all_reduce_sum_([bins, embed_sum])
+            self.dp.all_reduce_sum_([bins, embed_sum], axis="dp")
         zero = bins == 0
         mean = vq_ops.l2_normalize(embed_sum / torch.where(zero, 1.0, bins)[:, None])
         new_w = norm_ema_update(w, torch.where(zero[:, None], w, mean), decay)
@@ -154,7 +159,7 @@ class SoftVQQuantizer(nn.Module):
             avg_probs = bins / torch.clamp(bins.sum(), min=1.0)
             prob = ema_update(self.ema_embed_prob, avg_probs, decay)
             self.ema_embed_prob = prob
-            feats = flat_n if self.dp is None else self.dp.all_gather(flat_n)
+            feats = flat_n if self.dp is None else self.dp.all_gather(flat_n, axis="dp")
             anchor = feats[torch.argmax(feats @ new_w.T, dim=0)]          # [C, D]
             revive = torch.exp(-(prob * C * 10.0) / (1.0 - decay) - 1e-3)[:, None]
             new_w = vq_ops.l2_normalize(new_w * (1.0 - revive) + anchor * revive)

@@ -47,9 +47,10 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class MultimodalTokenizer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, param_dtype=None, device=None, dp=None):
-        """``dp``: the ``parallel.mesh.DataParallel`` of a data-parallel
-        training run (the quantizer's usage FIFO and EMA codebook then take
-        the ranks' indices and statistics), or None."""
+        """``dp``: the ``parallel.mesh.DataParallel`` of a run on a (dp, tp)
+        mesh (the quantizer's usage FIFO and EMA codebook then take the dp
+        blocks' indices and statistics, and its sweeps split the codebook's
+        rows over the tp ranks), or None."""
         super().__init__()
         self.cfg = cfg
         dt = compute_dtype(cfg)

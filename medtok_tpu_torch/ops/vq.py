@@ -12,6 +12,9 @@ of ``medtok_tpu/ops/vq.py``).
   ``beta * mean((z - sg(z_q))^2)`` against the unnormalized z;
 - region-restricted sweeps: text uses rows [0, n//3), graph rows
   [n - n//3, n); indices stay region-local;
+- the tensor-parallel sweep (``distance_topk_tp``): each tp rank of the
+  mesh sweeps its row block of the codebook, and the ranks' k best are
+  merged by (value, global index);
 - the usage FIFO: the last ``buffer_size`` selected ids and each id's
   multiplicity in them, so the share of the codebook in use is
   ``sum(counts > 0) / n_e`` without a unique over the buffer.
@@ -48,6 +51,14 @@ def topk_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[:, :k], idx[:, :k]
 
 
+def _recompute(z_n: torch.Tensor, e: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The squared distances of z_n's rows to their selected rows e[idx]
+    [B, k], differentiable in both (the sweeps that select take none)."""
+    g = e[idx]  # [B, k, D]
+    return ((z_n * z_n).sum(dim=-1, keepdim=True) + (g * g).sum(dim=-1)
+            - 2.0 * torch.einsum("bd,bkd->bk", z_n, g))
+
+
 def distance_topk(
     z_n: torch.Tensor, e_n: torch.Tensor, k: int, *, backend: str = "auto"
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,27 +78,73 @@ def distance_topk(
     # the kernel takes no gradient: the values are recomputed below
     _, idx = fused_topk_l2(z_n.detach(), e_n.detach(), k=k)
     idx = idx.long()
-    g = e_n[idx]  # [B, k, D]
-    vals = (
-        (z_n * z_n).sum(dim=-1, keepdim=True)
-        + (g * g).sum(dim=-1)
-        - 2.0 * torch.einsum("bd,bkd->bk", z_n, g)
-    )
-    return vals, idx
+    return _recompute(z_n, e_n, idx), idx
+
+
+def distance_topk_tp(
+    z_n: torch.Tensor, e_n: torch.Tensor, k: int, mesh, *,
+    region: tuple[int, int] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-parallel sweep: (values, int64 global indices) of the k
+    nearest rows of ``e_n`` (replicated on every tp rank of ``mesh``, a
+    ``parallel.mesh.DataParallel``) among rows [lo, hi) = ``region`` (all
+    rows by default), on every rank of the tp axis.
+
+    tp rank t sweeps its block [t N/tp, (t+1) N/tp) cut to the region: with
+    kernel K1 on CUDA (the plain version on the CPU), never when the cut is
+    empty. Its k best (values and global ids; +inf and the id N where the
+    cut holds fewer than k rows, so they sort last) are all-gathered over
+    the tp axis in one int32 buffer and merged by (value, then global
+    index), the tie rule of torch.topk and of the JAX merge. The values are
+    then recomputed from the region's rows of the replicated codebook, as
+    ``distance_topk``'s CUDA branch computes them, so the gradients are the
+    one-device sweep's and need no collective."""
+    n = e_n.shape[0]
+    tp, t = mesh.tp_size, mesh.tp_index
+    if n % tp:
+        raise ValueError(f"codebook rows {n} not divisible by tp={tp}")
+    lo, hi = (0, n) if region is None else region
+    if hi - lo < k:
+        raise ValueError(f"the region [{lo}, {hi}) holds fewer than k={k} rows")
+    block = n // tp
+    a, b = max(lo, t * block), min(hi, (t + 1) * block)
+    B, dev = z_n.shape[0], z_n.device
+    vals = torch.full((B, k), float("inf"), dtype=torch.float32, device=dev)
+    ids = torch.full((B, k), n, dtype=torch.int32, device=dev)
+    if b > a:
+        from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+        kk = min(k, b - a)
+        v, i = fused_topk_l2(z_n.detach(), e_n.detach()[a:b], k=kk)
+        vals[:, :kk], ids[:, :kk] = v, i + a
+    both = mesh.all_gather(torch.cat([vals.view(torch.int32), ids], dim=1), axis="tp")
+    both = both.view(tp, B, 2 * k).transpose(0, 1)            # [B, tp, 2k]
+    all_vals = both[..., :k].contiguous().view(torch.float32).reshape(B, tp * k)
+    all_ids = both[..., k:].reshape(B, tp * k)
+    # (value, index) order: by index, then stably by value
+    by_id = torch.sort(all_ids, dim=1, stable=True)
+    by_val = torch.sort(torch.gather(all_vals, 1, by_id.indices), dim=1, stable=True)
+    idx = torch.gather(by_id.values, 1, by_val.indices[:, :k]).long()
+    return _recompute(z_n, e_n[lo:hi], idx - lo), idx
+
+
+def region_bounds(n: int, region: str | None) -> tuple[int, int]:
+    """Rows [lo, hi) of a region: text [0, n//3), graph [n - n//3, n),
+    None all n."""
+    third = n // 3
+    if region == "text":
+        return 0, third
+    if region == "graph":
+        return n - third, n
+    if region is None:
+        return 0, n
+    raise ValueError(f"unknown region {region!r}")
 
 
 def region_slice(codebook: torch.Tensor, region: str | None) -> torch.Tensor:
-    """Codebook rows of a region, as a view: text -> [0, n//3), graph ->
-    [n - n//3, n), None -> all rows."""
-    n = codebook.shape[0]
-    third = n // 3
-    if region == "text":
-        return codebook[:third]
-    if region == "graph":
-        return codebook[n - third:]
-    if region is None:
-        return codebook
-    raise ValueError(f"unknown region {region!r}")
+    """Codebook rows of a region (``region_bounds``), as a view."""
+    lo, hi = region_bounds(codebook.shape[0], region)
+    return codebook[lo:hi]
 
 
 class QuantizeOut(NamedTuple):
@@ -109,13 +166,16 @@ def soft_topk_quantize(
     train: bool = False,
     region: str | None = None,
     backend: str = "auto",
+    mesh=None,
 ) -> QuantizeOut:
     """Soft top-k quantization of ``z`` against ``codebook`` rows.
 
     The codebook is normalized whole and the region taken as a row view of
     it (normalization is per row, so this equals normalizing the slice), so
     the sweep reads the region in place. ``train`` adds the vq and commit
-    losses."""
+    losses. ``mesh`` (a ``parallel.mesh.DataParallel`` whose tp axis is
+    above 1) takes the tensor-parallel sweep over the region's global
+    rows."""
     z32 = z.float()
     if l2_norm:
         e_n = l2_normalize(codebook.float())
@@ -124,7 +184,12 @@ def soft_topk_quantize(
         e_n = codebook.float()
         z_n = z32
     e_r = region_slice(e_n, region)
-    values, indices = distance_topk(z_n, e_r, k, backend=backend)
+    if mesh is not None and mesh.tp_size > 1:
+        lo, hi = region_bounds(e_n.shape[0], region)
+        values, indices = distance_topk_tp(z_n, e_n, k, mesh, region=(lo, hi))
+        indices = indices - lo
+    else:
+        values, indices = distance_topk(z_n, e_r, k, backend=backend)
     weights = torch.softmax(-values, dim=-1)
     gathered = e_r[indices]  # [B, k, D]
     z_q_raw = (weights[..., None] * gathered).sum(dim=1)

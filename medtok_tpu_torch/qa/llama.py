@@ -15,6 +15,18 @@ head over the rows of its H / KV query heads.
 Module and parameter names follow the flax tree (``layers_{i}``,
 ``self_attn.q_proj.base``, ``input_layernorm``, ``norm``), so
 ``convert.load_params`` loads a flax Llama tree by name.
+
+Tensor parallel (``LlamaModel(..., mesh=)``, a mesh whose tp axis is above
+1): each tp rank holds its slices of the weights in ``qa/sharding.py``'s
+Megatron layout (its H / tp query heads and their key / value heads, I / tp
+of the MLP, V / tp of the vocabulary) and the activations between blocks
+are replicated. Two autograd functions carry the collectives:
+``copy_to_tp`` (identity forward, all-reduce backward) at the input of
+each column-parallel product (q / k / v and gate / up, the LoRA adapters'
+rank-r products, the LM head) and ``reduce_from_tp`` (all-reduce forward,
+identity backward) at each row-parallel output (o, down) and after the
+vocab-parallel embedding's masked lookup. ``full_logits`` gathers the
+vocab shards; the finetune loss reduces over them without gathering.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from medtok_tpu_torch import resolve_device
+from medtok_tpu_torch.qa import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,27 +73,104 @@ TINY_LLAMA = LlamaConfig(
 )
 
 
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; backward all-reduces the gradient over tp."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_(g.contiguous().clone(), "tp"), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """All-reduce (sum) over tp forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce_(x.contiguous().clone(), "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """The tp ranks' last-dim slices concatenated forward; backward takes
+    this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        parts = mesh.all_gather(x.movedim(-1, 0).contiguous(), axis="tp")
+        return parts.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        t, w = ctx.mesh.tp_index, ctx.width
+        return g[..., t * w:(t + 1) * w], None
+
+
+def copy_to_tp(x, mesh):
+    return x if mesh is None else _CopyToTP.apply(x, mesh)
+
+
+def reduce_from_tp(x, mesh):
+    return x if mesh is None else _ReduceFromTP.apply(x, mesh)
+
+
+def gather_from_tp(x, mesh):
+    return x if mesh is None else _GatherFromTP.apply(x, mesh)
+
+
+def tp_mesh(mesh):
+    """``mesh`` when its tp axis is above 1, else None (one device's code)."""
+    return mesh if mesh is not None and mesh.tp_size > 1 else None
+
+
 class LoraDense(nn.Module):
     """W x + (alpha/r) * (x A) B. The base projection is ``base`` (an
     ``nn.Linear``, weight [out, in]); the adapters keep the flax layout,
     ``lora_a`` [in, r] and ``lora_b`` [r, out], in fp32 whatever the base
     dtype, and are cast to the input's dtype as the JAX module casts
-    them."""
+    them.
+
+    Tensor parallel (``mesh``): a ``column`` projection holds out / tp
+    outputs (``features`` is the local count) and takes the replicated x;
+    its base product reads ``copy_to_tp(x)`` (or the caller's ``x_in``,
+    shared by q / k / v) and its LoRA term ``copy_to_tp(x A) B``, so the
+    rank-r product's gradient is summed over tp and ``lora_a`` gets its
+    whole gradient on every rank. A ``row`` projection holds in / tp inputs
+    and returns the sum over tp of the partial products; its LoRA term runs
+    on the gathered input (``lora_a`` and ``lora_b`` replicated)."""
 
     def __init__(self, in_features: int, features: int, rank: int = 0, alpha: float = 32.0,
-                 *, dtype=None, device=None):
+                 *, dtype=None, device=None, mesh=None, parallel: str | None = None):
         super().__init__()
         self.rank, self.alpha = rank, alpha
+        self.mesh, self.parallel = tp_mesh(mesh), parallel
+        tp = 1 if self.mesh is None else self.mesh.tp_size
+        lora_in = in_features * tp if parallel == "row" else in_features
         self.base = nn.Linear(in_features, features, bias=False, dtype=dtype, device=device)
         if rank > 0:
-            self.lora_a = nn.Parameter(torch.zeros(in_features, rank, device=device))
+            self.lora_a = nn.Parameter(torch.zeros(lora_in, rank, device=device))
             self.lora_b = nn.Parameter(torch.zeros(rank, features, device=device))
 
-    def forward(self, x):
-        y = self.base(x)
+    def forward(self, x, x_in=None):
+        mesh = self.mesh
+        if self.parallel == "row" and mesh is not None:
+            y = reduce_from_tp(self.base(x), mesh)
+            if self.rank > 0:
+                a, b = self.lora_a.to(x.dtype), self.lora_b.to(x.dtype)
+                y = y + (self.alpha / self.rank) * ((gather_from_tp(x, mesh) @ a) @ b)
+            return y
+        y = self.base(copy_to_tp(x, mesh) if x_in is None else x_in)
         if self.rank > 0:
             a, b = self.lora_a.to(x.dtype), self.lora_b.to(x.dtype)
-            y = y + (self.alpha / self.rank) * ((x @ a) @ b)
+            y = y + (self.alpha / self.rank) * (copy_to_tp(x @ a, mesh) @ b)
         return y
 
 
@@ -111,33 +201,48 @@ def rope(q, k, positions, theta: float, head_dim: int):
     return q2, k2
 
 
+def local_heads(cfg: LlamaConfig, mesh) -> tuple[int, int]:
+    """(query heads, key / value heads) a rank holds: all of them on one
+    device; H / tp and KV / tp (or the one shared head) on a tp mesh."""
+    mesh = tp_mesh(mesh)
+    if mesh is None:
+        return cfg.num_heads, cfg.num_kv_heads
+    tp = mesh.tp_size
+    return cfg.num_heads // tp, max(cfg.num_kv_heads // tp, 1)
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, dtype=None, device=None):
+    def __init__(self, cfg: LlamaConfig, *, dtype=None, device=None, mesh=None):
         super().__init__()
         self.cfg = cfg
-        H, KV, E = cfg.num_heads, cfg.num_kv_heads, cfg.hidden_size
-        Dh = E // H
+        self.mesh = tp_mesh(mesh)
+        E = cfg.hidden_size
+        Dh = E // cfg.num_heads
+        self.heads, self.kv_heads = local_heads(cfg, mesh)
 
-        def proj(name, n_in, n_out):
+        def proj(name, n_in, n_out, parallel):
             rank = cfg.lora_rank if name in cfg.lora_targets else 0
-            return LoraDense(n_in, n_out, rank, cfg.lora_alpha, dtype=dtype, device=device)
+            return LoraDense(n_in, n_out, rank, cfg.lora_alpha, dtype=dtype, device=device,
+                             mesh=mesh, parallel=parallel)
 
-        self.q_proj = proj("q_proj", E, H * Dh)
-        self.k_proj = proj("k_proj", E, KV * Dh)
-        self.v_proj = proj("v_proj", E, KV * Dh)
-        self.o_proj = proj("o_proj", H * Dh, E)
+        self.q_proj = proj("q_proj", E, self.heads * Dh, "column")
+        self.k_proj = proj("k_proj", E, self.kv_heads * Dh, "column")
+        self.v_proj = proj("v_proj", E, self.kv_heads * Dh, "column")
+        self.o_proj = proj("o_proj", self.heads * Dh, E, "row")
 
     def forward(self, x, positions, mask, cache=None):
         """x [B, L, E]; mask bool [B, 1, L, T] (T = L without a cache);
         cache (k [B, T, KV, Dh], v, slot) is written in place at
-        [slot, slot + L) and returned as the new cache."""
+        [slot, slot + L) and returned as the new cache. On a tp mesh H and
+        KV are this rank's heads."""
         c = self.cfg
-        H, KV = c.num_heads, c.num_kv_heads
-        Dh = c.hidden_size // H
+        H, KV = self.heads, self.kv_heads
+        Dh = c.hidden_size // c.num_heads
         B, L, _ = x.shape
-        q = self.q_proj(x).view(B, L, H, Dh)
-        k = self.k_proj(x).view(B, L, KV, Dh)
-        v = self.v_proj(x).view(B, L, KV, Dh)
+        xf = copy_to_tp(x, self.mesh)
+        q = self.q_proj(x, xf).view(B, L, H, Dh)
+        k = self.k_proj(x, xf).view(B, L, KV, Dh)
+        v = self.v_proj(x, xf).view(B, L, KV, Dh)
         q, k = rope(q, k, positions, c.rope_theta, Dh)
 
         new_cache = None
@@ -163,26 +268,30 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, dtype=None, device=None):
+    def __init__(self, cfg: LlamaConfig, *, dtype=None, device=None, mesh=None):
         super().__init__()
-        E, I = cfg.hidden_size, cfg.intermediate_size
+        self.mesh = tp_mesh(mesh)
+        E = cfg.hidden_size
+        I = cfg.intermediate_size // (1 if self.mesh is None else self.mesh.tp_size)
         self.gate_proj = nn.Linear(E, I, bias=False, dtype=dtype, device=device)
         self.up_proj = nn.Linear(E, I, bias=False, dtype=dtype, device=device)
         self.down_proj = nn.Linear(I, E, bias=False, dtype=dtype, device=device)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = copy_to_tp(x, self.mesh)
+        return reduce_from_tp(self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
+                              self.mesh)
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, dtype=None, device=None):
+    def __init__(self, cfg: LlamaConfig, *, dtype=None, device=None, mesh=None):
         super().__init__()
         self.cfg = cfg
         E = cfg.hidden_size
         self.input_layernorm = nn.Parameter(torch.ones(E, dtype=dtype, device=device))
-        self.self_attn = LlamaAttention(cfg, dtype=dtype, device=device)
+        self.self_attn = LlamaAttention(cfg, dtype=dtype, device=device, mesh=mesh)
         self.post_attention_layernorm = nn.Parameter(torch.ones(E, dtype=dtype, device=device))
-        self.mlp = LlamaMLP(cfg, dtype=dtype, device=device)
+        self.mlp = LlamaMLP(cfg, dtype=dtype, device=device, mesh=mesh)
 
     def forward(self, x, positions, mask, cache=None):
         eps = self.cfg.rms_norm_eps
@@ -198,32 +307,59 @@ class LlamaModel(nn.Module):
     soft-prompt path injects embeddings). The base weights are in ``dtype``
     (bf16 for the 8B layout), the LoRA adapters in fp32. With
     ``cfg.remat`` each layer is recomputed in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant) when autograd records."""
+    (``torch.utils.checkpoint``, non-reentrant) when autograd records.
 
-    def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32, device=None):
+    ``mesh``: a (dp, tp) mesh (``parallel.mesh.DataParallel``) whose tp
+    axis splits the model (``qa/sharding.py``; ``check_divisibility`` must
+    hold), or None. The embedding table and the LM head then hold this
+    rank's V / tp vocabulary rows [vocab_start, vocab_start + V / tp)."""
+
+    def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32, device=None, mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dtype,
+        self.mesh = tp_mesh(mesh)
+        tp = 1 if self.mesh is None else self.mesh.tp_size
+        if tp > 1:
+            sharding.check_divisibility(cfg, tp)
+        self.vocab_local = cfg.vocab_size // tp
+        self.vocab_start = 0 if tp == 1 else self.mesh.tp_index * self.vocab_local
+        self.kv_heads = local_heads(cfg, mesh)[1]
+        self.embed_tokens = nn.Embedding(self.vocab_local, cfg.hidden_size, dtype=dtype,
                                          device=device)
         for i in range(cfg.num_layers):
-            self.add_module(f"layers_{i}", LlamaLayer(cfg, dtype=dtype, device=device))
+            self.add_module(f"layers_{i}", LlamaLayer(cfg, dtype=dtype, device=device,
+                                                      mesh=mesh))
         self.norm = nn.Parameter(torch.ones(cfg.hidden_size, dtype=dtype, device=device))
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype,
-                                     device=device)
+            self.lm_head = nn.Linear(cfg.hidden_size, self.vocab_local, bias=False,
+                                     dtype=dtype, device=device)
 
     def layers(self) -> list[LlamaLayer]:
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.num_layers)]
 
     def embed(self, input_ids):
-        return self.embed_tokens(input_ids)
+        """Token embeddings; on a tp mesh each rank looks up the ids of its
+        vocabulary rows (zeros for the others) and the ranks' rows are
+        summed, which is exact: one rank holds each id."""
+        if self.mesh is None:
+            return self.embed_tokens(input_ids)
+        local = input_ids - self.vocab_start
+        mine = (local >= 0) & (local < self.vocab_local)
+        rows = self.embed_tokens(local.clamp(0, self.vocab_local - 1))
+        return reduce_from_tp(torch.where(mine[..., None], rows, 0.0), self.mesh)
 
     def apply_lm_head(self, x):
         """Vocab projection of any [..., E] tensor (the finetune loss applies
-        it to the label window only)."""
+        it to the label window only); on a tp mesh this rank's V / tp
+        logits."""
+        x = copy_to_tp(x, self.mesh)
         if self.cfg.tie_word_embeddings:
             return x @ self.embed_tokens.weight.T
         return self.lm_head(x)
+
+    def full_logits(self, x):
+        """``apply_lm_head`` with the vocab shards gathered: [..., V]."""
+        return gather_from_tp(self.apply_lm_head(x), self.mesh)
 
     def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
                 positions=None, caches=None, cache_pos=None, return_hidden=False):
@@ -266,22 +402,39 @@ class LlamaModel(nn.Module):
         return out, (new_caches if caches is not None else None)
 
 
+def _init_tensor_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "lora_a":
+        p.normal_(0.0, 0.02, generator=generator)
+    elif leaf == "lora_b":
+        p.zero_()
+    elif p.dim() == 1:
+        p.fill_(1.0)
+    else:
+        p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+
+
 @torch.no_grad()
 def init_llama_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator`` in the JAX model's initializer
     families: N(0, 1/fan_in) for projections and the embedding table (flax
     ``Dense`` / ``Embed``), N(0, 0.02) for ``lora_a``, zeros for ``lora_b``,
-    ones for the RMSNorm weights."""
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "lora_a":
-            p.normal_(0.0, 0.02, generator=generator)
-        elif leaf == "lora_b":
-            p.zero_()
-        elif p.dim() == 1:
-            p.fill_(1.0)
-        else:
-            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+    ones for the RMSNorm weights. A tp-split ``LlamaModel`` draws each
+    one-device tensor in the one-device order (one at a time, on its
+    device) and keeps its slice, so every rank holds its part of the
+    one-device model the same generator would draw."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        for name, p in model.named_parameters():
+            _init_tensor_(name, p, generator)
+        return model
+    full = LlamaModel(model.cfg, device="meta")
+    params = dict(model.named_parameters())
+    for name, meta in full.named_parameters():
+        p = params[name]
+        t = torch.empty(meta.shape, dtype=p.dtype, device=p.device)
+        _init_tensor_(name, t, generator)
+        p.copy_(sharding.local_slice(name, t, model.cfg, mesh.tp_size, mesh.tp_index))
     return model
 
 
@@ -366,14 +519,19 @@ def generate(
     allowed. With ``eos_token_id`` a finished row keeps emitting it and the
     loop stops once every row has finished; the remaining columns are eos.
     ``on_token(tok)`` is called each step with the first row's token, and
-    then the result holds only the steps run (the JAX streaming route)."""
+    then the result holds only the steps run (the JAX streaming route).
+
+    On a tp mesh (the model's) every tp rank of a block calls it with the
+    same prompts: the cache holds this rank's key / value heads, the last
+    position's logits are gathered over tp, and tp rank 0's token is
+    broadcast to the others, so the ranks never diverge."""
     dev = resolve_device(device)
     inputs_embeds, attention_mask = inputs_embeds.to(dev), attention_mask.to(dev)
     B, L, _ = inputs_embeds.shape
     total = L + max_new_tokens
     cfg = model.cfg
     Dh = cfg.hidden_size // cfg.num_heads
-    caches = [tuple(torch.zeros(B, total, cfg.num_kv_heads, Dh, dtype=inputs_embeds.dtype,
+    caches = [tuple(torch.zeros(B, total, model.kv_heads, Dh, dtype=inputs_embeds.dtype,
                                 device=dev) for _ in range(2))
               for _ in range(cfg.num_layers)]
     full_mask = torch.cat([attention_mask.long(),
@@ -383,7 +541,7 @@ def generate(
     def last_logits(embeds, pos, slot):
         hidden, _ = model(inputs_embeds=embeds, attention_mask=full_mask, positions=pos,
                           caches=caches, cache_pos=slot, return_hidden=True)
-        return model.apply_lm_head(hidden[:, -1])
+        return model.full_logits(hidden[:, -1])
 
     last = last_logits(inputs_embeds, positions, 0)
     cur_pos = positions[:, -1]
@@ -391,6 +549,8 @@ def generate(
     out = []
     for i in range(max_new_tokens):
         tok = sample(last, temperature, top_p, generator)
+        if model.mesh is not None:
+            model.mesh.broadcast_([tok], src=0, axis="tp")
         if eos_token_id is not None:
             tok = torch.where(finished, eos_token_id, tok)
             finished = finished | (tok == eos_token_id)

@@ -21,17 +21,22 @@ With a ``workdir``, ``fit`` saves a checkpoint every ``ckpt_every`` steps
 (``utils/checkpoint.py``, rotated to ``max_checkpoints``) and ``init_state``
 restores the latest one; ``cli/train.py`` is the command line around it.
 
-Data parallel (``Trainer(..., dp=initialize_distributed(device))``, one
-process a GPU under torchrun): each rank trains on its block of every
-global batch (``epoch_batches(process_index=, process_count=)``), its
-InfoNCE negatives its own. After backward one flat all-reduce averages the
-trainable gradients, another the metrics, before the clip and Adam, so
-every rank takes the same step; the quantizer's usage FIFO and EMA codebook
-take the ranks' indices and statistics (``models/quantizer.py``). Each rank
-draws its own dropout masks (``parallel.mesh.rank_seed``; a restored rank
-takes its own generator state from the checkpoint), the packed row budget
-is the largest rank's, and rank 0 writes the checkpoints (with every rank's
-generator state) while the others wait. ``mesh_tp`` above 1 is not ported.
+On a (dp, tp) mesh (``Trainer(..., dp=initialize_distributed(device,
+tp=T))``, one process a GPU under torchrun, world = dp x tp): each dp block
+trains on its block of every global batch (``epoch_batches(process_index=
+dp_index, process_count=dp_size)``), its InfoNCE negatives its own, and the
+tp ranks of a block split each codebook sweep's rows
+(``ops.vq.distance_topk_tp``). After backward one flat all-reduce averages
+the trainable gradients over the dp axis, another the metrics, before the
+clip and Adam, so every rank takes the same step (the tp ranks of a block
+already hold the same gradients); the quantizer's usage FIFO and EMA
+codebook take the dp blocks' indices and statistics
+(``models/quantizer.py``). Each dp block draws its own dropout masks from
+``parallel.mesh.rank_seed(seed + 1, dp_index)``, the same on its tp ranks,
+which must sweep the same rows (a restored rank takes its own generator
+state from the checkpoint); the packed row budget is the largest rank's,
+and rank 0 writes the checkpoints (with every rank's generator state) while
+the others wait.
 """
 
 from __future__ import annotations
@@ -137,7 +142,7 @@ def create_train_state(cfg: MedTokConfig, model: MultimodalTokenizer, *,
     its ``usage`` collection, or a .npz of either (``convert.load_params``).
     Adam's state starts at zero, the EMA as a copy of the parameters, the
     dropout generator at ``rank_seed(seed + 1, rank)`` (the seed + 1 on
-    one device)."""
+    one device; ``rank`` is the dp block's index on a mesh)."""
     seed = cfg.train.global_seed
     dev = next(model.parameters()).device
     if params is None:
@@ -163,15 +168,16 @@ def kmeans_init_codebook(model: MultimodalTokenizer, state: TrainState,
     under ``use_kmeans`` the EMA codebook and its cluster sizes (the final
     bins), otherwise the ``codebook`` parameter. The initial means are
     ``init_idx``, or drawn by ``ops.ema.kmeans`` from ``generator`` (a CPU
-    generator, default seed 0). Data parallel, ``batches`` are each rank's
-    blocks and the rows clustered are the global batch's (the ranks' text
-    rows in rank order, then their graph rows), clustered on rank 0 and
-    broadcast, so every rank holds the same codebook. Returns ``state``."""
+    generator, default seed 0). On a mesh, ``batches`` are each dp block's
+    and the rows clustered are the global batch's (the blocks' text rows in
+    order, then their graph rows, gathered over the dp axis), clustered on
+    rank 0 and broadcast to the world, so every rank holds the same
+    codebook. Returns ``state``."""
     dev = next(model.parameters()).device
     feats = []
     for b in batches:
         rows = model.encode_shared(b.to(dev))
-        feats += [r if dp is None else dp.all_gather(r) for r in rows]
+        feats += [r if dp is None else dp.all_gather(r, axis="dp") for r in rows]
     q = model.quantize
     C, D = q.cfg.codebook_size, q.cfg.codebook_embed_dim
     if dp is None or dp.rank == 0:
@@ -214,7 +220,7 @@ def make_train_step(cfg: MedTokConfig, model: MultimodalTokenizer,
     device tensors: forward, backward, clip + Adam, EMA. The state is
     updated in place and returned; the metrics are detached device
     scalars. With ``dp`` (the model built with the same) the trainable
-    gradients, then the metrics, are averaged over the ranks by one flat
+    gradients, then the metrics, are averaged over the dp axis by one flat
     all-reduce each after backward (``train.allreduce``). The ``train.*``
     ranges (here, in ``_loss_fn`` and in the model) name the step's parts
     in a torch.profiler trace."""
@@ -235,9 +241,9 @@ def make_train_step(cfg: MedTokConfig, model: MultimodalTokenizer,
         metrics = {k: v.detach() for k, v in metrics.items()}
         if dp is not None:
             with record_function("train.allreduce"):
-                dp.all_reduce_mean_([p.grad for p in params])
+                dp.all_reduce_mean_([p.grad for p in params], axis="dp")
                 values = torch.stack([v.float() for v in metrics.values()])
-                dp.all_reduce_mean_([values])
+                dp.all_reduce_mean_([values], axis="dp")
                 metrics = dict(zip(metrics, values.unbind()))
         with record_function("train.optimizer"):
             tx.step(params, [p.grad for p in params], state.opt_state)
@@ -263,20 +269,23 @@ def packed_rows_budget(attention_mask: np.ndarray, row_len: int,
 class Trainer:
     """Host loop on one device (CUDA unless ``device`` names another;
     without a GPU ``device=None`` raises), or on this rank's device of a
-    data-parallel group ``dp`` (``parallel.mesh.initialize_distributed``;
-    ``mesh_dp`` -1 or its world size, ``mesh_tp`` 1): packs each batch's texts when
+    (dp, tp) mesh ``dp`` (``parallel.mesh.initialize_distributed``; its tp
+    axis ``mesh_tp``, its dp axis ``mesh_dp`` or -1): packs each batch's texts when
     ``TrainConfig.packed_text`` is set, runs the step, every ``log_every``
     steps passes the metrics as floats with ``steps_per_sec`` to
     ``log_fn(step, metrics)``, and with a ``workdir`` saves a checkpoint
     every ``ckpt_every`` steps (``args.json`` written there once; rank 0
-    writes, every rank takes part). Without ``dp`` a ``mesh_dp`` above 1
-    raises."""
+    writes, every rank takes part). Without ``dp`` a ``mesh_dp`` or
+    ``mesh_tp`` above 1 raises, naming the torchrun launch it needs."""
 
     def __init__(self, cfg: MedTokConfig, *, device=None, workdir: str | Path | None = None,
                  log_fn: Callable[[int, dict], None] | None = None,
                  dp: DataParallel | None = None):
         t = cfg.train
         check_mesh(t.mesh_dp, t.mesh_tp, 1 if dp is None else dp.world)
+        if dp is not None and dp.tp_size != t.mesh_tp:
+            raise ValueError(f"mesh_tp={t.mesh_tp} but the mesh's tp axis is {dp.tp_size}: "
+                             f"pass initialize_distributed(device, tp={t.mesh_tp})")
         self.cfg = cfg
         self.dp = dp
         self.rank = 0 if dp is None else dp.rank
@@ -296,17 +305,18 @@ class Trainer:
         or ``params`` as ``create_train_state`` takes them), then, when the
         workdir holds a checkpoint, the latest one restored into it (on every
         rank: each takes its own generator state)."""
-        state = create_train_state(self.cfg, self.model, params=params, rank=self.rank)
+        block = 0 if self.dp is None else self.dp.dp_index
+        state = create_train_state(self.cfg, self.model, params=params, rank=block)
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             ck = self.ckpt.load(map_location=next(self.model.parameters()).device)
             state, self.pack_rows = self.ckpt.restore(state, payload=ck)
-            if self.rank:   # the file's generator is rank 0's
-                gens = ck.get("generators")
-                if gens is not None and len(gens) == self.dp.world:
-                    state.generator.set_state(gens[self.rank].cpu())
-                else:       # saved by another world size: decorrelate by rank and step
-                    state.generator.manual_seed(rank_seed(
-                        state.generator.initial_seed() + state.step, self.rank))
+            gens = ck.get("generators")
+            if self.rank and gens is not None and len(gens) == self.dp.world:
+                state.generator.set_state(gens[self.rank].cpu())
+            elif block:     # saved by another world size: decorrelate by block and step
+                state.generator.manual_seed(rank_seed(
+                    state.generator.initial_seed() + state.step, block))
+            # (the file's own generator is rank 0's, and so block 0's)
         return state
 
     def save(self, state: TrainState) -> Path | None:

@@ -2,7 +2,8 @@
 
 ``cli.export`` takes ``--mesh-dp`` (default -1) and ``cli.qa`` takes
 ``--mesh-dp`` / ``--mesh-tp`` (default 1), as the JAX CLIs do; -1 and 1 run
-on one device and values above 1 raise before anything is read. The
+on one device. Above 1 the export raises, and ``cli.qa`` without a process
+group of the mesh's size stops at parse time, naming the torchrun launch. The
 smallest input that failed before (``cli.qa finetune --data d.json
 --embedding-path e.npy --mesh-dp 1 --mesh-tp 1``: "unrecognized arguments")
 parses to the JAX parser's values.
@@ -30,9 +31,10 @@ def test_qa_parser_takes_the_jax_mesh_flags(mesh):
 
 
 @pytest.mark.parametrize("mesh", [["--mesh-dp", "2"], ["--mesh-tp", "2"]])
-def test_qa_mesh_above_one_raises_before_reading(mesh):
-    with pytest.raises(NotImplementedError, match="one device"):
+def test_qa_mesh_above_one_raises_before_reading(mesh, capsys):
+    with pytest.raises(SystemExit) as e:
         qa_cli.main([*QA_ARGV, "--tiny", "--device", "cpu", *mesh])
+    assert e.value.code == 2 and "torchrun --nproc-per-node 2" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("mesh", [[], ["--mesh-dp", "-1"], ["--mesh-dp", "1"]])

@@ -119,7 +119,8 @@ def test_ehr_cli_ranks_agree(dp_cli):
 TRAIN_ERRORS = {
     "mesh-dp": (["--mesh-dp", "4"], "the world size is 2"),
     "mesh-dp-1": (["--mesh-dp", "1"], "the world size is 2"),
-    "mesh-tp": (["--mesh-tp", "2"], "--mesh-tp"),
+    # --mesh-tp 2 fits the world of 2; a mesh of 4 ranks names its launch
+    "mesh-tp": (["--mesh-dp", "2", "--mesh-tp", "2"], "torchrun --nproc-per-node 4"),
     "batch": (["--global-batch-size", "7"], "not divisible by the world size 2"),
 }
 
@@ -135,9 +136,10 @@ def test_train_flag_errors_under_a_launcher(name, monkeypatch, capsys):
 
 def test_train_flags_accepted_under_a_launcher(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", str(WORLD))
-    for extra in ([], ["--mesh-dp", "2"], ["--mesh-dp", "-1", "--multihost"]):
+    for extra in ([], ["--mesh-dp", "2"], ["--mesh-dp", "-1", "--multihost"],
+                  ["--mesh-tp", "2"], ["--mesh-dp", "1", "--mesh-tp", "2"]):
         args = train_cli.parse_args(["--text-vocab", "v.txt", *extra])
-        assert args.mesh_dp in (-1, WORLD)
+        assert args.mesh_dp * args.mesh_tp in (-args.mesh_tp, WORLD)
 
 
 @pytest.mark.parametrize("extra,what", [(["--batch-size", "7"], "not divisible by the world "

@@ -66,11 +66,13 @@ def test_the_written_tokenizer_is_byte_level_llama3(files):
     assert tok.encode(prompt)[0] == tok.bos_token_id
 
 
-def test_refused_before_the_model_is_built(files, monkeypatch):
-    """--mesh-* above 1 raise (one device); without --tiny a tokenizer file
+def test_refused_before_the_model_is_built(files, monkeypatch, capsys):
+    """--mesh-* above 1 without a process group of the mesh's size stop at
+    parse time, naming the torchrun launch; without --tiny a tokenizer file
     is required, and the run stops before building the 8B model."""
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(SystemExit) as e:
         cli.main(_args(files, "finetune", "--mesh-tp", "2"))
+    assert e.value.code == 2 and "torchrun --nproc-per-node 2" in capsys.readouterr().err
     import medtok_tpu_torch.qa.finetune as finetune
 
     monkeypatch.setattr(finetune, "QAFinetuner", None)

@@ -114,8 +114,9 @@ def test_config_from_args_matches_jax(name, tmp_path):
 
 REFUSED = {
     "revival-without-kmeans": (["--codebook-revival"], "requires --kmeans"),
-    "mesh-dp": (["--mesh-dp", "2"], "--mesh-dp"),
-    "mesh-tp": (["--mesh-tp", "2"], "--mesh-tp"),
+    # a mesh without a process group of its size names the launch it needs
+    "mesh-dp": (["--mesh-dp", "2"], "torchrun --nproc-per-node 2"),
+    "mesh-tp": (["--mesh-tp", "2"], "torchrun --nproc-per-node 2"),
     "wandb": (["--wandb"], "--wandb"),
     "multihost": (["--multihost"], "--multihost"),
 }

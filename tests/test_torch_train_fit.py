@@ -130,10 +130,10 @@ def test_trainer_refusals(dataset):
     model = tiny_model()
     cfg = MedTokConfig(model=model, data=dataset.cfg,
                        train=TrainConfig(global_batch_size=8, mesh_dp=2))
-    # a data-parallel mesh needs a process group of its size; tp is not ported
-    with pytest.raises(ValueError, match="world size is 1"):
+    # a (dp, tp) mesh needs a process group of its size, and names its launch
+    with pytest.raises(ValueError, match="world size is 1: .*torchrun --nproc-per-node 2"):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, mesh_dp=-1, mesh_tp=2)), device="cpu")
     # text dropout trains (unpacked); with packed text it raises

@@ -1,7 +1,9 @@
-"""One rank of the data-parallel tests (``tests/test_torch_dp_*.py``): it
-joins a gloo group through a file under the test's tmp_path, runs one task
-of the port on the CPU and pickles what it saw for the test to hold against
-the JAX package and against the other ranks. It imports neither JAX nor the
+"""One rank of the data- and tensor-parallel tests
+(``tests/test_torch_dp_*.py``, ``tests/test_torch_tp_*.py``): it joins a
+gloo group through a file under the test's tmp_path, lays the spec's
+(dp, tp) mesh over it (``spec["tp"]``, default 1), runs one task of the
+port on the CPU and pickles what it saw for the test to hold against the
+JAX package and against the other ranks. It imports neither JAX nor the
 JAX package.
 
     python -m tests.torch_dp_ranks TASK RANK WORLD INIT_FILE SPEC OUT
@@ -76,10 +78,10 @@ def snapshot(model) -> dict[str, torch.Tensor]:
 
 def task_train(dp, spec: dict) -> dict:
     """Tokenizer steps through ``Trainer.fit``, one global batch at a time
-    (this rank's block): each step's state before, the metrics, the
-    averaged gradients Adam received, the state after; then the automatic
-    row budget of the first batch's block and the k-means init's EMA
-    codebook and cluster sizes."""
+    (this rank's dp block): each step's state before, the metrics, the
+    averaged gradients Adam received, the state after, the four paths'
+    tokens; then the automatic row budget of the first batch's block and
+    the k-means init's EMA codebook and cluster sizes."""
     from medtok_tpu_torch.config import MedTokConfig
     from medtok_tpu_torch.data.types import CodeBatch
     from medtok_tpu_torch.train import trainer as tr
@@ -96,17 +98,27 @@ def task_train(dp, spec: dict) -> dict:
         return step(self, params, gs, st)
 
     tr.ClippedAdam.step = spy
+    tokens: list[np.ndarray] = []
+    forward_train = trainer.model.forward_train
+
+    def spy_forward(*a, **kw):
+        out = forward_train(*a, **kw)
+        tokens.append(torch.stack([out[f"{p}_tokens"] for p in
+                                   ("text", "graph", "shared_text", "shared_graph")], 1).numpy())
+        return out
+
+    trainer.model.forward_train = spy_forward
     names = [n for n, _ in tr.trainable_parameters(trainer.model)]
     steps = []
     for b in spec["batches"]:
-        local = local_block(CodeBatch(*b), dp.rank, dp.world)
+        local = local_block(CodeBatch(*b), dp.dp_index, dp.dp_size)
         before = snapshot(trainer.model)
         packed = trainer.pack(local)
         state = trainer.fit(state, [local])
         steps.append(dict(before=before, after=snapshot(trainer.model), metrics=logged[-1],
                           grads=dict(zip(names, grads[-1])), local=local, packed=packed,
-                          mu=[m.clone() for m in state.opt_state.mu]))
-    first = local_block(CodeBatch(*spec["batches"][0]), dp.rank, dp.world)
+                          mu=[m.clone() for m in state.opt_state.mu], tokens=tokens[-1]))
+    first = local_block(CodeBatch(*spec["batches"][0]), dp.dp_index, dp.dp_size)
     budget = tr.packed_rows_budget(np.asarray(first.attention_mask),
                                    cfg.train.packed_row_len, dp)
     # the k-means init over the ranks' blocks of the first batch, from the
@@ -179,7 +191,98 @@ def task_cli(dp, spec: dict) -> dict:
         "best_val", "test", "num_class")}, **seen)
 
 
-TASKS = {"train": task_train, "ehr": task_ehr, "cli": task_cli}
+def task_tp_sweep(world, spec: dict) -> dict:
+    """``ops.vq.distance_topk_tp`` on each mesh of ``spec["tps"]`` laid over
+    the world, for each case (z_n, e_n, k, region): values and global ids;
+    then ``soft_topk_quantize`` of each case through the tp route (its
+    region by name) and its gradients."""
+    from medtok_tpu_torch.ops import vq
+    from medtok_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for tp in spec["tps"]:
+        mesh = make_mesh(world, -1, tp)
+        sweeps = []
+        for z, e, k, region in spec["cases"]:
+            v, i = vq.distance_topk_tp(torch.from_numpy(z), torch.from_numpy(e), k, mesh,
+                                       region=region)
+            sweeps.append((v.numpy(), i.numpy()))
+        quantized = []
+        for z, e, k, name in spec["quantize"]:
+            zt = torch.from_numpy(z).requires_grad_()
+            et = torch.from_numpy(e).requires_grad_()
+            q = vq.soft_topk_quantize(zt, et, k=k, train=True, region=name, mesh=mesh)
+            (q.z_q_raw.square().sum() + q.vq_loss + q.commit_loss).backward()
+            quantized.append(dict(indices=q.indices.numpy(), weights=q.weights.detach().numpy(),
+                                  z_q=q.z_q.detach().numpy(), dz=zt.grad.numpy(),
+                                  de=et.grad.numpy()))
+        out[tp] = dict(sweeps=sweeps, quantize=quantized, tp_index=mesh.tp_index)
+    return out
+
+
+def task_tp_qa(world, spec: dict) -> dict:
+    """QA finetuning (``QAFinetuner.fit``) on each mesh of ``spec["meshes"]``
+    laid over the world, from a one-device state (the LLM state_dict and
+    the projector, by LoRA targets): the losses, every trainable tensor gathered to the
+    one-device layout, the replicated ones as this rank holds them, and
+    the greedy tokens of ``generate`` on the spec's prompts."""
+    from medtok_tpu_torch.parallel.mesh import make_mesh
+    from medtok_tpu_torch.qa import finetune
+    from medtok_tpu_torch.qa.llama import TINY_LLAMA, generate
+    from medtok_tpu_torch.qa.sharding import gather_param
+
+    out = {}
+    for (dp_size, tp), cfg_kw in spec["meshes"]:
+        mesh = make_mesh(world, dp_size, tp)
+        cfg = finetune.QAFinetuneConfig(**cfg_kw, mesh_dp=dp_size, mesh_tp=tp)
+        ft = finetune.QAFinetuner(TINY_LLAMA, spec["table"], cfg, dp=mesh)
+        targets = cfg_kw.get("lora_targets", ("q_proj", "v_proj"))
+        ft.init_params(spec["llm"][targets])
+        ft.soft_prompt.projector.load_state_dict(spec["projector"][targets])
+        losses: list[float] = []
+        ft.fit(spec["rows"], log_fn=lambda s, loss: losses.append(loss))
+        trained = {n: gather_param(n.removeprefix("llm."), p.detach(), ft.model.mesh,
+                                   ft.llm_cfg)
+                   for n, p in ft.named_parameters() if p.requires_grad}
+        replicated = {n: p.detach().clone() for n, p in ft.named_parameters()
+                      if p.requires_grad and (not n.startswith("llm.") or
+                                              trained[n].shape == p.shape)}
+        embeds, mask = (torch.from_numpy(a) for a in spec["prompt"])
+        toks = generate(ft.model, embeds, mask, max_new_tokens=spec["new_tokens"],
+                        temperature=0.0, device="cpu")
+        out[(dp_size, tp)] = dict(losses=losses, trained=trained, replicated=replicated,
+                                  tokens=toks)
+    return out
+
+
+def task_tp_cli(world, spec: dict) -> dict:
+    """``cli.train`` on the spec's mesh to step 2, resumed with --workdir to
+    step 3 (each rank's state as it saved each step), then ``cli.qa
+    finetune`` (its losses) and ``cli.qa eval`` (its predictions), each on
+    its argv's mesh."""
+    from medtok_tpu_torch.cli import qa as qa_cli
+    from medtok_tpu_torch.cli import train as train_cli
+    from medtok_tpu_torch.train.trainer import Trainer
+
+    seen: dict = {}
+    save = Trainer.save
+
+    def spy_save(self, state):
+        seen[state.step] = {**snapshot(self.model), "generator": state.generator.get_state(),
+                            "mu": [m.clone() for m in state.opt_state.mu]}
+        return save(self, state)
+
+    Trainer.save = spy_save
+    workdir = train_cli.main([*spec["argv"], "--max-steps", "2"])
+    again = train_cli.main([*spec["argv"], "--workdir", str(workdir), "--max-steps", "3"])
+    qa = qa_cli.main(spec["qa_argv"])
+    qa_eval = qa_cli.main(spec["qa_eval_argv"])
+    return dict(workdir=str(workdir), again=str(again), saved=seen, qa_losses=qa["losses"],
+                qa_eval=qa_eval)
+
+
+TASKS = {"train": task_train, "ehr": task_ehr, "cli": task_cli, "tp_sweep": task_tp_sweep,
+         "tp_qa": task_tp_qa, "tp_cli": task_tp_cli}
 
 
 def main(argv: list[str]) -> None:
@@ -192,8 +295,9 @@ def main(argv: list[str]) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=int(rank),
                             world_size=int(world),
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    dp = initialize_distributed("cpu")
-    result = TASKS[task](dp, pickle.loads(Path(spec_path).read_bytes()))
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    dp = initialize_distributed("cpu", tp=spec.get("tp", 1))
+    result = TASKS[task](dp, spec)
     Path(out).write_bytes(pickle.dumps(result))
     dp.barrier()
     dist.destroy_process_group()
