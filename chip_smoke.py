@@ -89,7 +89,12 @@ Phases, each fatal on failure:
      library call and its bound;
  14. the model-level witnesses: EHRTrainer(EHRTrainConfig(num_heads=2))
      (head width 32) trains two steps on the card with 4 launches of each
-     K3 kernel a step, and an fp32 export at the verify recipe's widths
+     K3 kernel a step; the flags that reach the bf16 wide routes:
+     EHRTrainer at input_dim = output_dim = 640, 2 heads (head width 320)
+     trains two steps, 4 launches of each K3 wide kernel a step, and a
+     packed export of 256 codes with the text encoder at 2 heads of the 768
+     width (head width 384) launches K2's wide kernel 12 times, finite
+     outputs; and an fp32 export at the verify recipe's widths
      (text hidden 32 / 4 heads, codebook 90 x 16) on the card is held to
      the plain versions on the CPU by phase 5's tie-gap rule;
  15. train the tokenizer at ModelConfig() width through Trainer.fit with
@@ -2117,6 +2122,153 @@ def check_ehr_heads(table, ehr: dict, dev, n: int = 32) -> None:
     check(all(map(np.isfinite, losses)), f"EHR num_heads=2: losses {losses}")
     log(f"EHR num_heads=2 (head width {cfg.input_dim // cfg.num_heads}): two train "
         f"steps on {n} samples, losses {losses}, K3 launches {counts}")
+
+
+@contextlib.contextmanager
+def wide_inputs_of_path():
+    """Keeps a copy of the inputs of the first bf16 launch of K2's wide
+    kernel ("K2": q, k, v, seg_ids, sm_scale) and of K3's wide forward
+    ("K3": q, k, v, key_mask and the keywords) while the block runs, by
+    wrapping the wrappers' launch helpers; the launches and their counts
+    are the path's own."""
+    import torch
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    seen = {}
+    segment_wide, k3_launch = fa._segment_wide, fa._k3_launch
+
+    def segment_kept(nt, q, k, v, seg_ids, heads, sm_scale):
+        if q.dtype == torch.bfloat16 and not nt and "K2" not in seen:
+            seen["K2"] = (*(t.clone() for t in (q, k, v, seg_ids)), sm_scale)
+        return segment_wide(nt, q, k, v, seg_ids, heads, sm_scale)
+
+    def k3_kept(entry, q, k, tensors, sm_scale, dropout_rate, dropout_seed, extra=()):
+        if entry == "medtok_flash_fwd_wide_mma" and "K3" not in seen:
+            seed = dropout_seed.clone() if torch.is_tensor(dropout_seed) else dropout_seed
+            seen["K3"] = (*(t.clone() for t in tensors[:4]),
+                          dict(sm_scale=sm_scale, dropout_rate=dropout_rate, dropout_seed=seed))
+        return k3_launch(entry, q, k, tensors, sm_scale, dropout_rate, dropout_seed, extra)
+
+    fa._segment_wide, fa._k3_launch = segment_kept, k3_kept
+    try:
+        yield seen
+    finally:
+        fa._segment_wide, fa._k3_launch = segment_wide, k3_launch
+
+
+def hold_k2_wide_path(q, k, v, seg, sm_scale: float) -> dict:
+    """K2's wide kernel against its plain version on the export path's own
+    bf16 inputs (Bf16Tally's rule, padding rows 0), and K4 bit for bit K2
+    on the transposed inputs."""
+    import torch
+
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    out = fa.packed_segment_attention(q, k, v, seg, sm_scale=sm_scale)
+    tally = Bf16Tally()
+    plain = fa.packed_segment_attention_reference
+    tally.add(out, plain(q, k, v, seg, sm_scale=sm_scale),
+              plain(q.float(), k.float(), v.float().abs(), seg, sm_scale=sm_scale))
+    res = tally.check(f"K2 wide on the export path {list(q.shape)}")
+    pad = (seg == 0)[:, None, :].expand(q.shape[:3])
+    check(bool((out[pad] == 0).all()), "K2 wide on the export path: a padding row is not 0")
+    qt, kt, vt = heads_first(q, k, v)  # [B, H, L, Dh] <-> [B, L, H, Dh]: the same swap
+    out_nt = fa.packed_segment_attention_nt(qt, kt, vt, seg, sm_scale=sm_scale)
+    check(torch.equal(out_nt.transpose(1, 2), out),
+          "K4 wide on the export path's inputs is not bit for bit K2")
+    log(f"K2 wide on the export path's inputs q {list(q.shape)} bf16, "
+        f"{float((seg > 0).float().mean()):.3f} of the tokens valid: vs the bf16 plain version "
+        f"{100 * res['share']:.4f}% differ (max abs {res['max_abs']:.3e}, "
+        f"{res['beyond_ulp']} beyond one ulp of the value), 0 beyond the tolerance; padding "
+        f"rows 0; K4 on the transposed inputs bit for bit K2")
+    return res
+
+
+def check_wide_paths(table, ehr: dict, dataset, dev, gen, n: int = 16) -> dict:
+    """The entry points' flags that reach the bf16 wide routes, on the
+    card: EHRTrainer at head width 320 (EHRTrainConfig(input_dim=640,
+    output_dim=640, num_heads=2), what cli.ehr --input-dim 640 --output-dim
+    640 --num-heads 2 builds; K3 gets bf16 under "default") trains two steps
+    on n samples of an eval batch, each layer launching K3's wide forward
+    (on the tensor cores), dq and dkv once a step, finite losses; and one
+    packed export step of 256 codes at ModelConfig() with the text encoder
+    at 2 heads of the 768 width (head width 384, what cli.train --text-heads
+    2 sets) launches K2's wide kernel once a BERT layer, finite outputs.
+    Then each kernel is held to its plain version on the first inputs the
+    path gave it (wide_inputs_of_path): K3 by check_k3_bf16, K2 by
+    hold_k2_wide_path. Returns each wide route's launches by path."""
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.config import ModelConfig, TextEncoderConfig
+    from medtok_tpu_torch.data.dataset import MedCodeDataset
+    from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer
+    from medtok_tpu_torch.export import export_all_packed, export_groups
+    from medtok_tpu_torch.models.layers import init_random_
+    from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+    from medtok_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(EHRTrainConfig(), input_dim=640, output_dim=640, num_heads=2)
+    trainer = EHRTrainer(cfg, table, 2, device=dev)
+    check(trainer.use_flash, "EHR head width 320: K3 was not picked on the card")
+    first = ehr["eval"][0]
+    batch = type(first)(*(x[:n] for x in first))
+    k3 = {"fwd": fa.flash_attention_fwd, "dq": fa.flash_attention_dq,
+          "dkv": fa.flash_attention_dkv}
+    for f in k3.values():
+        f.launches = f.wide_launches = 0
+    with wide_inputs_of_path() as seen:
+        losses = [float(trainer.train_step(batch)[0]) for _ in range(2)]
+        torch.cuda.synchronize()
+    ehr_wide = {key: f.wide_launches for key, f in k3.items()}
+    want = dict.fromkeys(k3, 2 * cfg.num_layers)
+    check(ehr_wide == want and not any(f.launches for f in k3.values()),
+          f"EHR head width 320: K3 wide launches {ehr_wide} != {want}")
+    check(all(map(np.isfinite, losses)), f"EHR head width 320: losses {losses}")
+    log(f"wide path: EHRTrainer input_dim = output_dim = 640, 2 heads (head width 320): "
+        f"two train steps on {n} samples, losses {losses}, K3 wide launches {ehr_wide}")
+    del trainer
+    q, k, v, mask, kw = seen.pop("K3")
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    check(q.dtype == torch.bfloat16 and q.shape[2:] == (mask.shape[1], 320),
+          f"EHR head width 320: K3's wide forward got q {q.dtype} {list(q.shape)}")
+    check_k3_bf16(q, k, v, do, mask, kw, "wide, on the EHR path's inputs")
+    del q, k, v, mask, do
+
+    codes = 256
+    sub = MedCodeDataset(dataset.kg, dataset.med_codes[:codes], dataset.descs[:codes],
+                         dataset.pkg_index_lists[:codes], dataset.tokenizer, cfg=dataset.cfg)
+    mcfg = ModelConfig(text=TextEncoderConfig(num_heads=2))
+    model = init_random_(MultimodalTokenizer(mcfg, device=dev), gen).eval()
+    seg = fa.packed_segment_attention
+    seg.launches = seg.wide_launches = 0
+    with wide_inputs_of_path() as seen:
+        arrays = export_all_packed(model, sub, device=dev)
+        torch.cuda.synchronize()
+    steps = len(export_groups(sub))
+    want_k2 = mcfg.text.num_layers * steps
+    check(steps == 1 and seg.wide_launches == want_k2 and seg.launches == 0,
+          f"export at text heads 2: {steps} steps, K2 wide launches {seg.wide_launches} "
+          f"(want {want_k2}), narrow {seg.launches}")
+    emb, w = arrays["embeddings_all"], arrays["weights_all"]
+    check(emb.shape == (codes, 256) and bool(np.isfinite(emb).all() and np.isfinite(w).all()),
+          f"export at text heads 2: embeddings {emb.shape}, non-finite outputs")
+    log(f"wide path: packed export of {codes} codes in {steps} step at ModelConfig() with "
+        f"{mcfg.text.num_heads} text heads of the {mcfg.text.hidden_size} width (head width "
+        f"{mcfg.text.hidden_size // mcfg.text.num_heads}): K2 wide launches "
+        f"{seg.wide_launches}, {mcfg.compute_dtype}, outputs finite")
+    del model
+    q, k, v, seg_ids, sm_scale = seen.pop("K2")
+    check(q.dtype == torch.bfloat16 and q.shape[1:] == (2, seg_ids.shape[1], 384),
+          f"export at text heads 2: K2's wide kernel got q {q.dtype} {list(q.shape)}")
+    hold_k2_wide_path(q, k, v, seg_ids, sm_scale)
+    log(f"wide paths: {time.perf_counter() - t0:.2f} s for both, their kernels held included")
+    return {"segment_attention_wide": {"export, text 768 / 2 heads (phase 14)":
+                                       seg.wide_launches},
+            **{f"flash_attention_{key}_wide": {"EHRTrainer 640 / 2 heads (phase 14)": c}
+               for key, c in ehr_wide.items()}}
 
 
 def check_small_export(dataset, dev, gen) -> None:
@@ -5208,6 +5360,7 @@ def main(argv=None) -> int:
     check_ehr_reference(trainer, ehr, dev)
     del trainer
     check_ehr_heads(table, ehr, dev)
+    wide_paths = check_wide_paths(table, ehr, dataset, dev, gen)
     check_small_export(dataset, dev, gen)
     slice3 = run_slice3()
     train_launches = run_training(dataset, dataset_np, dev, gen)
@@ -5268,6 +5421,9 @@ def main(argv=None) -> int:
                                        dp["ehr"]["counts"][key],
                                    "EHRTrainer, a gloo rank of 2 (phase 21 d)":
                                        dp["ranks"]["k3"][key]}
+    for row in wide:
+        if row["name"] in wide_paths:
+            row["launches_by_path"] = wide_paths[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     log(card)

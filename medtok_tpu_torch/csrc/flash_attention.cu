@@ -962,15 +962,51 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------ K3, wide route ----
-// Head widths above 256 (wide.cuh), both dtypes, with the plain versions'
-// rounding points. fwd and dq: one block of WT threads per (b*h, WQ
-// queries); dkv: one per (b*h, WT keys), thread t scoring key t.
-//   fwd: keys in blocks of KB = 512 (the TPU kernel's block_k), each scored
-//       by four tile_dots of WT keys; per block the rows' maximum, the
-//       running maximum m and alpha, p = exp(s - m) on valid keys, l = l *
-//       alpha + sum p (unrounded), then p times the keep scale, rounded to
-//       T, into acc = acc * alpha + p V. A block with no valid key changes
-//       nothing and is skipped. lse = m + log l.
+// Head widths above 256 (wide.cuh), with the plain versions' rounding
+// points.
+//   fwd, bf16 (flash_fwd_wide_mma_kernel), on the tensor cores with wgmma.
+//       A block owns MR = 128 queries of one b*h and one slice of NV x 64
+//       output columns (the wrapper's plan: ceil(Dh / 256) slices of 192
+//       or 256 columns, NV 3 or 4); its
+//       blocks are numbered slice fastest, then query tile, then b*h. It is
+//       warp-specialized as K2's wide kernel is: two consumer warpgroups
+//       (64 queries each, X_REGS_CONSUMER registers a thread) multiply, a
+//       producer warpgroup (X_REGS_PRODUCER) starts every copy, XST_FWD stages ahead, handed over
+//       by `full` / `empty` mbarriers. Q's 64-column chunks are staged once
+//       and stay in shared memory where they fit (q_resident: Dh up to about
+//       640), else come again in each stage beside K's. The keys come in
+//       tiles of MT = 64 and blocks of KB = 512, walked twice as
+//       flash_fwd_mma_kernel walks them (tiles with no valid key are never
+//       staged): a (tile, pass) is ceil(Dh / 64) score steps, a wgmma
+//       m64n64k16 per 16 columns with Q and K both read from shared memory,
+//       summing S = Q K^T for the warpgroup's rows over the whole width
+//       (32 registers a thread), the previous step's products left running
+//       while the next stage is awaited. Pass 0 takes the key block's
+//       maximum of s * c (c = sm_scale log2 e) over the valid keys; when
+//       the block's pass 0 ends, the running maximum m2 moves to it across
+//       the quad and O and l are rescaled once. Pass 1 recomputes S (the
+//       tensor cores give the same bits), takes p = 2^(s c - m2), adds the
+//       unrounded p to l, applies the hashed keep factor and 1 / (1 - rate)
+//       per element, and rounds p~ to bf16 as the A fragments of P V (0 on
+//       a 16-key group with no valid key, so every wgmma runs
+//       unconditionally); the slice's V steps follow, each a wgmma
+//       m64n64k16 per 16 keys into its 32 registers of O. That is the TPU's
+//       p.astype(v.dtype) against the running maximum after each 512-key
+//       block. At the end O / l is staged through shared memory and stored;
+//       the blocks of slice 0 write lse = m2 ln 2 + ln l (-1e30 and an
+//       output of 0 for a row with no valid key).
+//   fwd, fp32 (flash_fwd_wide_kernel<float>), on the CUDA cores: one block
+//       of WT threads per (b*h, WQ queries); keys in blocks of KB = 512,
+//       each scored by four tile_dots of WT keys; per block the rows'
+//       maximum, the running maximum m and alpha, p = exp(s - m) on valid
+//       keys, l = l * alpha + sum p, then p times the keep scale into acc =
+//       acc * alpha + p V. A block with no valid key changes nothing and is
+//       skipped. lse = m + log l. The fp32 checks hold it to 1e-5, which no
+//       bf16 or TF32 product meets, so it stays on the CUDA cores as the
+//       main fp32 route does.
+//   dq and dkv, both dtypes, on the CUDA cores. dq: one block of WT
+//       threads per (b*h, WQ queries); dkv: one per (b*h, WT keys), thread t
+//       scoring key t.
 //   dq: key tiles of WT: s = q.k and t = dO.v by tile_dots, a = exp(s *
 //       sm_scale - lse), ds = a (keep t - D) rounded to T, acc += ds K; a
 //       tile with no valid key is skipped; dq = sm_scale acc.
@@ -994,6 +1030,305 @@ __device__ __forceinline__ float keep_factor(const Params& P, uint32_t seed_term
   if (P.rate <= 0.f) return 1.f;
   return hash_bits((uint32_t)i * ROW_MUL, (uint32_t)j * COL_MUL, seed_term) >= P.threshold
              ? keep_scale : 0.f;
+}
+
+constexpr int XST_FWD = 4;  // pipeline stages of the bf16 wide forward
+constexpr int XNV_FWD = 4;  // chunks of its output slice: 3 or 4
+constexpr int FWD_THREADS = X_THREADS;  // two consumer warpgroups and a producer warpgroup
+constexpr int FWD_QCHUNK = MR * XC * 2;  // bytes of Q's staged chunk
+constexpr int FWD_KCHUNK = MT * XC * 2;  // bytes of a K or V chunk
+
+// dynamic shared memory of the bf16 wide forward: Q's resident chunks (or
+// room for one in each stage), the stages, their mbarriers and the
+// key-mask bits, or the output tile if larger
+__host__ __device__ constexpr size_t fwd_wide_smem(int Dh, int nv, bool q_resident, int Lk) {
+  const size_t chunks = (size_t)(Dh + XC - 1) / XC;
+  const size_t layout = (q_resident ? chunks * FWD_QCHUNK + (size_t)XST_FWD * FWD_KCHUNK
+                                    : (size_t)XST_FWD * (FWD_QCHUNK + FWD_KCHUNK)) +
+                        16 * XST_FWD + (size_t)((Lk + 31) / 32) * 4;
+  const size_t out_tile = (size_t)MR * (nv * XC + 8) * 2;
+  return layout > out_tile ? layout : out_tile;
+}
+
+template <int NV, bool kDrop>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                          bf16* __restrict__ out, float* __restrict__ lse, int Dh, int slices,
+                          int q_resident, Params P) {
+  constexpr int TPB = KB / MT;  // tiles per key block
+  const int nc = (Dh + XC - 1) / XC;  // score chunks
+  // a stage: [Q's chunk unless resident,] K's or V's chunk
+  const int stage_bytes = q_resident ? FWD_KCHUNK : FWD_QCHUNK + FWD_KCHUNK;
+  extern __shared__ __align__(1024) uint8_t wide_smem[];
+  uint8_t* q_res = wide_smem;  // resident: [nc][FWD_QCHUNK]
+  uint8_t* ring = q_res + (q_resident ? nc * FWD_QCHUNK : 0);  // [XST_FWD][stage_bytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + XST_FWD * stage_bytes);  // [XST_FWD]
+  uint64_t* empty = full + XST_FWD;                                               // [XST_FWD]
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(empty + XST_FWD);
+
+  const int n_qt = (P.Lq + MR - 1) / MR;
+  const int slice = blockIdx.x % slices;
+  const int qt = (blockIdx.x / slices) % n_qt;
+  const int bh = blockIdx.x / slices / n_qt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warpgroup_index();  // 0, 1: rows 64 wg .. 64 wg + 63; 2: the producer
+  const int qb = qt * MR;            // the block's first query
+  const int q0 = qb + warp * 16;     // a consumer warp's first query
+  const int n0 = slice * NV * XC;    // the slice's first column
+  const int nv = min(NV, (Dh - n0 + XC - 1) / XC);  // its chunks with a column < Dh
+  const int elems = copy_elems(Dh);
+  const int n_words = (P.Lk + 31) / 32;
+  const int n_tiles = (P.Lk + MT - 1) / MT;
+  const bf16* q_tile = q + ((size_t)bh * P.Lq + qb) * Dh;
+  const bf16* kb = k + (size_t)bh * P.Lk * Dh;
+  const bf16* vb = v + (size_t)bh * P.Lk * Dh;
+  if (wg < 2) load_key_bits(mask + (size_t)(bh / P.H) * P.Lk, P.Lk, n_words, kbits);
+  if (smem_u32(wide_smem) % X_ROWS8) __trap();  // the swizzle needs 1024-byte chunks
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < XST_FWD; ++i) {
+      mbar_init(&full[i], 128);   // the producer's threads, once their copies land
+      mbar_init(&empty[i], 256);  // every consumer thread
+    }
+  }
+  if (q_resident) {  // every thread copies a share, landed before the loop
+    for (int c = 0; c < nc; ++c)
+      stage_chunk(reinterpret_cast<bf16*>(q_res + c * FWD_QCHUNK), q_tile, Dh, MR, P.Lq - qb,
+                  c * XC, Dh, elems, threadIdx.x, FWD_THREADS);
+    cp_async_wait_all();
+    fence_async_smem();
+  }
+  __syncthreads();  // kbits, the mbarriers and a resident Q are complete
+
+  auto word = [&](int w) { return w < n_words ? kbits[w] : 0u; };
+  auto next_tile = [&](int tile) {  // the first tile from `tile` with a valid key
+    while (tile < n_tiles && (word(2 * tile) | word(2 * tile + 1)) == 0u) ++tile;
+    return tile;
+  };
+  auto group_bits = [&](int tile, int grp) {  // valid keys of a 16-key group
+    return (word(2 * tile + (grp >> 1)) >> (16 * (grp & 1))) & 0xFFFFu;
+  };
+  // (tile, pass) after (tile, pass): the next tile of the same key block
+  // and pass with a valid key; after a block's pass 0 its first such tile
+  // in pass 1; after its pass 1 the first tile of a later block with one
+  // (flash_fwd_mma_kernel's order). A (tile, pass) is nc steps of score
+  // chunks (Q's and K's), and in pass 1 then nv steps of V's chunks.
+  auto advance = [&](int& tile, int& pass) {
+    const int block0 = tile / TPB * TPB;
+    const int nt = next_tile(tile + 1);
+    if (nt < min(block0 + TPB, n_tiles)) {
+      tile = nt;
+    } else if (pass == 0) {
+      tile = next_tile(block0);
+      pass = 1;
+    } else {
+      tile = nt;
+      pass = 0;
+    }
+  };
+
+  if (wg == 2) {
+    // the producer: every step's copies, XST_FWD stages ahead at most
+    regs_dec<X_REGS_PRODUCER>();
+    const int tid = threadIdx.x - 256;
+    int it = 0;
+    for (int tile = next_tile(0), pass = 0; tile < n_tiles; advance(tile, pass)) {
+      const int r0 = tile * MT;
+      for (int c = 0; c < (pass ? nc + nv : nc); ++c, ++it) {
+        const int slot = it % XST_FWD;
+        if (it >= XST_FWD) mbar_wait(&empty[slot], ((it / XST_FWD) - 1) & 1);
+        uint8_t* st = ring + slot * stage_bytes;
+        bf16* kv = reinterpret_cast<bf16*>(st + (q_resident ? 0 : FWD_QCHUNK));
+        if (c < nc) {
+          if (!q_resident)
+            stage_chunk(reinterpret_cast<bf16*>(st), q_tile, Dh, MR, P.Lq - qb, c * XC, Dh,
+                        elems, tid, 128);
+          stage_chunk(kv, kb + (size_t)r0 * Dh, Dh, MT, P.Lk - r0, c * XC, Dh, elems,
+                      tid, 128);
+        } else {
+          stage_chunk(kv, vb + (size_t)r0 * Dh, Dh, MT, P.Lk - r0, n0 + (c - nc) * XC, Dh,
+                      elems, tid, 128);
+        }
+        if (elems == 1)  // plain stores: released by the arrive itself
+          mbar_arrive(&full[slot]);
+        else
+          mbar_arrive_copies(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  regs_inc<X_REGS_CONSUMER>();
+  const float cs = P.sm_scale * LOG2E;
+  const float keep_scale = kDrop ? 1.f / (1.f - P.rate) : 1.f;
+  const uint32_t seed_term = seed_term_of(P, bh);
+  uint32_t rs[2];  // row term ^ seed term of rows g, g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rs[r] = (uint32_t)(q0 + g + 8 * r) * ROW_MUL ^ seed_term;
+  // per row g, g + 8: the running maximum of s * c, this key block's
+  // maximum (pass 0) and this thread's share of l (its columns)
+  float m2[2] = {MASKED, MASKED}, mx[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
+  float o[NV][32];  // the slice of O, 32 registers (C fragments) a chunk
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[x][e] = 0.f;
+  int got = 0, done = 0;  // steps acquired, steps released
+  // the next step's stage, once the producer's copies into it have landed
+  auto acquire = [&]() {
+    mbar_wait(&full[got % XST_FWD], (got / XST_FWD) & 1);
+    fence_async_smem();
+    return ring + (got++ % XST_FWD) * stage_bytes;
+  };
+  // the oldest unreleased stage, once the wgmma reading it have completed
+  auto release = [&]() { mbar_arrive(&empty[done++ % XST_FWD]); };
+
+  for (int tile = next_tile(0), pass = 0; tile < n_tiles;) {
+    // S = Q K^T of the tile for the warpgroup's 64 rows, over the width;
+    // the first product starts the sum
+    float s[32];
+    for (int c = 0; c < nc; ++c) {
+      const uint8_t* st = acquire();
+      const uint8_t* qc = (q_resident ? q_res + c * FWD_QCHUNK : st) + sw_off(64 * wg, 0);
+      const uint8_t* kc = st + (q_resident ? 0 : FWD_QCHUNK);
+      const int ks = live_steps(Dh, c * XC);
+      if (c > 0) wg_hold(s);
+      wg_fence();
+      if (ks == XC / 16) {  // a whole chunk: the four k-steps unconditionally
+#pragma unroll
+        for (int kk = 0; kk < XC / 16; ++kk)
+          wg_ss_n64(s, wg_desc(qc + kk * 32), wg_desc(kc + kk * 32), c > 0 || kk > 0);
+      } else {
+        for (int kk = 0; kk < ks; ++kk)
+          wg_ss_n64(s, wg_desc(qc + kk * 32), wg_desc(kc + kk * 32), c > 0 || kk > 0);
+      }
+      wg_commit();
+      if (c > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_prev();
+        release();
+      }
+    }
+    wg_wait_all();
+    wg_hold(s);
+    release();
+    uint32_t pa[MT / 16][4];  // P's A fragments, one per 16-key group
+#pragma unroll
+    for (int grp = 0; grp < MT / 16; ++grp) {
+      const uint32_t gb = group_bits(tile, grp);
+      pa[grp][0] = pa[grp][1] = pa[grp][2] = pa[grp][3] = 0u;  // P = 0 on a group of no key
+      if (gb == 0u) continue;  // uniform over the block
+      const bool full_group = gb == 0xFFFFu;
+      if (pass == 0) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (full_group || ((gb >> (8 * (e >> 2) + 2 * t + (e & 1))) & 1u))
+            mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[8 * grp + e] * cs);
+        continue;
+      }
+      const int j0 = tile * MT + grp * 16 + 2 * t;  // columns j0 + {0, 1, 8, 9}
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = (e >> 1) & 1;
+        float pv = ex2(fmaf(s[8 * grp + e], cs, -m2[r]));
+        if (!full_group && !((gb >> (8 * (e >> 2) + 2 * t + (e & 1))) & 1u)) pv = 0.f;
+        l[r] += pv;
+        if (kDrop) {
+          const uint32_t ct = (uint32_t)(j0 + 8 * (e >> 2) + (e & 1)) * COL_MUL;
+          pv = hash_rounds(rs[r] ^ ct) >= P.threshold ? pv * keep_scale : 0.f;
+        }
+        p[e] = pv;
+      }
+      pa[grp][0] = pack_bf16(p[0], p[1]);
+      pa[grp][1] = pack_bf16(p[2], p[3]);
+      pa[grp][2] = pack_bf16(p[4], p[5]);
+      pa[grp][3] = pack_bf16(p[6], p[7]);
+    }
+    if (pass == 1) {  // O += P V over the slice's chunks of V
+#pragma unroll
+      for (int x = 0; x < NV; ++x) {
+        if (x >= nv) break;
+        const uint8_t* vc = acquire() + (q_resident ? 0 : FWD_QCHUNK);
+        wg_hold(o[x]);
+#pragma unroll
+        for (int grp = 0; grp < MT / 16; ++grp) wg_hold(pa[grp]);
+        wg_fence();
+#pragma unroll
+        for (int grp = 0; grp < MT / 16; ++grp)
+          wg_rs_n64_t(o[x], pa[grp], wg_desc(vc + sw_off(grp * 16, 0)));
+        wg_commit();
+        if (x > 0) {  // the previous chunk's products are done: free its stage
+          wg_wait_prev();
+          release();
+        }
+      }
+      wg_wait_all();
+#pragma unroll
+      for (int x = 0; x < NV; ++x) wg_hold(o[x]);
+#pragma unroll
+      for (int grp = 0; grp < MT / 16; ++grp) wg_hold(pa[grp]);
+      release();
+    }
+    const int was = pass;
+    advance(tile, pass);
+    if (was == 0 && pass == 1) {
+      // the key block's maximum is complete: take it across the quad that
+      // holds a row, move the running maximum and rescale once
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
+        const float m_next = fmaxf(m2[r], mx[r]);
+        const float alpha = ex2(m2[r] - m_next);
+        l[r] *= alpha;
+#pragma unroll
+        for (int x = 0; x < NV; ++x)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            o[x][4 * j + 2 * r] *= alpha;
+            o[x][4 * j + 2 * r + 1] *= alpha;
+          }
+        m2[r] = m_next;
+        mx[r] = MASKED;
+      }
+    }
+  }
+
+  // l over the quad; O / l (0 for a row with no valid key) staged as bf16
+  // in shared memory, then stored row by row; lse from slice 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL_MASK, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL_MASK, l[r], 2);
+  }
+  constexpr int OLD = NV * XC + 8;
+  bf16* o_s = reinterpret_cast<bf16*>(wide_smem);  // [MR][OLD]
+  consumers_sync();  // both warpgroups are done with Q and the stages
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float lr = l[r];
+        const float x0 = lr > 0.f ? o[x][4 * j + 2 * r] / lr : 0.f;
+        const float x1 = lr > 0.f ? o[x][4 * j + 2 * r + 1] / lr : 0.f;
+        *reinterpret_cast<uint32_t*>(o_s + (warp * 16 + g + 8 * r) * OLD + x * XC + 8 * j +
+                                     2 * t) = pack_bf16(x0, x1);
+      }
+  consumers_sync();
+  store_tile(out + ((size_t)bh * P.Lq + qb) * Dh + n0, Dh, o_s, OLD, min(MR, P.Lq - qb),
+             min(NV * XC, Dh - n0), elems, 256);
+  if (slice == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + g + 8 * r;
+      if (row < P.Lq)
+        lse[(size_t)bh * P.Lq + row] = l[r] > 0.f ? m2[r] * LN2 + logf(l[r]) : MASKED;
+    }
+  }
 }
 
 template <typename T>
@@ -1392,7 +1727,8 @@ extern "C" int medtok_flash_dkv(const void* q, const void* k, const void* v,
   });
 }
 
-// The wide route of K3: any Dh >= 1 (the wrappers take it above 256), the
+// The wide route of K3: any Dh >= 1 (the wrappers take it above 256). The
+// CUDA-core kernels (fwd in fp32, dq and dkv in both dtypes) take the
 // arguments of medtok_flash_fwd / _dq / _dkv plus fp32 scratch for the sums:
 // [B*H, Lq, Dh] (fwd, dq); dkv: for each split of `gps` query groups of WG
 // (ceil(ceil(Lq / WG) / gps) splits), two [B*H, Lk, Dh] (dk's, then dv's).
@@ -1403,6 +1739,13 @@ bool bad_wide(int B, int H, int Lq, int Lk, int Dh, int rows) {
          (rows + WT - 1) / WT > 65535 || (rows + WQ - 1) / WQ > 65535;
 }
 
+// x_regs_of of one build of the bf16 wide forward, read at its first launch
+template <int NV, bool kDrop>
+int fwd_wide_regs() {
+  static const int code = x_regs_of(flash_fwd_wide_mma_kernel<NV, kDrop>);
+  return code;
+}
+
 }  // namespace
 
 extern "C" int medtok_flash_fwd_wide(const void* q, const void* k, const void* v,
@@ -1410,18 +1753,49 @@ extern "C" int medtok_flash_fwd_wide(const void* q, const void* k, const void* v
                                      int B, int H, int Lq, int Lk, int Dh, float sm_scale,
                                      float rate, unsigned threshold, const void* seed,
                                      int is_bf16, void* stream) {
-  if (bad_wide(B, H, Lq, Lk, Dh, Lq)) return (int)cudaErrorInvalidValue;
+  // fp32 only: bf16 takes medtok_flash_fwd_wide_mma
+  if (is_bf16 || bad_wide(B, H, Lq, Lk, Dh, Lq)) return (int)cudaErrorInvalidValue;
   const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * H, (Lq + WQ - 1) / WQ);
-  const uint8_t* m = in<uint8_t>(mask);
-  float* l = outp<float>(lse);
-  float* acc = outp<float>(scratch);
-  if (is_bf16)
-    return (int)launch(flash_fwd_wide_kernel<bf16>, grid, WT, 0, s, in<bf16>(q), in<bf16>(k),
-                       in<bf16>(v), m, outp<bf16>(out), l, acc, Dh, P);
   return (int)launch(flash_fwd_wide_kernel<float>, grid, WT, 0, s, in<float>(q), in<float>(k),
-                     in<float>(v), m, outp<float>(out), l, acc, Dh, P);
+                     in<float>(v), in<uint8_t>(mask), outp<float>(out), outp<float>(lse),
+                     outp<float>(scratch), Dh, P);
+}
+
+// The bf16 wide forward on the tensor cores, by the wrapper's plan:
+// `slices` slices of nv chunks of 64 output columns (nv 3 or 4; every slice
+// holds a column < Dh), Q resident in shared memory or not, `smem` bytes of
+// dynamic shared memory (at least the kernel's need, at most 232,448). The
+// other arguments as medtok_flash_fwd's; no scratch.
+extern "C" int medtok_flash_fwd_wide_mma(const void* q, const void* k, const void* v,
+                                         const void* mask, void* out, void* lse, int slices,
+                                         int nv, int q_resident, int smem, int B, int H,
+                                         int Lq, int Lk, int Dh, float sm_scale, float rate,
+                                         unsigned threshold, const void* seed, int is_bf16,
+                                         void* stream) {
+  if (!is_bf16 || bad_shape(B, H, Lq, Lk) || Dh <= 0 || nv < 3 || nv > XNV_FWD ||
+      slices < 1 || (long long)slices * nv * XC < Dh || (long long)(slices - 1) * nv * XC >= Dh ||
+      smem < (long long)fwd_wide_smem(Dh, nv, q_resident != 0, Lk) || smem > X_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * H * ((Lq + MR - 1) / MR) * slices;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)blocks);
+  // a kernel, once fwd_wide_regs has found the registers its split needs
+  auto run = [&](auto kernel, int regs) {
+    if (regs != cudaSuccess) return regs;
+    return (int)launch(kernel, grid, FWD_THREADS, (size_t)smem, s, in<bf16>(q), in<bf16>(k),
+                       in<bf16>(v), in<uint8_t>(mask), outp<bf16>(out), outp<float>(lse), Dh,
+                       slices, q_resident, P);
+  };
+  const bool drop = rate > 0.f;
+  if (nv == 3)
+    return drop ? run(flash_fwd_wide_mma_kernel<3, true>, fwd_wide_regs<3, true>())
+                : run(flash_fwd_wide_mma_kernel<3, false>, fwd_wide_regs<3, false>());
+  return drop ? run(flash_fwd_wide_mma_kernel<4, true>, fwd_wide_regs<4, true>())
+              : run(flash_fwd_wide_mma_kernel<4, false>, fwd_wide_regs<4, false>());
 }
 
 extern "C" int medtok_flash_dq_wide(const void* q, const void* k, const void* v,

@@ -454,26 +454,378 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
 }
 
 // ------------------------------------------------------------ wide route --
-// Head widths above 256 (wide.cuh). One block of WT threads per (row b,
-// head h, WQ queries), both dtypes. Keys come in blocks of KC = WT = 128,
-// one a thread: the block's scores (tile_dots; masked to MASKED where the
-// segments differ or are padding), the rows' block maximum and running
-// maximum, p = exp(s - m) on valid keys, l = l * alpha + sum p over the
-// unrounded p, then p rounded to T and acc = acc * alpha + p V into the fp32
-// scratch rows; a key block where no query of the block has a valid key
-// changes nothing and is skipped. The plain version's rounding points, in
-// the same order.
-template <typename T, bool kBLHD>
+// Head widths above 256 (wide.cuh).
+//
+// bf16 (segment_attention_wide_mma_kernel), on the tensor cores with
+// wgmma. A block owns 128 queries of one (row b, head h) and one slice of
+// XNV_SEG x 64 = 192 output columns (the wrapper's plan: ceil(Dh / 192)
+// slices; O is 96 registers a thread); its blocks are numbered slice fastest, then
+// query tile, then (b, h), so the blocks that share a head's K and V run
+// together. The block is warp-specialized: two consumer warpgroups (16
+// queries a warp) multiply, and a producer warpgroup, whose registers
+// setmaxnreg hands to the consumers (X_REGS_PRODUCER against
+// X_REGS_CONSUMER a thread), starts
+// every copy (cp.async into wgmma's 128-byte swizzle layout), XST_SEG stages ahead, each stage handed over by a `full` and an
+// `empty` mbarrier; so no consumer stalls on a copy the memory system
+// cannot take yet, and no block-wide barrier paces the loop. Keys come in
+// blocks of KC = 128. A key block none of whose nonzero segment ids falls
+// in a consumer warp's range of its queries' ones is skipped whole (the
+// consumers publish the block's 16-key groups that meet some warp's range;
+// the producer stages nothing for a block with none). Otherwise the block
+// is a pipeline of ceil(Dh / 64) score steps (64 columns of Q and of the
+// block's 128 K rows), then the slice's steps of V. Each consumer warp
+// loads its Q rows' A fragments by ldmatrix, and one wgmma m64n128k16 per
+// 16 columns sums S = Q K^T for the whole key block in registers (64 a
+// thread). The masked scores (-inf where the segments differ or are
+// padding) give each row's exact maximum over its 128 keys (quad
+// shuffles), the running maximum moves to it, O and l are rescaled once,
+// p = exp(s - m) is added to l unrounded and rounded to bf16 as the A
+// fragments of P V: the main kernel's and the plain version's rounding
+// point. Each V step adds P V (a wgmma m64n64k16 per 16-key group, V read
+// from shared memory as the transposed operand) into its 32 registers of
+// O, the previous step's products left running meanwhile. Every wgmma
+// runs unconditionally (a 16-key group skip made each product a
+// conditional m64n16k16, measured slower), so a key group that meets
+// none of a warp's queries costs products, not copies of other rows. At
+// the end O / l (0 for a row with no valid key) is staged through shared
+// memory and stored row by row in copies as wide as the layout's alignment
+// allows. K4 is the same template in its [B, L, H, Dh] stride mode, with
+// the same arithmetic in the same order, so it is bit for bit K2 on the
+// transposed inputs.
+//
+// fp32 (segment_attention_wide_kernel), on the CUDA cores: one block of WT
+// threads per (row b, head h, WQ queries). Keys come in blocks of KC = WT
+// = 128, one a thread: the block's scores (tile_dots; masked to MASKED
+// where the segments differ or are padding), the rows' block maximum and
+// running maximum, p = exp(s - m) on valid keys, l = l * alpha + sum p,
+// then acc = acc * alpha + p V into the fp32 scratch rows; a key block where
+// no query of the block has a valid key changes nothing and is skipped.
+// The fp32 checks hold the route to 1e-5, which no bf16 or TF32 product
+// meets, so it stays on the CUDA cores as the main fp32 route does.
+constexpr int XST_SEG = 4;       // pipeline stages of the bf16 kernel
+constexpr int XNV_SEG = 3;       // chunks of its output slice
+constexpr int SWQ = 128;         // queries a block: two consumer warpgroups
+constexpr int SW_THREADS = X_THREADS;  // and a producer warpgroup
+constexpr int SEG_STAGE = (SWQ + KC) * XC * 2;  // bytes a stage: Q's chunk, then K's or V's
+// past the stages: the key block's segment ids, whether it is needed (one
+// word a key-block parity), the stages' mbarriers
+constexpr int SEG_SMALL = KC * 4 + 16 + 16 * XST_SEG;
+
+// the bf16 kernel's dynamic shared memory: the stages (or the output tile
+// if larger), then SEG_SMALL
+constexpr size_t SEG_WIDE_SMEM =
+    ((size_t)XST_SEG * SEG_STAGE > (size_t)SWQ * (XNV_SEG * XC + 8) * 2
+         ? (size_t)XST_SEG * SEG_STAGE
+         : (size_t)SWQ * (XNV_SEG * XC + 8) * 2) +
+    SEG_SMALL;
+
+// all three warpgroups (id 2): the consumers have published whether a key
+// block is needed
+__device__ __forceinline__ void block_need_sync() {
+  asm volatile("bar.sync 2, 384;\n" ::: "memory");
+}
+
+template <bool kBLHD>
+__global__ void __launch_bounds__(SW_THREADS, 1)
+segment_attention_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  const int* __restrict__ seg, __nv_bfloat16* __restrict__ out,
+                                  int H, int L, int Dh, int slices, float sm_scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NV = XNV_SEG;
+  constexpr int OLD = NV * XC + 8;  // padded row of the output tile
+  constexpr size_t RING = SEG_WIDE_SMEM - SEG_SMALL;
+  extern __shared__ __align__(1024) unsigned char wide_smem[];
+  unsigned char* ring = wide_smem;  // [XST_SEG][SEG_STAGE]; at the end the output tile
+  int* kseg_s = reinterpret_cast<int*>(wide_smem + RING);        // [KC]
+  unsigned* staged = reinterpret_cast<unsigned*>(kseg_s + KC);  // [2]: block needed
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + 4);     // [XST_SEG]
+  uint64_t* empty = full + XST_SEG;                             // [XST_SEG]
+
+  const int n_qt = (L + SWQ - 1) / SWQ;
+  const int slice = blockIdx.x % slices;
+  const int qt = (blockIdx.x / slices) % n_qt;
+  const int bh = blockIdx.x / slices / n_qt;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wgi = warpgroup_index();  // 0, 1: consumers (queries 64 wgi ..); 2: the producer
+  const int qb = qt * SWQ;            // the block's first query
+  const int n0 = slice * NV * XC;     // the slice's first column
+  const int nv = min(NV, (Dh - n0 + XC - 1) / XC);  // its chunks with a column < Dh
+  const int nc = (Dh + XC - 1) / XC;  // score chunks
+  const int elems = copy_elems(Dh);
+  const size_t row_stride = kBLHD ? (size_t)H * Dh : (size_t)Dh;
+  const size_t head_stride = kBLHD ? (size_t)Dh : (size_t)L * Dh;
+  const size_t base = (size_t)b * L * H * Dh + (size_t)h * head_stride;
+  const int* seg_row = seg + (size_t)b * L;
+  const bf16* q_tile = q + base + (size_t)qb * row_stride;
+  if (smem_u32(wide_smem) % X_ROWS8) __trap();  // the swizzle needs 1024-byte chunks
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < XST_SEG; ++i) {
+      mbar_init(&full[i], 128);   // the producer's threads, once their copies land
+      mbar_init(&empty[i], 256);  // every consumer thread
+    }
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // the producer: each key block's steps (step i < nc: Q's and K's chunk
+    // i; step nc + x: the slice's V chunk x), XST_SEG stages ahead at most
+    regs_dec<X_REGS_PRODUCER>();
+    const int tid = threadIdx.x - 256;
+    int it = 0;
+    for (int c0 = 0; c0 < L; c0 += KC) {
+      block_need_sync();
+      const unsigned need = staged[(c0 / KC) & 1];
+      if (!need) continue;
+      const bf16* k_tile = k + base + (size_t)c0 * row_stride;
+      const bf16* v_tile = v + base + (size_t)c0 * row_stride;
+      for (int i = 0; i < nc + nv; ++i, ++it) {
+        const int slot = it % XST_SEG;
+        if (it >= XST_SEG) mbar_wait(&empty[slot], ((it / XST_SEG) - 1) & 1);
+        bf16* st = reinterpret_cast<bf16*>(ring + slot * SEG_STAGE);
+        if (i < nc) {
+          stage_chunk(st, q_tile, row_stride, SWQ, L - qb, i * XC, Dh, elems, tid, 128);
+          stage_chunk(st + SWQ * XC, k_tile, row_stride, KC, L - c0, i * XC, Dh, elems,
+                      tid, 128);
+        } else {
+          stage_chunk(st + SWQ * XC, v_tile, row_stride, KC, L - c0, n0 + (i - nc) * XC, Dh,
+                      elems, tid, 128);
+        }
+        if (elems == 1)  // plain stores: released by the arrive itself
+          mbar_arrive(&full[slot]);
+        else
+          mbar_arrive_copies(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warp w owns queries qb + 16 w .. qb + 16 w + 15
+  regs_inc<X_REGS_CONSUMER>();
+  const int q0 = qb + warp * 16;
+  // the segment ids of the warp's queries; the range [lo, hi] of the
+  // nonzero ones
+  const int my = (lane < 16 && q0 + lane < L) ? seg_row[q0 + lane] : 0;
+  int lo = my > 0 ? my : INT_MAX, hi = my;
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) {
+    lo = min(lo, __shfl_xor_sync(FULL, lo, x));
+    hi = max(hi, __shfl_xor_sync(FULL, hi, x));
+  }
+  const bool live = hi > 0;  // else every query is padding: the output is 0
+  const int seg_r[2] = {__shfl_sync(FULL, my, g), __shfl_sync(FULL, my, g + 8)};
+
+  float o[NV][32];  // the slice of O, 32 registers (C fragments) a chunk
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[x][e] = 0.f;
+  float m_run[2] = {MASKED, MASKED}, l_run[2] = {0.f, 0.f};
+  int got = 0, done = 0;  // steps acquired, steps released
+  // the next step's stage, once the producer's copies into it have landed
+  auto acquire = [&]() {
+    mbar_wait(&full[got % XST_SEG], (got / XST_SEG) & 1);
+    fence_async_smem();
+    return ring + (got++ % XST_SEG) * SEG_STAGE;
+  };
+  // the oldest unreleased stage, once the wgmma reading it have completed
+  auto release = [&]() { mbar_arrive(&empty[done++ % XST_SEG]); };
+
+  for (int c0 = 0; c0 < L; c0 += KC) {
+    consumers_sync();  // the previous key block's segment ids are consumed
+    for (int j = threadIdx.x; j < KC; j += 256) kseg_s[j] = c0 + j < L ? seg_row[c0 + j] : 0;
+    if (threadIdx.x == 0) staged[(c0 / KC) & 1] = 0u;
+    consumers_sync();
+
+    // groups whose nonzero segment range meets the warp's: lane handles
+    // keys 4*lane .. 4*lane+3 of group lane / 4
+    int klo = INT_MAX, khi = 0;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int s = kseg_s[4 * lane + x];
+      if (s > 0) { klo = min(klo, s); khi = max(khi, s); }
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      klo = min(klo, __shfl_xor_sync(FULL, klo, x));
+      khi = max(khi, __shfl_xor_sync(FULL, khi, x));
+    }
+    const unsigned meet = __ballot_sync(FULL, live && klo <= hi && lo <= khi);
+    if (lane == 0 && meet) atomicOr(&staged[(c0 / KC) & 1], 1u);
+    block_need_sync();
+    // the block is multiplied whole when a group meets some warp's
+    // queries; a warp's rows whose segments differ from a key's mask it
+    const unsigned need = staged[(c0 / KC) & 1];
+    if (!need) continue;  // uniform: no key of the block meets a query of it
+
+    float s[NG * 8];  // the warp's scores of the key block, 8 a 16-key group
+                      // (the first product starts the sum)
+    for (int i = 0; i < nc; ++i) {
+      const unsigned char* st = acquire();
+      const int ks = live_steps(Dh, i * XC);
+      uint32_t qa[XC / 16][4];  // the warp's Q rows of this chunk: A fragments
+#pragma unroll
+      for (int kk = 0; kk < XC / 16; ++kk)
+        if (kk < ks)
+          ldmatrix_x4(qa[kk], reinterpret_cast<const bf16*>(
+                                  st + sw_off(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8)));
+      const unsigned char* kc = st + SWQ * XC * 2;
+      if (i > 0) wg_hold(s);
+#pragma unroll
+      for (int kk = 0; kk < XC / 16; ++kk) wg_hold(qa[kk]);
+      wg_fence();
+      if (ks == XC / 16) {  // a whole chunk: the four k-steps unconditionally
+#pragma unroll
+        for (int kk = 0; kk < XC / 16; ++kk)
+          wg_rs_n128(s, qa[kk], wg_desc(kc + kk * 32), i > 0 || kk > 0);
+      } else {
+        for (int kk = 0; kk < ks; ++kk)
+          wg_rs_n128(s, qa[kk], wg_desc(kc + kk * 32), i > 0 || kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();  // qa is rewritten by the next chunk
+      wg_hold(s);
+#pragma unroll
+      for (int kk = 0; kk < XC / 16; ++kk) wg_hold(qa[kk]);
+      release();
+    }
+
+    // the key block's scores are complete: scale and mask them, take each
+    // row's block maximum, rescale, and make P
+    float mx[2] = {MASKED, MASKED};
+#pragma unroll
+    for (int grp = 0; grp < NG; ++grp) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int sr = seg_r[(e >> 1) & 1];
+        const bool valid = sr > 0 && kseg_s[grp * GK + 8 * (e >> 2) + 2 * t + (e & 1)] == sr;
+        float& sv = s[8 * grp + e];
+        sv = valid ? sv * sm_scale : -INFINITY;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sv);
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      const float m_next = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_next);
+      m_run[r] = m_next;
+    }
+    if (c0 > 0) {
+#pragma unroll
+      for (int x = 0; x < NV; ++x)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[x][e] *= alpha[(e >> 1) & 1];
+    }
+    // P = exp(S - m) in fp32 for the row sums, rounded to bf16 for P V
+    uint32_t pa[NG][4];  // P's A fragments, one per 16-key group
+#pragma unroll
+    for (int grp = 0; grp < NG; ++grp) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p[e] = expf(s[8 * grp + e] - m_run[(e >> 1) & 1]);
+        rs[(e >> 1) & 1] += p[e];
+      }
+      pa[grp][0] = pack_bf16(p[0], p[1]);
+      pa[grp][1] = pack_bf16(p[2], p[3]);
+      pa[grp][2] = pack_bf16(p[4], p[5]);
+      pa[grp][3] = pack_bf16(p[6], p[7]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(FULL, rs[r], 1);
+      rs[r] += __shfl_xor_sync(FULL, rs[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + rs[r];
+    }
+
+#pragma unroll
+    for (int x = 0; x < NV; ++x) {
+      if (x >= nv) break;
+      const unsigned char* st = acquire();
+      wg_hold(o[x]);
+#pragma unroll
+      for (int grp = 0; grp < NG; ++grp) wg_hold(pa[grp]);
+      wg_fence();
+#pragma unroll
+      for (int grp = 0; grp < NG; ++grp)
+        wg_rs_n64_t(o[x], pa[grp], wg_desc(st + SWQ * XC * 2 + sw_off(grp * GK, 0)));
+      wg_commit();
+      if (x > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_prev();
+        release();
+      }
+    }
+    wg_wait_all();
+#pragma unroll
+    for (int x = 0; x < NV; ++x) wg_hold(o[x]);
+#pragma unroll
+    for (int grp = 0; grp < NG; ++grp) wg_hold(pa[grp]);
+    if (nv > 0) release();
+  }
+
+  // O / l (0 for a row with no valid key, without a division: see the main
+  // kernel), staged as bf16 in shared memory, then stored row by row
+  bf16* o_s = reinterpret_cast<bf16*>(ring);  // [SWQ][OLD]
+  consumers_sync();  // both warpgroups are done with the stages
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x0 = 0.f, x1 = 0.f;
+        if (l_run[r] > 0.f) {
+          x0 = o[x][4 * j + 2 * r] / l_run[r];
+          x1 = o[x][4 * j + 2 * r + 1] / l_run[r];
+        }
+        *reinterpret_cast<uint32_t*>(o_s + (warp * 16 + g + 8 * r) * OLD + x * XC + 8 * j +
+                                     2 * t) = pack_bf16(x0, x1);
+      }
+  consumers_sync();
+  store_tile(out + base + (size_t)qb * row_stride + n0, row_stride, o_s, OLD,
+             min(SWQ, L - qb), min(NV * XC, Dh - n0), elems, 256);
+}
+
+template <bool kBLHD>
+int launch_wide_mma(const void* q, const void* k, const void* v, const int* seg, void* out,
+                    int B, int H, int L, int Dh, float sm_scale, int slices, int smem,
+                    cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  constexpr int width = XNV_SEG * XC;  // columns a slice
+  if (slices < 1 || (long long)slices * width < Dh || (long long)(slices - 1) * width >= Dh ||
+      smem < (long long)SEG_WIDE_SMEM || smem > X_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * H * ((L + SWQ - 1) / SWQ) * slices;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto* kernel = segment_attention_wide_mma_kernel<kBLHD>;
+  static const int regs = x_regs_of(kernel);  // once a layout
+  if (regs != cudaSuccess) return regs;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, SW_THREADS, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      seg, static_cast<bf16*>(out), H, L, Dh, slices, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool kBLHD>
 __global__ void __launch_bounds__(WT)
-segment_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, const int* __restrict__ seg,
-                              T* __restrict__ out, float* __restrict__ acc, int H, int L,
+segment_attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const int* __restrict__ seg,
+                              float* __restrict__ out, float* __restrict__ acc, int H, int L,
                               int Dh, float sm_scale) {
+  using T = float;
   __shared__ DotTiles tiles;
   __shared__ __align__(16) float p_s[WQ][WT];
   __shared__ int seg_q[WQ];
   __shared__ float m_s[WQ], l_s[WQ], alpha_s[WQ], red_s[WQ];
-
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int i0 = blockIdx.y * WQ;
@@ -524,8 +876,6 @@ segment_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_reduce<false>(&p_s[0][0], WT, nk, red_s);
     __syncthreads();
     if (t < WQ) l_s[t] = l_s[t] * alpha_s[t] + red_s[t];
-#pragma unroll
-    for (int r = 0; r < WQ; ++r) p_s[r][t] = round_to<T>(p_s[r][t]);
     __syncthreads();
     pv_update(acc_b, nq, alpha_s, &p_s[0][0], WT, v + base + j0 * row_stride, row_stride,
               nk, Dh);
@@ -540,23 +890,14 @@ segment_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <bool kBLHD>
-int launch_wide(const void* q, const void* k, const void* v, const int* seg, void* out,
-                float* acc, int B, int H, int L, int Dh, float sm_scale, int is_bf16,
-                cudaStream_t s) {
+int launch_wide(const float* q, const float* k, const float* v, const int* seg, float* out,
+                float* acc, int B, int H, int L, int Dh, float sm_scale, cudaStream_t s) {
   const long long bh = (long long)B * H;
   const int tiles = (L + WQ - 1) / WQ;
   if (bh > INT_MAX || tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)bh, (unsigned)tiles);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    segment_attention_wide_kernel<T, kBLHD><<<grid, WT, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg,
-        static_cast<T*>(out), acc, H, L, Dh, sm_scale);
-  } else {
-    segment_attention_wide_kernel<float, kBLHD><<<grid, WT, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg, static_cast<float*>(out), acc, H, L, Dh, sm_scale);
-  }
+  segment_attention_wide_kernel<kBLHD><<<grid, WT, 0, s>>>(q, k, v, seg, out, acc, H, L, Dh,
+                                                           sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -599,19 +940,39 @@ extern "C" int medtok_segment_attention_nt(const void* q, const void* k,
   return dispatch<true>(q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream);
 }
 
-// The wide route of K2 (nt = 0) or K4 (nt = 1): any Dh >= 1 (the wrapper
-// takes it above 256), q, k, v, out contiguous in their layout, scratch
-// [B*H, L, Dh] fp32 for the output sums.
+// The wide routes of K2 (nt = 0) or K4 (nt = 1): any Dh >= 1 (the wrappers
+// take them above 256), q, k, v, out contiguous in their layout and 16-byte
+// aligned, seg [B, L] int32.
+// fp32, on the CUDA cores: scratch [B*H, L, Dh] fp32 for the output sums.
 extern "C" int medtok_segment_attention_wide(const void* q, const void* k, const void* v,
                                              const void* seg, void* out, void* scratch,
                                              int B, int H, int L, int Dh, float sm_scale,
-                                             int is_bf16, int nt, void* stream) {
+                                             int nt, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
   const int* sp = static_cast<const int*>(seg);
+  float* of = static_cast<float*>(out);
   float* acc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return nt ? launch_wide<true>(q, k, v, sp, out, acc, B, H, L, Dh, sm_scale, is_bf16, s)
-            : launch_wide<false>(q, k, v, sp, out, acc, B, H, L, Dh, sm_scale, is_bf16, s);
+  return nt ? launch_wide<true>(qf, kf, vf, sp, of, acc, B, H, L, Dh, sm_scale, s)
+            : launch_wide<false>(qf, kf, vf, sp, of, acc, B, H, L, Dh, sm_scale, s);
+}
+
+// bf16, on the tensor cores, by the wrapper's plan: `slices` slices of 192
+// output columns (every slice holds a column < Dh), `smem` bytes of
+// dynamic shared memory (at least the kernel's need, at most 232,448). No
+// scratch.
+extern "C" int medtok_segment_attention_wide_mma(const void* q, const void* k, const void* v,
+                                                 const void* seg, void* out, int B, int H,
+                                                 int L, int Dh, float sm_scale, int nt,
+                                                 int slices, int smem, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
+  const int* sp = static_cast<const int*>(seg);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return nt ? launch_wide_mma<true>(q, k, v, sp, out, B, H, L, Dh, sm_scale, slices, smem, s)
+            : launch_wide_mma<false>(q, k, v, sp, out, B, H, L, Dh, sm_scale, slices, smem, s);
 }
 
 extern "C" const char* medtok_error_string(int code) {

@@ -17,8 +17,8 @@ Every kernel with a head or embedding width is built at the widths in
 Zero columns add exact zeros to every dot product and squared norm, so the
 padded launch computes the same scores; the output columns that come from
 the zero columns are cut off. A width above the widest built one takes the
-kernel's wide route (``route_width`` returns None for it): a second kernel
-that reads the width at run time, so no width is too wide for it.
+kernel's wide route (``route_width`` returns None for it): kernels that
+read the width at run time, so no width is too wide for them.
 """
 
 from __future__ import annotations
@@ -67,10 +67,14 @@ _SIGNATURES = {
     # as medtok_segment_attention, q/k/v/out in [B, L, H, Dh]
     "medtok_segment_attention_nt": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
-    # the wide route of either: q, k, v, seg, out, scratch, B, H, L, Dh,
-    # sm_scale, is_bf16, nt (1: the [B, L, H, Dh] layout), stream
+    # the fp32 wide route of either: q, k, v, seg, out, scratch, B, H, L,
+    # Dh, sm_scale, nt (1: the [B, L, H, Dh] layout), stream
     "medtok_segment_attention_wide": (
-        [_P] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P], ctypes.c_int),
+        [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
+    # the bf16 wide route: q, k, v, seg, out, B, H, L, Dh, sm_scale, nt,
+    # then the plan's slices and shared-memory bytes, stream
+    "medtok_segment_attention_wide_mma": (
+        [_P] * 5 + [_I, _I, _I, _I, _F, _I, _I, _I, _P], ctypes.c_int),
     # src, dst, w, out, lists, offsets (scratch), B, Ln, Epg, stream
     "medtok_adj_count": ([_P] * 6 + [_I, _I, _I, _P], ctypes.c_int),
     "medtok_adj_count_onehot": ([_P] * 6 + [_I, _I, _I, _P], ctypes.c_int),
@@ -84,6 +88,9 @@ _SIGNATURES = {
     "medtok_flash_dkv": ([_P] * 9 + _K3_TAIL, ctypes.c_int),
     # the wide routes: the same pointers, then the fp32 scratch of the sums
     "medtok_flash_fwd_wide": ([_P] * 7 + _K3_TAIL, ctypes.c_int),
+    # the bf16 forward's: q, k, v, mask, out, lse, then the plan's slices,
+    # chunks a slice (3 or 4), Q resident (0 / 1) and shared-memory bytes
+    "medtok_flash_fwd_wide_mma": ([_P] * 6 + [_I] * 4 + _K3_TAIL, ctypes.c_int),
     "medtok_flash_dq_wide": ([_P] * 9 + _K3_TAIL, ctypes.c_int),
     # ... dk, dv, scratch, query groups of 32 a split, *K3_TAIL
     "medtok_flash_dkv_wide": ([_P] * 10 + [_I] + _K3_TAIL, ctypes.c_int),

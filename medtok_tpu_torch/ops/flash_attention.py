@@ -68,14 +68,22 @@ of those and cuts the outputs back. Zero columns change no score, so the
 results are those of the true width; ``sm_scale`` defaults to 1/sqrt(Dh) of
 the true width, as the JAX functions take it. A wider head takes the wide
 route (``csrc/wide.cuh``): kernels of K2 / K4 (both layouts) and of K3's
-forward, dq and dkv that read Dh at run time, on the CUDA cores in both
-dtypes, with fp32 sums in a scratch buffer and the plain versions' rounding
-points (128-key blocks for K2 / K4, 512 for K3's forward, the same hash).
-Each wrapper counts their launches apart (``.wide_launches``).
+forward, dq and dkv that read Dh at run time, with the plain versions'
+rounding points (128-key blocks for K2 / K4, 512 for K3's forward, the
+same hash). In bf16, K2 / K4 and K3's forward run on the tensor cores
+(``wgmma``): the head width streams through shared memory in chunks of
+64 columns, and the output columns are split into slices of 192 (K2 /
+K4) or of 192 or 256 (K3) that a block holds in registers (``segment_wide_plan``,
+``flash_fwd_wide_plan``: slices, block rows, shared memory and grid,
+computed here and passed to the kernel); no scratch. The fp32 wide routes
+and K3's dq and dkv in either dtype run on the CUDA cores with fp32 sums
+in a scratch buffer. Each wrapper counts the wide launches apart
+(``.wide_launches``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -83,10 +91,101 @@ import torch
 from medtok_tpu_torch.ops import _build
 
 _MASKED = -1e30  # finite stand-in for -inf, as in the TPU kernel
-_WIDE_MAX_ROWS = 8 * 65535  # query rows of a wide launch: 8 a block, 65535 blocks
+# rows of a CUDA-core wide launch (fp32; K3's dq and dkv): 8 a block, 65535 blocks
+_WIDE_MAX_ROWS = 8 * 65535
 _M32 = 0xFFFFFFFF
 K3_BLOCK_K = 512  # K3's key block: the TPU kernel's default block_k
 SEG_BLOCK_K = 128  # K2 / K4's key block: the TPU kernel's block_k
+
+
+# The bf16 wide routes' plans, as csrc/wide.cuh, segment_attention.cu and
+# flash_attention.cu lay their blocks out: the head width streams in
+# chunks of WIDE_CHUNK columns (128-byte rows in shared memory); a block
+# holds an output slice of 192 (K2 / K4) or of 192 or 256 (K3) columns in
+# registers.
+WIDE_CHUNK = 64
+WIDE_SMEM_MAX = 232_448  # dynamic shared memory a block may take (H100)
+_WIDE_ROW_BYTES = WIDE_CHUNK * 2
+_GRID_X_MAX = 2**31 - 1
+# K2 / K4: queries a block (two warpgroups), pipeline stages, slice columns,
+# shared bytes past the stages (a key block's segment ids, two
+# words of its groups, the stages' mbarriers)
+_SEG_WIDE_ROWS, _SEG_WIDE_STAGES, _SEG_WIDE_SLICE, _SEG_WIDE_SMALL = 128, 4, 192, 592
+# K3's forward: queries a block (two warpgroups), keys a tile, stages,
+# slice columns at most
+_FWD_WIDE_ROWS, _FWD_WIDE_TILE, _FWD_WIDE_STAGES, _FWD_WIDE_SLICE = 128, 64, 4, 256
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """The launch of a bf16 wide kernel. Slice ``i`` holds output columns
+    [i * slice_width, min((i + 1) * slice_width, Dh)); ``block_rows``
+    queries a block; ``smem`` bytes of dynamic shared memory; ``grid`` the
+    CUDA grid (blocks numbered slice fastest, then query tile, then batch
+    row and head). ``q_resident``: K3's forward keeps the block's Q in
+    shared memory for the whole launch."""
+
+    slices: int
+    slice_width: int
+    block_rows: int
+    smem: int
+    grid: tuple[int, int, int]
+    q_resident: bool = False
+
+    @property
+    def chunks(self) -> int:
+        """WIDE_CHUNK-column chunks of a slice (the kernel's template)."""
+        return self.slice_width // WIDE_CHUNK
+
+
+def _wide_slices(Dh: int, most: int) -> tuple[int, int]:
+    """(slices, slice width): as few slices as hold Dh columns at ``most``
+    each, their width rounded up to whole chunks (K3's forward: for Dh >
+    256, 192 or 256, the kernel's two builds)."""
+    n = -(-Dh // most)
+    width = WIDE_CHUNK * -(-(-(-Dh // n)) // WIDE_CHUNK)
+    return -(-Dh // width), width
+
+
+def _wide_grid(blocks: int, what: str) -> tuple[int, int, int]:
+    if blocks > _GRID_X_MAX:
+        raise ValueError(f"{what}'s bf16 wide route takes at most {_GRID_X_MAX} blocks, "
+                         f"these shapes need {blocks}")
+    return (blocks, 1, 1)
+
+
+def segment_wide_plan(B: int, H: int, L: int, Dh: int) -> WidePlan:
+    """The plan of K2 / K4's bf16 wide kernel at [B, H, L, Dh] (either
+    layout): 128 queries a block, slices of 192 columns (the last holding
+    what is left); four stages of Q's and a 128-key block's chunk, or the
+    output tile, whichever is larger, and the key block's segment ids."""
+    slices, width = -(-Dh // _SEG_WIDE_SLICE), _SEG_WIDE_SLICE
+    stages = _SEG_WIDE_STAGES * (_SEG_WIDE_ROWS + SEG_BLOCK_K) * _WIDE_ROW_BYTES
+    smem = max(stages, _SEG_WIDE_ROWS * (width + 8) * 2) + _SEG_WIDE_SMALL
+    blocks = B * H * -(-L // _SEG_WIDE_ROWS) * slices
+    return WidePlan(slices, width, _SEG_WIDE_ROWS, smem, _wide_grid(blocks, "K2 / K4"))
+
+
+def flash_fwd_wide_plan(BH: int, Lq: int, Lk: int, Dh: int) -> WidePlan:
+    """The plan of K3's bf16 wide forward at q [BH, Lq, Dh], k / v [BH,
+    Lk, Dh]: 128 queries a block, slices of at most 256 columns; Q's chunks
+    resident in shared memory where they fit beside four stages of a 64-key
+    chunk, their mbarriers and the key mask's bits, else staged again in
+    each stage; at least the output tile. Raises when even that exceeds
+    WIDE_SMEM_MAX (the mask's bits of about 1,060,000 keys)."""
+    slices, width = _wide_slices(Dh, _FWD_WIDE_SLICE)
+    rows, tile, stages = _FWD_WIDE_ROWS, _FWD_WIDE_TILE, _FWD_WIDE_STAGES
+    small = 16 * stages + 4 * -(-Lk // 32)  # the stages' mbarriers, the key-mask bits
+    resident = (-(-Dh // WIDE_CHUNK) * rows + stages * tile) * _WIDE_ROW_BYTES + small
+    q_resident = resident <= WIDE_SMEM_MAX
+    layout = resident if q_resident else stages * (rows + tile) * _WIDE_ROW_BYTES + small
+    smem = max(layout, rows * (width + 8) * 2)
+    if smem > WIDE_SMEM_MAX:
+        raise ValueError(f"K3's bf16 wide forward holds the key mask of at most "
+                         f"{(WIDE_SMEM_MAX - layout + small) // 4 * 32 - 16 * stages * 8} "
+                         f"keys, got {Lk}")
+    blocks = BH * -(-Lq // rows) * slices
+    return WidePlan(slices, width, rows, smem, _wide_grid(blocks, "K3"), q_resident)
 
 
 def _block_softmax_pv(s, valid, v, block_k: int, keep=None):
@@ -174,8 +273,10 @@ def _segment_check(q, k, v, seg_ids, heads_dim: int) -> tuple[int, int | None]:
     B, Dh = q.shape[0], q.shape[3]
     L = q.shape[3 - heads_dim]
     width = _build.route_width(Dh, "head width")
-    if width is None and L > _WIDE_MAX_ROWS:
-        raise ValueError(f"the wide route takes L up to {_WIDE_MAX_ROWS} (its grid "
+    if width is None and q.dtype == torch.bfloat16:
+        segment_wide_plan(B, q.shape[heads_dim], L, Dh)  # raises if its grid cannot hold it
+    elif width is None and L > _WIDE_MAX_ROWS:
+        raise ValueError(f"the fp32 wide route takes L up to {_WIDE_MAX_ROWS} (its grid "
                          f"holds {_WIDE_MAX_ROWS // 8} tiles of 8 queries), got {L}")
     if seg_ids.shape != (B, L) or seg_ids.dtype != torch.int32:
         raise ValueError(f"seg_ids must be [B, L] = [{B}, {L}] int32, got "
@@ -203,19 +304,30 @@ def _segment_launch(entry: str, q, k, v, seg_ids, out, heads: int,
 
 
 def _segment_wide(nt: bool, q, k, v, seg_ids, heads: int, sm_scale: float) -> torch.Tensor:
-    """The wide route of K2 (nt False) or K4 at q's true width."""
+    """The wide route of K2 (nt False) or K4 at q's true width. bf16 runs
+    on the tensor cores by ``segment_wide_plan``, with no scratch; fp32 on
+    the CUDA cores, its output sums in an fp32 scratch (the fp32 checks
+    hold it to 1e-5, which no bf16 or TF32 product meets)."""
     out = torch.empty_like(q)
     if out.numel():
         B, L, Dh = q.shape[0], seg_ids.shape[1], q.shape[3]
-        scratch = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
         lib = _build.load_library()
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(), out.data_ptr())
         with torch.cuda.device(q.device):
-            code = lib.medtok_segment_attention_wide(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), B, heads, L, Dh, float(sm_scale),
-                int(q.dtype == torch.bfloat16), int(nt),
-                torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(code, "segment_attention_wide")
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            if q.dtype == torch.bfloat16:
+                plan = segment_wide_plan(B, heads, L, Dh)
+                entry = "medtok_segment_attention_wide_mma"
+                code = lib.medtok_segment_attention_wide_mma(
+                    *ptrs, B, heads, L, Dh, float(sm_scale), int(nt), plan.slices, plan.smem,
+                    stream)
+            else:
+                scratch = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
+                entry = "medtok_segment_attention_wide"
+                code = lib.medtok_segment_attention_wide(
+                    *ptrs, scratch.data_ptr(), B, heads, L, Dh, float(sm_scale), int(nt),
+                    stream)
+        _build.check(code, entry)
     return out
 
 
@@ -439,10 +551,13 @@ def _k3_check(q, k, v, key_mask, extra=()) -> int | None:
     width = _build.route_width(Dh, "head width")
     if Lq < 1 or k.shape[2] < 1:
         raise ValueError(f"K3 takes Lq, Lk >= 1, got {Lq}, {k.shape[2]}")
-    if width is None and max(Lq, k.shape[2]) > _WIDE_MAX_ROWS:
-        raise ValueError(f"K3's wide route takes Lq, Lk up to {_WIDE_MAX_ROWS} (its "
-                         f"grid holds {_WIDE_MAX_ROWS // 8} tiles of 8 rows), got "
-                         f"{Lq}, {k.shape[2]}")
+    # the CUDA-core wide kernels' grids (fp32; dq and dkv, which get extra):
+    # the bf16 forward's plan checks its own grid
+    if width is None and (q.dtype == torch.float32 or extra) \
+            and max(Lq, k.shape[2]) > _WIDE_MAX_ROWS:
+        raise ValueError(f"K3's CUDA-core wide kernels (fp32; dq and dkv) take Lq, Lk up "
+                         f"to {_WIDE_MAX_ROWS} (their grids hold {_WIDE_MAX_ROWS // 8} "
+                         f"tiles of 8 rows), got {Lq}, {k.shape[2]}")
     if key_mask.shape != (B, k.shape[2]) or key_mask.dtype != torch.bool:
         raise ValueError(f"key_mask must be [B, Lk] = [{B}, {k.shape[2]}] bool, "
                          f"got {key_mask.dtype} {tuple(key_mask.shape)}")
@@ -499,9 +614,16 @@ def flash_attention_fwd(q, k, v, key_mask, *, sm_scale: float,
     if width is None:  # the wide route, at the true width
         out = torch.empty_like(q)
         if out.numel():
-            _k3_launch("medtok_flash_fwd_wide", q, k, (q, k, v, key_mask, out, lse,
-                                                       _sums(q)),
-                       sm_scale, dropout_rate, dropout_seed)
+            if q.dtype == torch.bfloat16:  # the tensor cores, no scratch
+                B, H, Lq, Dh = q.shape
+                plan = flash_fwd_wide_plan(B * H, Lq, k.shape[2], Dh)
+                _k3_launch("medtok_flash_fwd_wide_mma", q, k, (q, k, v, key_mask, out, lse),
+                           sm_scale, dropout_rate, dropout_seed,
+                           extra=(plan.slices, plan.chunks, int(plan.q_resident), plan.smem))
+            else:  # the CUDA cores: fp32 products, held to 1e-5
+                _k3_launch("medtok_flash_fwd_wide", q, k,
+                           (q, k, v, key_mask, out, lse, _sums(q)), sm_scale, dropout_rate,
+                           dropout_seed)
             flash_attention_fwd.wide_launches += 1
         return out, lse
     qp, kp, vp = (_build.pad_width(t, width) for t in (q, k, v))
