@@ -89,12 +89,16 @@ Phases, each fatal on failure:
      library call and its bound;
  14. the model-level witnesses: EHRTrainer(EHRTrainConfig(num_heads=2))
      (head width 32) trains two steps on the card with 4 launches of each
-     K3 kernel a step; the flags that reach the bf16 wide routes:
+     K3 kernel a step; the flags that reach the wide routes:
      EHRTrainer at input_dim = output_dim = 640, 2 heads (head width 320)
      trains two steps, 4 launches of each K3 wide kernel a step, and a
      packed export of 256 codes with the text encoder at 2 heads of the 768
-     width (head width 384) launches K2's wide kernel 12 times, finite
-     outputs; and an fp32 export at the verify recipe's widths
+     width (head width 384) and the graph output and codebook 320 wide
+     launches K2's wide kernel 12 times and K1's wide route once a sweep
+     (k = 5), finite outputs, each kernel then held to its plain version
+     on the first inputs the path gave it (K3 by phase 7's bf16 rules with
+     two backward passes bitwise equal, K2 by phase 4's, K1 by phase 3's);
+     and an fp32 export at the verify recipe's widths
      (text hidden 32 / 4 heads, codebook 90 x 16) on the card is held to
      the plain versions on the CPU by phase 5's tie-gap rule;
  15. train the tokenizer at ModelConfig() width through Trainer.fit with
@@ -2044,6 +2048,8 @@ def wide_times(gen, dev, errs: dict, ran: dict) -> list[dict]:
                     cuda_ms(lambda: fused_topk_l2_reference(z, cb, k), 3),
                     cuda_ms(library, 5), 3 * 2.0 * B * N * Dk, PEAK_TF32,
                     4.0 * (B + N) * Dk + 8.0 * B * k))
+    log(f"topk_l2_wide at the paths' k = {K} (a list of 8; the row above: k = {k}, a "
+        f"list of 16): kernel {cuda_ms(lambda: fused_topk_l2(z, cb, k=K), 5):.4f} ms")
     del z, cb
 
     Dh, H = 320, 4
@@ -2127,16 +2133,22 @@ def check_ehr_heads(table, ehr: dict, dev, n: int = 32) -> None:
 @contextlib.contextmanager
 def wide_inputs_of_path():
     """Keeps a copy of the inputs of the first bf16 launch of K2's wide
-    kernel ("K2": q, k, v, seg_ids, sm_scale) and of K3's wide forward
-    ("K3": q, k, v, key_mask and the keywords) while the block runs, by
-    wrapping the wrappers' launch helpers; the launches and their counts
-    are the path's own."""
+    kernel ("K2": q, k, v, seg_ids, sm_scale), of K3's wide forward ("K3":
+    q, k, v, key_mask and the keywords) and of K1's wide route ("K1": z,
+    the codebook rows, k) while the block runs, by wrapping the wrappers'
+    launch helpers; the launches and their counts are the path's own."""
     import torch
 
     from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops import topk_l2
 
     seen = {}
-    segment_wide, k3_launch = fa._segment_wide, fa._k3_launch
+    segment_wide, k3_launch, k1_wide = fa._segment_wide, fa._k3_launch, topk_l2._wide
+
+    def k1_kept(z, codebook, k):
+        if "K1" not in seen:
+            seen["K1"] = (z.clone(), codebook.clone(), k)
+        return k1_wide(z, codebook, k)
 
     def segment_kept(nt, q, k, v, seg_ids, heads, sm_scale):
         if q.dtype == torch.bfloat16 and not nt and "K2" not in seen:
@@ -2150,11 +2162,11 @@ def wide_inputs_of_path():
                           dict(sm_scale=sm_scale, dropout_rate=dropout_rate, dropout_seed=seed))
         return k3_launch(entry, q, k, tensors, sm_scale, dropout_rate, dropout_seed, extra)
 
-    fa._segment_wide, fa._k3_launch = segment_kept, k3_kept
+    fa._segment_wide, fa._k3_launch, topk_l2._wide = segment_kept, k3_kept, k1_kept
     try:
         yield seen
     finally:
-        fa._segment_wide, fa._k3_launch = segment_wide, k3_launch
+        fa._segment_wide, fa._k3_launch, topk_l2._wide = segment_wide, k3_launch, k1_wide
 
 
 def hold_k2_wide_path(q, k, v, seg, sm_scale: float) -> dict:
@@ -2186,28 +2198,37 @@ def hold_k2_wide_path(q, k, v, seg, sm_scale: float) -> dict:
 
 
 def check_wide_paths(table, ehr: dict, dataset, dev, gen, n: int = 16) -> dict:
-    """The entry points' flags that reach the bf16 wide routes, on the
-    card: EHRTrainer at head width 320 (EHRTrainConfig(input_dim=640,
+    """The entry points' flags that reach the wide routes, on the card:
+    EHRTrainer at head width 320 (EHRTrainConfig(input_dim=640,
     output_dim=640, num_heads=2), what cli.ehr --input-dim 640 --output-dim
     640 --num-heads 2 builds; K3 gets bf16 under "default") trains two steps
-    on n samples of an eval batch, each layer launching K3's wide forward
-    (on the tensor cores), dq and dkv once a step, finite losses; and one
-    packed export step of 256 codes at ModelConfig() with the text encoder
-    at 2 heads of the 768 width (head width 384, what cli.train --text-heads
-    2 sets) launches K2's wide kernel once a BERT layer, finite outputs.
-    Then each kernel is held to its plain version on the first inputs the
-    path gave it (wide_inputs_of_path): K3 by check_k3_bf16, K2 by
-    hold_k2_wide_path. Returns each wide route's launches by path."""
+    on n samples of an eval batch, each layer launching K3's wide forward,
+    dq and dkv once a step, finite losses; and one packed export step of
+    256 codes at ModelConfig() with the text encoder at 2 heads of the 768
+    width (head width 384, what cli.train --text-heads 2 sets) and a
+    codebook 320 wide (cli.train --codebook-embed-dim 320
+    --graph-out-channels 320: the graph encoder's output is the codebook's
+    width) launches K2's wide kernel once a BERT layer and K1's wide route
+    (k = 5) once for each of the step's 4 sweeps, finite outputs. Then each
+    kernel is held to its plain version on the first inputs the path gave
+    it (wide_inputs_of_path): K3 by check_k3_bf16, K2 by hold_k2_wide_path,
+    K1 by check_k1_case. Returns each wide route's launches by path."""
     import numpy as np
     import torch
 
-    from medtok_tpu_torch.config import ModelConfig, TextEncoderConfig
+    from medtok_tpu_torch.config import (
+        GraphEncoderConfig,
+        ModelConfig,
+        QuantizerConfig,
+        TextEncoderConfig,
+    )
     from medtok_tpu_torch.data.dataset import MedCodeDataset
     from medtok_tpu_torch.ehr.train import EHRTrainConfig, EHRTrainer
     from medtok_tpu_torch.export import export_all_packed, export_groups
     from medtok_tpu_torch.models.layers import init_random_
     from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
     from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(EHRTrainConfig(), input_dim=640, output_dim=640, num_heads=2)
@@ -2240,10 +2261,13 @@ def check_wide_paths(table, ehr: dict, dataset, dev, gen, n: int = 16) -> dict:
     codes = 256
     sub = MedCodeDataset(dataset.kg, dataset.med_codes[:codes], dataset.descs[:codes],
                          dataset.pkg_index_lists[:codes], dataset.tokenizer, cfg=dataset.cfg)
-    mcfg = ModelConfig(text=TextEncoderConfig(num_heads=2))
+    mcfg = ModelConfig(text=TextEncoderConfig(num_heads=2),
+                       graph=GraphEncoderConfig(out_channels=320),
+                       quantizer=QuantizerConfig(codebook_embed_dim=320))
     model = init_random_(MultimodalTokenizer(mcfg, device=dev), gen).eval()
     seg = fa.packed_segment_attention
     seg.launches = seg.wide_launches = 0
+    fused_topk_l2.launches = fused_topk_l2.wide_launches = 0
     with wide_inputs_of_path() as seen:
         arrays = export_all_packed(model, sub, device=dev)
         torch.cuda.synchronize()
@@ -2252,21 +2276,34 @@ def check_wide_paths(table, ehr: dict, dataset, dev, gen, n: int = 16) -> dict:
     check(steps == 1 and seg.wide_launches == want_k2 and seg.launches == 0,
           f"export at text heads 2: {steps} steps, K2 wide launches {seg.wide_launches} "
           f"(want {want_k2}), narrow {seg.launches}")
+    # the path's own launches, before the holds below launch the kernels again
+    k2_wide, k1_wide = seg.wide_launches, fused_topk_l2.wide_launches
+    check(k1_wide == 4 * steps and fused_topk_l2.launches == 0,
+          f"export at codebook width 320: K1 wide launches {k1_wide}, narrow "
+          f"{fused_topk_l2.launches}")
     emb, w = arrays["embeddings_all"], arrays["weights_all"]
-    check(emb.shape == (codes, 256) and bool(np.isfinite(emb).all() and np.isfinite(w).all()),
-          f"export at text heads 2: embeddings {emb.shape}, non-finite outputs")
+    check(emb.shape == (codes, mcfg.embedding_dim)
+          and bool(np.isfinite(emb).all() and np.isfinite(w).all()),
+          f"export at text heads 2, codebook 320: embeddings {emb.shape}, non-finite outputs")
     log(f"wide path: packed export of {codes} codes in {steps} step at ModelConfig() with "
         f"{mcfg.text.num_heads} text heads of the {mcfg.text.hidden_size} width (head width "
-        f"{mcfg.text.hidden_size // mcfg.text.num_heads}): K2 wide launches "
-        f"{seg.wide_launches}, {mcfg.compute_dtype}, outputs finite")
+        f"{mcfg.text.hidden_size // mcfg.text.num_heads}) and a codebook "
+        f"{mcfg.quantizer.codebook_embed_dim} wide: K2 wide launches {k2_wide}, "
+        f"K1 wide launches {k1_wide} (k = {mcfg.quantizer.top_k}), {mcfg.compute_dtype}, "
+        f"outputs finite")
     del model
     q, k, v, seg_ids, sm_scale = seen.pop("K2")
     check(q.dtype == torch.bfloat16 and q.shape[1:] == (2, seg_ids.shape[1], 384),
           f"export at text heads 2: K2's wide kernel got q {q.dtype} {list(q.shape)}")
     hold_k2_wide_path(q, k, v, seg_ids, sm_scale)
+    z, e, k1_k = seen.pop("K1")
+    check(z.shape[1] == e.shape[1] == 320 and k1_k == mcfg.quantizer.top_k,
+          f"export at codebook width 320: K1's wide route got z {list(z.shape)}, "
+          f"e {list(e.shape)}, k {k1_k}")
+    check_k1_case(z, e, "wide, on the export path's inputs", k=k1_k)
     log(f"wide paths: {time.perf_counter() - t0:.2f} s for both, their kernels held included")
-    return {"segment_attention_wide": {"export, text 768 / 2 heads (phase 14)":
-                                       seg.wide_launches},
+    return {"segment_attention_wide": {"export, text 768 / 2 heads (phase 14)": k2_wide},
+            "topk_l2_wide": {"export, codebook 320 wide (phase 14)": k1_wide},
             **{f"flash_attention_{key}_wide": {"EHRTrainer 640 / 2 heads (phase 14)": c}
                for key, c in ehr_wide.items()}}
 

@@ -1004,9 +1004,35 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //       skipped. lse = m + log l. The fp32 checks hold it to 1e-5, which no
 //       bf16 or TF32 product meets, so it stays on the CUDA cores as the
 //       main fp32 route does.
-//   dq and dkv, both dtypes, on the CUDA cores. dq: one block of WT
-//       threads per (b*h, WQ queries); dkv: one per (b*h, WT keys), thread t
-//       scoring key t.
+//   dkv, bf16 (flash_dkv_wide_mma_kernel), on the tensor cores with wgmma,
+//       warp-specialized as the forward. A block owns DKV_KEYS = 128 keys of
+//       one b*h, 64 a consumer warpgroup, and one slice of 128 output
+//       columns of dK and dV (XNV_DKV = 2 chunks, the last slice what is
+//       left; blocks numbered slice fastest, then key block, then b*h: the
+//       plan's ceil(Dh / 128) slices), and walks the query tiles of DKV_QT
+//       = 64 in order, as the TPU kernel walks its query blocks with dK and
+//       dV in VMEM. A query tile is nc = ceil(Dh / 64) score steps, each
+//       staging Q's and dO's chunk (and K's and V's unless they stay
+//       resident, which they do where they fit: Dh up to 320) and summing
+//       S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 keys by wgmma
+//       m64n64k16 (K, V as A and Q, dO as B, all read from shared memory;
+//       64 registers a thread). Then, on the fp32 fragments, a = 2^(s c -
+//       lse log2 e) on valid keys (0 on masked ones), the hashed keep factor
+//       from premultiplied terms, ds = a (keep dP - D) and a~ = keep a,
+//       repacked from the registers as bf16 A fragments (the TPU's
+//       ds.astype(q.dtype) and a_drop.astype(do.dtype)); the slice's two
+//       steps stage its chunks of Q and dO again, read transposed as B, for
+//       dV^T += a~^T dO and dK^T += ds^T Q (the sums, 2 x 64 registers a
+//       thread, stay in registers over all the queries). Every wgmma runs
+//       unconditionally; a block whose 128 keys are all masked writes zeros
+//       and stages nothing. S and dP are recomputed for each slice (twice
+//       the least products at Dh 320) so that the sums fit the consumers'
+//       232 registers. No scratch, no second kernel, no atomics: a launch is
+//       deterministic. lse and D of a tile come with its first step, into
+//       one of two halves of a small ring.
+//   dq in both dtypes and dkv in fp32, on the CUDA cores. dq: one block of
+//       WT threads per (b*h, WQ queries); dkv: one per (b*h, WT keys),
+//       thread t scoring key t.
 //   dq: key tiles of WT: s = q.k and t = dO.v by tile_dots, a = exp(s *
 //       sm_scale - lse), ds = a (keep t - D) rounded to T, acc += ds K; a
 //       tile with no valid key is skipped; dq = sm_scale acc.
@@ -1329,6 +1355,299 @@ flash_fwd_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         lse[(size_t)bh * P.Lq + row] = l[r] > 0.f ? m2[r] * LN2 + logf(l[r]) : MASKED;
     }
   }
+}
+
+constexpr int XST_DKV = 4;        // pipeline stages of the bf16 wide dkv
+constexpr int XNV_DKV = 2;        // chunks of its output slice (128 columns)
+constexpr int DKV_KEYS = 128;     // keys a block: two consumer warpgroups of 64
+constexpr int DKV_QT = 64;        // queries a tile
+constexpr int DKV_THREADS = X_THREADS;
+constexpr int DKV_QCHUNK = DKV_QT * XC * 2;    // bytes of Q's or dO's staged chunk
+constexpr int DKV_KCHUNK = DKV_KEYS * XC * 2;  // bytes of K's or V's chunk
+// past the stages: lse and D of two query tiles, the stages' mbarriers
+constexpr int DKV_SMALL = 2 * 2 * DKV_QT * 4 + 16 * XST_DKV;
+
+// dynamic shared memory of the bf16 wide dkv: K's and V's resident chunks
+// (or room for one of each in every stage), the stages of Q's and dO's
+// chunks, lse / D and the mbarriers; or the two output tiles if larger
+__host__ __device__ constexpr size_t dkv_wide_smem(int Dh, bool kv_resident) {
+  const size_t chunks = (size_t)(Dh + XC - 1) / XC;
+  const size_t layout =
+      (kv_resident ? chunks * 2 * DKV_KCHUNK + (size_t)XST_DKV * 2 * DKV_QCHUNK
+                   : (size_t)XST_DKV * 2 * (DKV_QCHUNK + DKV_KCHUNK)) + DKV_SMALL;
+  const size_t out_tiles = 2 * (size_t)DKV_KEYS * (XNV_DKV * XC + 8) * 2;
+  return layout > out_tiles ? layout : out_tiles;
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+flash_dkv_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const bf16* __restrict__ dout, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int Dh, int slices, int kv_resident, Params P) {
+  const int nc = (Dh + XC - 1) / XC;  // score chunks
+  // a stage: Q's and dO's chunk [, K's and V's unless resident]
+  const int stage_bytes = 2 * DKV_QCHUNK + (kv_resident ? 0 : 2 * DKV_KCHUNK);
+  extern __shared__ __align__(1024) uint8_t wide_smem[];
+  uint8_t* k_res = wide_smem;                  // resident: [nc][DKV_KCHUNK] of K
+  uint8_t* v_res = k_res + nc * DKV_KCHUNK;    // then of V
+  uint8_t* ring = wide_smem + (kv_resident ? 2 * nc * DKV_KCHUNK : 0);  // [XST_DKV][stage]
+  float* lsed = reinterpret_cast<float*>(ring + XST_DKV * stage_bytes);  // [2][lse, D][DKV_QT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(lsed + 4 * DKV_QT);       // [XST_DKV]
+  uint64_t* empty = full + XST_DKV;                                      // [XST_DKV]
+
+  const int n_kb = (P.Lk + DKV_KEYS - 1) / DKV_KEYS;
+  const int slice = blockIdx.x % slices;
+  const int kb0 = (blockIdx.x / slices) % n_kb * DKV_KEYS;  // the block's first key
+  const int bh = blockIdx.x / slices / n_kb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warpgroup_index();  // 0, 1: keys 64 wg .. 64 wg + 63; 2: the producer
+  const int n0 = slice * XNV_DKV * XC;                    // the slice's first column
+  const int nv = min(XNV_DKV, (Dh - n0 + XC - 1) / XC);  // its chunks with a column < Dh
+  const int ncols = min(XNV_DKV * XC, Dh - n0);
+  const int nrows = min(DKV_KEYS, P.Lk - kb0);
+  const int elems = copy_elems(Dh);
+  const int n_qt = (P.Lq + DKV_QT - 1) / DKV_QT;
+  const uint8_t* mrow = mask + (size_t)(bh / P.H) * P.Lk;
+  const size_t krow0 = (size_t)bh * P.Lk + kb0;
+  const bf16* qb = q + (size_t)bh * P.Lq * Dh;
+  const bf16* dob = dout + (size_t)bh * P.Lq * Dh;
+  bf16* dk_b = dk + krow0 * Dh + n0;
+  bf16* dv_b = dv + krow0 * Dh + n0;
+
+  // a block whose 128 keys are all masked has zero gradients and stages nothing
+  if (!__syncthreads_or((int)threadIdx.x < nrows && mrow[kb0 + threadIdx.x] != 0)) {
+    for (int i = threadIdx.x; i < nrows * ncols; i += DKV_THREADS) {
+      const size_t o = (size_t)(i / ncols) * Dh + i % ncols;
+      dk_b[o] = dv_b[o] = __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
+  if (smem_u32(wide_smem) % X_ROWS8) __trap();  // the swizzle needs 1024-byte chunks
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < XST_DKV; ++i) {
+      mbar_init(&full[i], 128);   // the producer's threads, once their copies land
+      mbar_init(&empty[i], 256);  // every consumer thread
+    }
+  }
+  if (kv_resident) {  // every thread copies a share, landed before the loop
+    for (int c = 0; c < nc; ++c) {
+      stage_chunk(reinterpret_cast<bf16*>(k_res + c * DKV_KCHUNK), k + krow0 * Dh, Dh,
+                  DKV_KEYS, nrows, c * XC, Dh, elems, threadIdx.x, DKV_THREADS);
+      stage_chunk(reinterpret_cast<bf16*>(v_res + c * DKV_KCHUNK), v + krow0 * Dh, Dh,
+                  DKV_KEYS, nrows, c * XC, Dh, elems, threadIdx.x, DKV_THREADS);
+    }
+    cp_async_wait_all();
+    fence_async_smem();
+  }
+  __syncthreads();  // the mbarriers and resident K / V are complete
+
+  if (wg == 2) {
+    // the producer: a query tile is nc steps of score chunks (Q's and dO's
+    // chunk c, and K's and V's unless resident; the first step also lse and
+    // D), then nv steps of the slice's chunks of Q and dO
+    regs_dec<X_REGS_PRODUCER>();
+    const int tid = threadIdx.x - 256;
+    int it = 0;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int r0 = qt * DKV_QT;
+      for (int c = 0; c < nc + nv; ++c, ++it) {
+        const int slot = it % XST_DKV;
+        if (it >= XST_DKV) mbar_wait(&empty[slot], ((it / XST_DKV) - 1) & 1);
+        uint8_t* st = ring + slot * stage_bytes;
+        const int col0 = c < nc ? c * XC : n0 + (c - nc) * XC;
+        stage_chunk(reinterpret_cast<bf16*>(st), qb + (size_t)r0 * Dh, Dh, DKV_QT, P.Lq - r0,
+                    col0, Dh, elems, tid, 128);
+        stage_chunk(reinterpret_cast<bf16*>(st + DKV_QCHUNK), dob + (size_t)r0 * Dh, Dh,
+                    DKV_QT, P.Lq - r0, col0, Dh, elems, tid, 128);
+        if (!kv_resident && c < nc) {
+          stage_chunk(reinterpret_cast<bf16*>(st + 2 * DKV_QCHUNK), k + krow0 * Dh, Dh,
+                      DKV_KEYS, nrows, col0, Dh, elems, tid, 128);
+          stage_chunk(reinterpret_cast<bf16*>(st + 2 * DKV_QCHUNK + DKV_KCHUNK), v + krow0 * Dh,
+                      Dh, DKV_KEYS, nrows, col0, Dh, elems, tid, 128);
+        }
+        // lse and D of the tile into its half of lsed (zeros past Lq). The
+        // half is written again two tiles on, after the consumers released a
+        // step of the next tile: nc + nv >= XST_DKV steps a tile (the entry
+        // checks it), so they are done with this tile's terms by then.
+        if (c == 0) {
+          const int i = r0 + (tid & (DKV_QT - 1));
+          const float* src = tid < DKV_QT ? lse : delta;
+          cp_async4(lsed + (qt & 1) * 2 * DKV_QT + tid,
+                    src + (size_t)bh * P.Lq + min(i, P.Lq - 1), i < P.Lq);
+        }
+        if (elems == 1) {  // plain stores: released by the arrive itself
+          cp_async_wait_all();
+          mbar_arrive(&full[slot]);
+        } else {
+          mbar_arrive_copies(&full[slot]);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns keys kb0 + 64 wg .. + 63, a warp 16 of
+  // them, a thread rows g and g + 8 of its warp's
+  regs_inc<X_REGS_CONSUMER>();
+  const float cs = P.sm_scale * LOG2E;
+  const float keep_scale = kDrop ? 1.f / (1.f - P.rate) : 1.f;
+  const uint32_t seed_term = seed_term_of(P, bh);
+  const int wk = kb0 + 64 * wg + 16 * (warp & 3);  // the warp's first key
+  uint32_t ks[2];  // key (column) term ^ seed term of rows g, g + 8
+  bool valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = wk + g + 8 * r;
+    ks[r] = (uint32_t)j * COL_MUL ^ seed_term;
+    valid[r] = j < P.Lk && mrow[j] != 0;
+  }
+  const int wg_rows = 64 * wg * 128;  // byte offset of the warpgroup's rows in a K / V chunk
+  float dk_acc[XNV_DKV][32], dv_acc[XNV_DKV][32];  // the slice of dK^T, dV^T, C fragments
+#pragma unroll
+  for (int x = 0; x < XNV_DKV; ++x)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk_acc[x][e] = dv_acc[x][e] = 0.f;
+  int got = 0, done = 0;  // steps acquired, steps released
+  auto acquire = [&]() {
+    mbar_wait(&full[got % XST_DKV], (got / XST_DKV) & 1);
+    fence_async_smem();
+    return ring + (got++ % XST_DKV) * stage_bytes;
+  };
+  auto release = [&]() { mbar_arrive(&empty[done++ % XST_DKV]); };
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    // S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 keys and the
+    // tile's 64 queries, over the width; the first products start the sums
+    float s[32], dp[32];
+    for (int c = 0; c < nc; ++c) {
+      const uint8_t* st = acquire();
+      const uint8_t* kc = (kv_resident ? k_res + c * DKV_KCHUNK : st + 2 * DKV_QCHUNK) + wg_rows;
+      const uint8_t* vc =
+          (kv_resident ? v_res + c * DKV_KCHUNK : st + 2 * DKV_QCHUNK + DKV_KCHUNK) + wg_rows;
+      if (c > 0) {
+        wg_hold(s);
+        wg_hold(dp);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < XC / 16; ++kk)
+        wg_ss_n64(s, wg_desc(kc + kk * 32), wg_desc(st + kk * 32), c > 0 || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < XC / 16; ++kk)
+        wg_ss_n64(dp, wg_desc(vc + kk * 32), wg_desc(st + DKV_QCHUNK + kk * 32), c > 0 || kk > 0);
+      wg_commit();
+      if (c > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_prev();
+        release();
+      }
+    }
+    wg_wait_all();
+    wg_hold(s);
+    wg_hold(dp);
+    release();
+
+    // a = 2^(s c - lse log2 e) on valid keys, the keep factor, ds = a (keep
+    // dP - D) into dp and a~ = keep a into s, per element (key row, query
+    // column 8j + 2t + cc); a query past Lq has zero Q and dO rows, so its
+    // s, dP and products are 0
+    const float* lse_t = lsed + (qt & 1) * 2 * DKV_QT;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int col = 8 * j + 2 * t + cc;
+        const float l2 = lse_t[col] * LOG2E, dcol = lse_t[DKV_QT + col];
+        const uint32_t rt = (uint32_t)(qt * DKV_QT + col) * ROW_MUL;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * j + 2 * r + cc;
+          float a = ex2(fmaf(s[e], cs, -l2));
+          if (!valid[r]) a = 0.f;
+          float tt = dp[e], a_drop = a;
+          if (kDrop) {
+            const bool keep = hash_rounds(rt ^ ks[r]) >= P.threshold;
+            tt = keep ? tt * keep_scale : 0.f;
+            a_drop = keep ? a * keep_scale : 0.f;
+          }
+          dp[e] = a * (tt - dcol);
+          s[e] = a_drop;
+        }
+      }
+    // a~^T and ds^T, rounded to bf16, as the A fragments of the products
+    // over the tile's queries (the TPU's a_drop.astype(do.dtype) and
+    // ds.astype(q.dtype))
+    uint32_t ada[DKV_QT / 16][4], dsa[DKV_QT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DKV_QT / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        ada[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+        dsa[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+      }
+    // dV^T += a~^T dO and dK^T += ds^T Q over the slice's chunks (dO and Q
+    // staged row-major, read transposed)
+#pragma unroll
+    for (int x = 0; x < XNV_DKV; ++x) {
+      if (x >= nv) break;
+      const uint8_t* st = acquire();
+      wg_hold(dv_acc[x]);
+      wg_hold(dk_acc[x]);
+#pragma unroll
+      for (int kk = 0; kk < DKV_QT / 16; ++kk) {
+        wg_hold(ada[kk]);
+        wg_hold(dsa[kk]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DKV_QT / 16; ++kk)
+        wg_rs_n64_t(dv_acc[x], ada[kk], wg_desc(st + DKV_QCHUNK + sw_off(16 * kk, 0)));
+#pragma unroll
+      for (int kk = 0; kk < DKV_QT / 16; ++kk)
+        wg_rs_n64_t(dk_acc[x], dsa[kk], wg_desc(st + sw_off(16 * kk, 0)));
+      wg_commit();
+      if (x > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_prev();
+        release();
+      }
+    }
+    wg_wait_all();
+#pragma unroll
+    for (int x = 0; x < XNV_DKV; ++x) {
+      wg_hold(dv_acc[x]);
+      wg_hold(dk_acc[x]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DKV_QT / 16; ++kk) {
+      wg_hold(ada[kk]);
+      wg_hold(dsa[kk]);
+    }
+    release();
+  }
+
+  // dK = sm_scale * sums and dV, staged as bf16 rows in shared memory, then
+  // stored row by row
+  constexpr int OLD = XNV_DKV * XC + 8;
+  bf16* dk_s = reinterpret_cast<bf16*>(wide_smem);  // [DKV_KEYS][OLD]
+  bf16* dv_s = dk_s + DKV_KEYS * OLD;               // [DKV_KEYS][OLD]
+  consumers_sync();  // both warpgroups are done with K, V and the stages
+#pragma unroll
+  for (int x = 0; x < XNV_DKV; ++x)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int o = (64 * wg + 16 * (warp & 3) + g + 8 * r) * OLD + x * XC + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk_s + o) = pack_bf16(
+            P.sm_scale * dk_acc[x][4 * j + 2 * r], P.sm_scale * dk_acc[x][4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv_s + o) =
+            pack_bf16(dv_acc[x][4 * j + 2 * r], dv_acc[x][4 * j + 2 * r + 1]);
+      }
+  consumers_sync();
+  store_tile(dk_b, Dh, dk_s, OLD, nrows, ncols, elems, 256);
+  store_tile(dv_b, Dh, dv_s, OLD, nrows, ncols, elems, 256);
 }
 
 template <typename T>
@@ -1728,7 +2047,7 @@ extern "C" int medtok_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // The wide route of K3: any Dh >= 1 (the wrappers take it above 256). The
-// CUDA-core kernels (fwd in fp32, dq and dkv in both dtypes) take the
+// CUDA-core kernels (fwd and dkv in fp32, dq in both dtypes) take the
 // arguments of medtok_flash_fwd / _dq / _dkv plus fp32 scratch for the sums:
 // [B*H, Lq, Dh] (fwd, dq); dkv: for each split of `gps` query groups of WG
 // (ceil(ceil(Lq / WG) / gps) splits), two [B*H, Lk, Dh] (dk's, then dv's).
@@ -1739,10 +2058,16 @@ bool bad_wide(int B, int H, int Lq, int Lk, int Dh, int rows) {
          (rows + WT - 1) / WT > 65535 || (rows + WQ - 1) / WQ > 65535;
 }
 
-// x_regs_of of one build of the bf16 wide forward, read at its first launch
+// x_regs_of of one build of the bf16 wide forward or dkv, read at its first
+// launch
 template <int NV, bool kDrop>
 int fwd_wide_regs() {
   static const int code = x_regs_of(flash_fwd_wide_mma_kernel<NV, kDrop>);
+  return code;
+}
+template <bool kDrop>
+int dkv_wide_regs() {
+  static const int code = x_regs_of(flash_dkv_wide_mma_kernel<kDrop>);
   return code;
 }
 
@@ -1825,30 +2150,56 @@ extern "C" int medtok_flash_dkv_wide(const void* q, const void* k, const void* v
                                      int gps, int B, int H, int Lq, int Lk, int Dh,
                                      float sm_scale, float rate, unsigned threshold,
                                      const void* seed, int is_bf16, void* stream) {
-  if (bad_wide(B, H, Lq, Lk, Dh, Lk) || gps < 1) return (int)cudaErrorInvalidValue;
+  // fp32 only: bf16 takes medtok_flash_dkv_wide_mma
+  if (is_bf16 || bad_wide(B, H, Lq, Lk, Dh, Lk) || gps < 1) return (int)cudaErrorInvalidValue;
   const int groups = (Lq + WG - 1) / WG;
   const int splits = (groups + gps - 1) / gps;
   if (splits > 65535) return (int)cudaErrorInvalidValue;
   const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * H, (Lk + WT - 1) / WT, splits);
-  const uint8_t* m = in<uint8_t>(mask);
-  const float* l = in<float>(lse);
-  const float* dd = in<float>(delta);
   float* acc = outp<float>(scratch);
   const size_t n = (size_t)B * H * Lk * Dh;
   const dim3 sum_grid((unsigned)((n + 255) / 256 < (1u << 20) ? (n + 255) / 256 : (1u << 20)));
-  cudaError_t e;
-  if (is_bf16) {
-    e = launch(flash_dkv_wide_kernel<bf16>, grid, WT, DKV_WIDE_SMEM, s, in<bf16>(q),
-               in<bf16>(k), in<bf16>(v), m, l, dd, in<bf16>(dout), acc, gps, Dh, P);
-    if (e != cudaSuccess) return (int)e;
-    return (int)launch(flash_dkv_wide_sum_kernel<bf16>, sum_grid, 256, 0, s,
-                       (const float*)acc, n, splits, sm_scale, outp<bf16>(dk), outp<bf16>(dv));
-  }
-  e = launch(flash_dkv_wide_kernel<float>, grid, WT, DKV_WIDE_SMEM, s, in<float>(q),
-             in<float>(k), in<float>(v), m, l, dd, in<float>(dout), acc, gps, Dh, P);
+  const cudaError_t e = launch(flash_dkv_wide_kernel<float>, grid, WT, DKV_WIDE_SMEM, s,
+                               in<float>(q), in<float>(k), in<float>(v), in<uint8_t>(mask),
+                               in<float>(lse), in<float>(delta), in<float>(dout), acc, gps, Dh, P);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch(flash_dkv_wide_sum_kernel<float>, sum_grid, 256, 0, s,
-                     (const float*)acc, n, splits, sm_scale, outp<float>(dk), outp<float>(dv));
+  return (int)launch(flash_dkv_wide_sum_kernel<float>, sum_grid, 256, 0, s, (const float*)acc, n,
+                     splits, sm_scale, outp<float>(dk), outp<float>(dv));
+}
+
+// The bf16 wide dk / dv on the tensor cores, by the wrapper's plan: `slices`
+// slices of 128 output columns (every slice holds a column < Dh), K and V
+// resident in shared memory or not, `smem` bytes of dynamic shared memory
+// (at least the kernel's need, at most 232,448). The other arguments as
+// medtok_flash_dkv's; no scratch. Dh above 192 (a query tile is at least
+// XST_DKV steps).
+extern "C" int medtok_flash_dkv_wide_mma(const void* q, const void* k, const void* v,
+                                         const void* mask, const void* lse, const void* delta,
+                                         const void* dout, void* dk, void* dv, int slices,
+                                         int kv_resident, int smem, int B, int H, int Lq,
+                                         int Lk, int Dh, float sm_scale, float rate,
+                                         unsigned threshold, const void* seed, int is_bf16,
+                                         void* stream) {
+  const long long cols = (long long)XNV_DKV * XC;
+  if (!is_bf16 || bad_shape(B, H, Lq, Lk) || Dh <= 0 || (Dh + XC - 1) / XC + 1 < XST_DKV ||
+      slices != (Dh + cols - 1) / cols ||
+      smem < (long long)dkv_wide_smem(Dh, kv_resident != 0) || smem > X_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * H * ((Lk + DKV_KEYS - 1) / DKV_KEYS) * slices;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)blocks);
+  // a kernel, once dkv_wide_regs has found the registers its split needs
+  auto run = [&](auto kernel, int regs) {
+    if (regs != cudaSuccess) return regs;
+    return (int)launch(kernel, grid, DKV_THREADS, (size_t)smem, s, in<bf16>(q), in<bf16>(k),
+                       in<bf16>(v), in<uint8_t>(mask), in<float>(lse), in<float>(delta),
+                       in<bf16>(dout), outp<bf16>(dk), outp<bf16>(dv), Dh, slices, kv_resident,
+                       P);
+  };
+  return rate > 0.f ? run(flash_dkv_wide_mma_kernel<true>, dkv_wide_regs<true>())
+                    : run(flash_dkv_wide_mma_kernel<false>, dkv_wide_regs<false>());
 }

@@ -8,11 +8,8 @@
 // the width D and built at 16, 32, 64, 128 and 256 (the export's codebook:
 // 64); the wrapper zero-pads any other width up to the next one, which adds
 // exact zeros to every sum. k is 1 to 8. A wider D or a larger k takes the
-// wide route at the end of the file: fp32 distances on the CUDA cores, as
-// the plain version computes them (|z|^2 + |e|^2 - 2 z.e), for z rows in
-// chunks that bound the [rows, N] scratch, then a per-row selection of the
-// k smallest by (value, index) in k rounds (each the least pair above the
-// last pick); any D, any k up to N, O(k N) work a row for the selection.
+// wide route at the end of the file (any D, any k up to N; see "Wide route"
+// below).
 //
 // Precision. One TF32 product (10 mantissa bits) would move a distance by
 // about 1e-3 and change which codewords are nearest. The sweep uses 3xTF32:
@@ -79,6 +76,40 @@
 // (two side by side on each 16 rows) ran no faster on the card. No atomics,
 // so a launch is deterministic. wgmma, TMA and warp specialisation would feed
 // the tensor cores faster; they are not used here.
+//
+// Wide route (k above 8 or D above 256), the same 3xTF32 arithmetic and
+// selection, for any D. Bound at the timed shape (z [4096, 320], e [21000,
+// 320], k 9): 55.05 GFLOP of fp32 products, three TF32 products each, at
+// least 0.3336 ms on the tensor cores. A codebook of that width (53.8 MB of
+// hi and lo) no longer fits in L2 beside z, and z no longer fits in shared
+// memory, so the design streams both and makes each staged byte feed more
+// products:
+//   1. wide_split_kernel writes hi / lo of z and e row-major at width DP (D
+//      rounded up to 32; zero columns add exact zeros) and |x|^2 as one FMA
+//      chain a row in column order, so identical codewords get identical
+//      norms.
+//   2. topk_wide_kernel, warp-specialized as the bf16 attention kernels
+//      (wide.cuh): a producer warpgroup stages, by 16-byte cp.async into
+//      wgmma's 128-byte swizzle layout, a 32-column chunk of z's hi and lo
+//      for the block's 128 rows and of the tile's hi and lo for its 128
+//      codebook rows, KW_STAGES ahead through `full` / `empty` mbarriers;
+//      two consumer warpgroups (64 z rows each) multiply with wgmma's tf32
+//      form, m64n128k8 with both operands K-major in shared memory (row-major
+//      z and e are), lo.hi + hi.lo + hi.hi per 8-deep step into 64 fp32
+//      registers a thread: a tile's [64 x 128] sums stay in registers over
+//      the whole width, every column summed in one order (duplicated
+//      codewords give bit-identical distances). The C fragments are those
+//      of mma.sync, so the tile is selected from the registers with the main
+//      sweep's scheme (thr filter, sorted per-lane lists of KC = 8 or 16
+//      entries for k up to 8 or 16, the quad merge at the end); blocks split
+//      the codebook's tiles over one wave (the wrapper's plan), merged by
+//      topk_merge_kernel. No [B, N] matrix is written for k up to 16.
+//      Against mma.sync (the main sweep), wgmma reads its operands from
+//      shared memory once a warpgroup rather than once a warp, and a block
+//      of 128 x 128 outputs stages 64 KB for 2 x 128 x 128 x 32 x 3 products.
+//   3. k above 16: the same sweep writes its tiles' distances to a [rows, N]
+//      scratch (KC = 0) for z rows in chunks, and wide_select_kernel picks
+//      the k smallest of each row by (value, index) in k rounds.
 
 #include <cuda_runtime.h>
 
@@ -87,6 +118,7 @@
 #include <cstdint>
 
 #include "mma_bf16.cuh"  // cp.async helpers, FULL_MASK
+#include "wide.cuh"      // mbarriers, warp specialization, wgmma descriptors
 
 namespace {
 
@@ -157,39 +189,6 @@ __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return __uint_as_float(r & 0xffffe000u);
-}
-
-// mbarriers in shared memory: a stage's "full" barrier completes when every
-// thread's copies into it have landed (cp.async arrives for the thread once
-// its earlier copies complete), its "empty" barrier when every warp is done
-// reading it. A wait names the parity of the phase it waits for.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile("{\n"
-               ".reg .pred p;\n"
-               "WAIT:\n"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-               "@!p bra WAIT;\n"
-               "}\n"
-               :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
 // d += a (16x8, row) * b (8x8, col), tf32 in, fp32 sums. a = (row g, col t),
@@ -317,7 +316,7 @@ topk_tf32_kernel(const float* __restrict__ zh_g, const float* __restrict__ zl_g,
     }
     for (int i = tid; i < TN; i += T::THREADS)
       cp_async4(eq + buf * TN + i, eq_g + (c0 + i < col_end ? c0 + i : N), true);
-    mbar_arrive_on_copies(&full[buf]);
+    mbar_arrive_copies(&full[buf]);
   };
   // z's tile (zeros past B) lands with the first codebook tile
   for (int i = tid; i < TB * CH; i += T::THREADS) {
@@ -481,10 +480,12 @@ topk_tf32_kernel(const float* __restrict__ zh_g, const float* __restrict__ zl_g,
   }
 }
 
+// The k smallest of each row over S splits' lists [S, B, k] (k <= K: the
+// list holds K, so its first k are the k smallest), by (value, index).
 template <int K>
 __global__ void __launch_bounds__(MERGE_THREADS)
 topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
-                  int B, int S, float* __restrict__ vals, int* __restrict__ idx) {
+                  int B, int S, int k, float* __restrict__ vals, int* __restrict__ idx) {
   const int row = blockIdx.x * MERGE_THREADS + threadIdx.x;
   if (row >= B) return;
   float ov[K];
@@ -492,14 +493,14 @@ topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part
 #pragma unroll
   for (int j = 0; j < K; ++j) { ov[j] = INFINITY; oi[j] = INT_MAX; }
   for (int s = 0; s < S; ++s) {
-    const size_t o = ((size_t)s * B + row) * K;
-#pragma unroll
-    for (int j = 0; j < K; ++j) insert_lex<K>(ov, oi, part_v[o + j], part_i[o + j]);
+    const size_t o = ((size_t)s * B + row) * k;
+    for (int j = 0; j < k; ++j) insert_lex<K>(ov, oi, part_v[o + j], part_i[o + j]);
   }
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    vals[(size_t)row * K + j] = ov[j];
-    idx[(size_t)row * K + j] = oi[j];
+    if (j >= k) break;
+    vals[(size_t)row * k + j] = ov[j];
+    idx[(size_t)row * k + j] = oi[j];
   }
 }
 
@@ -529,7 +530,7 @@ cudaError_t launch(const float* z, const float* e, int B, int N, int n_splits,
   err = cudaGetLastError();
   if (err != cudaSuccess || direct) return err;
   topk_merge_kernel<K><<<(B + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS,
-                         0, stream>>>(part_v, part_i, B, n_splits, vals, idx);
+                         0, stream>>>(part_v, part_i, B, n_splits, K, vals, idx);
   return cudaGetLastError();
 }
 
@@ -552,46 +553,313 @@ cudaError_t launch_k(int k, const float* z, const float* e, int B, int N, int n_
 
 // ------------------------------------------------------------ wide route --
 // k above 8 or D above 256 (see the note at the top).
-constexpr int WIDE_TILE = 16;     // z rows x codewords of a distance tile
-constexpr int WIDE_CHUNK = 32;    // columns a staged chunk
+constexpr int KW_TB = 128;     // z rows a block: 64 a consumer warpgroup
+constexpr int KW_TN = 128;     // codebook rows a tile (the wgmma's n)
+constexpr int KW_DC = 32;      // columns a staged chunk: 128-byte rows
+constexpr int KW_STAGES = 3;   // pipeline stages
+constexpr int KW_CAP = 16;     // the largest k a register list holds
+constexpr int KW_THREADS = X_THREADS;  // two consumer warpgroups and a producer warpgroup
+constexpr int KW_ZCHUNK = KW_TB * KW_DC * 4;  // bytes of z's hi or lo chunk
+constexpr int KW_ECHUNK = KW_TN * KW_DC * 4;  // bytes of the codebook's hi or lo chunk
+constexpr int KW_STAGE = 2 * (KW_ZCHUNK + KW_ECHUNK);
 constexpr int SELECT_THREADS = 256;
+static_assert(KW_DC * 4 == 128 && KW_ZCHUNK % X_ROWS8 == 0 && KW_ECHUNK % X_ROWS8 == 0,
+              "a chunk is 128-byte rows in whole 8-row swizzle atoms");
 
-// |x|^2 of rows [0, n) of x [n, D], one thread a row, one FMA chain in order
-__global__ void __launch_bounds__(128)
-wide_norms_kernel(const float* __restrict__ x, int n, int D, float* __restrict__ out) {
-  const int r = blockIdx.x * 128 + threadIdx.x;
-  if (r >= n) return;
-  const float* row = x + (size_t)r * D;
-  float acc = 0.f;
-  for (int d = 0; d < D; ++d) acc = fmaf(row[d], row[d], acc);
-  out[r] = acc;
+// dynamic shared memory of the wide sweep: the stages, each tile's |e|^2
+// beside its stage, the mbarriers
+__host__ __device__ constexpr size_t topk_wide_smem() {
+  return (size_t)KW_STAGES * (KW_STAGE + KW_TN * 4) + 16 * KW_STAGES;
 }
 
-// dist[r][c] = (zq[r] + eq[c]) - 2 z_r.e_c for z rows [0, nr) against
-// codewords [0, N); z.e one FMA chain over d in order
-__global__ void __launch_bounds__(WIDE_TILE * WIDE_TILE)
-wide_dist_kernel(const float* __restrict__ z, const float* __restrict__ zq, int nr,
-                 const float* __restrict__ e, const float* __restrict__ eq, int N, int D,
-                 float* __restrict__ dist) {
-  __shared__ float zs[WIDE_TILE][WIDE_CHUNK + 1];
-  __shared__ float es[WIDE_TILE][WIDE_CHUNK + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * WIDE_TILE + tx;
-  const int r0 = blockIdx.y * WIDE_TILE, c0 = blockIdx.x * WIDE_TILE;
-  float acc = 0.f;
-  for (int d0 = 0; d0 < D; d0 += WIDE_CHUNK) {
-    const int dn = min(WIDE_CHUNK, D - d0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < WIDE_TILE * WIDE_CHUNK; i += WIDE_TILE * WIDE_TILE) {
-      const int r = i / WIDE_CHUNK, c = i % WIDE_CHUNK;
-      zs[r][c] = r0 + r < nr && c < dn ? z[(size_t)(r0 + r) * D + d0 + c] : 0.f;
-      es[r][c] = c0 + r < N && c < dn ? e[(size_t)(c0 + r) * D + d0 + c] : 0.f;
+// Rows [0, B) are z's, rows [B, B + N) the codebook's, each D wide: hi and
+// lo row-major at width DP (a multiple of KW_DC; zeros past D) and |x|^2 as
+// one FMA chain over d in order. A block takes SPLIT_ROWS rows through
+// shared memory 32 columns at a time, a warp's reads and writes coalesced;
+// thread r < SPLIT_ROWS carries row r's chain.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+wide_split_kernel(const float* __restrict__ z, int B, const float* __restrict__ e, int N, int D,
+                  int DP, float* __restrict__ zh, float* __restrict__ zl, float* __restrict__ zq,
+                  float* __restrict__ eh, float* __restrict__ el, float* __restrict__ eq) {
+  __shared__ float xs[SPLIT_ROWS][33];
+  const int r0 = blockIdx.x * SPLIT_ROWS, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (r0 + tid == 0) eq[N] = INFINITY;  // |e|^2 of the rows past a range
+  float norm = 0.f;
+  for (int d0 = 0; d0 < DP; d0 += 32) {
+    const int c = d0 + lane;
+    for (int r = warp; r < SPLIT_ROWS; r += SPLIT_THREADS / 32) {
+      const int q = r0 + r;
+      if (q >= B + N) break;
+      const size_t row = q < B ? q : q - B;
+      const float x = c < D ? (q < B ? z : e)[row * D + c] : 0.f;
+      xs[r][lane] = x;
+      const float h = tf32_rna(x);
+      (q < B ? zh : eh)[row * DP + c] = h;
+      (q < B ? zl : el)[row * DP + c] = tf32_rna(x - h);
     }
     __syncthreads();
-    for (int c = 0; c < dn; ++c) acc = fmaf(zs[ty][c], es[tx][c], acc);
+    if (tid < SPLIT_ROWS)
+      for (int j = 0; j < 32; ++j) norm = fmaf(xs[tid][j], xs[tid][j], norm);
+    __syncthreads();  // xs is rewritten by the next chunk
   }
-  const int r = r0 + ty, c = c0 + tx;
-  if (r < nr && c < N) dist[(size_t)r * N + c] = (zq[r] + eq[c]) - 2.f * acc;
+  if (tid < SPLIT_ROWS && r0 + tid < B + N) {
+    const int q = r0 + tid;
+    if (q < B) zq[q] = norm; else eq[q - B] = norm;
+  }
+}
+
+// Byte offset of fp32 element (r, c) of a staged chunk (c < KW_DC) in
+// wgmma's 128-byte swizzle layout: row r is the 128 bytes at r * 128, its
+// 16-byte piece j (columns 4j .. 4j + 3) stored at piece j ^ (r % 8)
+// (sw_off's layout, four fp32 to a piece).
+__device__ __forceinline__ int sw_off_f32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// Columns [col0, col0 + KW_DC) of rows [0, rows) of an fp32 matrix (row r at
+// src + r * stride) into a staged chunk by 16-byte cp.async, zeros in rows
+// >= valid; the nthr threads share the work, this one being number tid.
+__device__ __forceinline__ void stage_chunk_f32(uint8_t* dst, const float* src, int stride,
+                                                int rows, int valid, int col0, int tid,
+                                                int nthr) {
+  for (int i = tid; i < rows * (KW_DC / 4); i += nthr) {
+    const int r = i / (KW_DC / 4), c = (i % (KW_DC / 4)) * 4;
+    const bool in = r < valid;
+    cp_async16(dst + sw_off_f32(r, c), in ? src + (size_t)r * stride + col0 + c : src, in);
+  }
+}
+
+// d[64 x 128] (+)= A (64 rows, shared, K-major) times B (128 rows, shared,
+// K-major), tf32 operands, fp32 sums: one 8-deep step of wgmma's tf32 form
+__device__ __forceinline__ void wg_tf32_n128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// The wide sweep. Block (x, y) takes z rows [128 x, 128 x + 128) against
+// the codebook tiles of split y; each tile's distances (|z|^2 + |e|^2) -
+// 2 z.e stay in the consumers' registers. KC > 0: each lane keeps a sorted
+// list of KC per row (KC >= k), and the block writes each row's k smallest
+// of its range to out_v / out_i ([gridDim.y, B, k]); KC == 0: the block
+// writes the distances to dist [B, N] instead.
+template <int KC>
+__global__ void __launch_bounds__(KW_THREADS, 1)
+topk_wide_kernel(const float* __restrict__ zh_g, const float* __restrict__ zl_g,
+                 const float* __restrict__ zq_g, const float* __restrict__ eh_g,
+                 const float* __restrict__ el_g, const float* __restrict__ eq_g, int B, int N,
+                 int DP, int k, int tiles_per_split, float* __restrict__ out_v,
+                 int* __restrict__ out_i, float* __restrict__ dist) {
+  constexpr int LK = KC > 0 ? KC : 1;  // a list's length
+  extern __shared__ __align__(1024) uint8_t kw_smem[];
+  uint8_t* ring = kw_smem;  // [KW_STAGES][zh, zl, eh, el chunks]
+  float* eqs = reinterpret_cast<float*>(ring + KW_STAGES * KW_STAGE);  // [KW_STAGES][KW_TN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(eqs + KW_STAGES * KW_TN);  // [KW_STAGES]
+  uint64_t* empty = full + KW_STAGES;                                      // [KW_STAGES]
+
+  const int nch = DP / KW_DC;
+  const int row0 = blockIdx.x * KW_TB;
+  const int col_begin = blockIdx.y * tiles_per_split * KW_TN;
+  const int col_end = min(N, col_begin + tiles_per_split * KW_TN);
+  const int n_tiles = (col_end - col_begin + KW_TN - 1) / KW_TN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warpgroup_index();  // 0, 1: z rows 64 wg .. 64 wg + 63; 2: the producer
+  if (smem_u32(kw_smem) % X_ROWS8) __trap();  // the swizzle needs 1024-byte chunks
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < KW_STAGES; ++i) {
+      mbar_init(&full[i], 128);   // the producer's threads, once their copies land
+      mbar_init(&empty[i], 256);  // every consumer thread
+    }
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: a tile is nch steps, each z's and the tile's hi and lo
+    // chunk; the last also the tile's |e|^2 (+inf past the range)
+    regs_dec<X_REGS_PRODUCER>();
+    const int tid = threadIdx.x - 256;
+    int it = 0;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int c0 = col_begin + tile * KW_TN;
+      for (int c = 0; c < nch; ++c, ++it) {
+        const int slot = it % KW_STAGES;
+        if (it >= KW_STAGES) mbar_wait(&empty[slot], ((it / KW_STAGES) - 1) & 1);
+        uint8_t* st = ring + slot * KW_STAGE;
+        const size_t zoff = (size_t)row0 * DP, eoff = (size_t)c0 * DP;
+        stage_chunk_f32(st, zh_g + zoff, DP, KW_TB, B - row0, c * KW_DC, tid, 128);
+        stage_chunk_f32(st + KW_ZCHUNK, zl_g + zoff, DP, KW_TB, B - row0, c * KW_DC, tid, 128);
+        stage_chunk_f32(st + 2 * KW_ZCHUNK, eh_g + eoff, DP, KW_TN, col_end - c0, c * KW_DC, tid,
+                        128);
+        stage_chunk_f32(st + 2 * KW_ZCHUNK + KW_ECHUNK, el_g + eoff, DP, KW_TN, col_end - c0,
+                        c * KW_DC, tid, 128);
+        if (c == nch - 1)
+          cp_async4(eqs + slot * KW_TN + tid, eq_g + (c0 + tid < col_end ? c0 + tid : N), true);
+        mbar_arrive_copies(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // the consumers: a thread holds rows wrow and wrow + 8 at columns 8j + 2t
+  // and 8j + 2t + 1 of the tile (C fragment j of its warp's 16 rows)
+  regs_inc<X_REGS_CONSUMER>();
+  const int wrow = row0 + 64 * wg + 16 * (warp & 3) + g;
+  const float zq0 = wrow < B ? zq_g[wrow] : 0.f;
+  const float zq1 = wrow + 8 < B ? zq_g[wrow + 8] : 0.f;
+  const int a_rows = 64 * wg * 128;  // byte offset of the warpgroup's rows in z's chunk
+  float bv[2][LK];
+  int bi[2][LK];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < LK; ++j) { bv[r][j] = INFINITY; bi[r][j] = INT_MAX; }
+  int got = 0, done = 0;  // steps acquired, steps released
+  auto acquire = [&]() {
+    mbar_wait(&full[got % KW_STAGES], (got / KW_STAGES) & 1);
+    fence_async_smem();
+    return ring + (got++ % KW_STAGES) * KW_STAGE;
+  };
+  auto release = [&]() { mbar_arrive(&empty[done++ % KW_STAGES]); };
+
+  float acc[64];
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    // z.e over the width: per 8-deep step lo.hi + hi.lo + hi.hi (lo.lo is
+    // below 2^-22 of the product), every column summed in one order
+    for (int c = 0; c < nch; ++c) {
+      const uint8_t* st = acquire();
+      const uint8_t* ah = st + a_rows;
+      const uint8_t* al = ah + KW_ZCHUNK;
+      const uint8_t* bh = st + 2 * KW_ZCHUNK;
+      const uint8_t* bl = bh + KW_ECHUNK;
+      if (c > 0) wg_hold(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KW_DC / 8; ++kk) {
+        wg_tf32_n128(acc, wg_desc(al + kk * 32), wg_desc(bh + kk * 32), c > 0 || kk > 0);
+        wg_tf32_n128(acc, wg_desc(ah + kk * 32), wg_desc(bl + kk * 32), 1);
+        wg_tf32_n128(acc, wg_desc(ah + kk * 32), wg_desc(bh + kk * 32), 1);
+      }
+      wg_commit();
+      if (c > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_prev();
+        release();
+      }
+    }
+    wg_wait_all();
+    wg_hold(acc);
+    // distances (|z|^2 + |e|^2) - 2 z.e; |e|^2 (+inf past the range) from
+    // the tile's last stage, released after
+    const float* q = eqs + ((got - 1) % KW_STAGES) * KW_TN + 2 * t;
+#pragma unroll
+    for (int j = 0; j < KW_TN / 8; ++j) {
+      const float2 e2 = *reinterpret_cast<const float2*>(q + 8 * j);
+      acc[4 * j] = (zq0 + e2.x) - 2.0f * acc[4 * j];
+      acc[4 * j + 1] = (zq0 + e2.y) - 2.0f * acc[4 * j + 1];
+      acc[4 * j + 2] = (zq1 + e2.x) - 2.0f * acc[4 * j + 2];
+      acc[4 * j + 3] = (zq1 + e2.y) - 2.0f * acc[4 * j + 3];
+    }
+    release();
+    const int cbase = col_begin + tile * KW_TN;
+
+    if constexpr (KC == 0) {
+#pragma unroll
+      for (int j = 0; j < KW_TN / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = wrow + 8 * r, col = cbase + 8 * j + 2 * t;
+          if (row >= B) continue;
+          float* o = dist + (size_t)row * N + col;
+          if (col < col_end) o[0] = acc[4 * j + 2 * r];
+          if (col + 1 < col_end) o[1] = acc[4 * j + 2 * r + 1];
+        }
+    } else {
+      // Filter, as the main sweep's: a value is a candidate for the lane's
+      // list of its row only if it is below thr, the smallest last entry of
+      // the quad's four lists of that row (a branch-free test into bit 2j +
+      // h for column 8j + 2t + h); the candidates are inserted in ascending
+      // column order, so a strict "<" keeps the lower index ahead on equal
+      // values.
+      float thr[2];
+      uint32_t m[2] = {0u, 0u};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        thr[r] = quad_min(bv[r][LK - 1]);
+#pragma unroll
+        for (int j = 0; j < KW_TN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            m[r] |= (uint32_t)(acc[4 * j + 2 * r + h] < thr[r]) << (2 * j + h);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t bits = m[r];
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          bits &= bits - 1;
+          // value b of the row: a tree of selects on b's bits, low bit first
+          float v[KW_TN / 4];
+#pragma unroll
+          for (int x = 0; x < KW_TN / 4; ++x) v[x] = acc[4 * (x >> 1) + 2 * r + (x & 1)];
+#pragma unroll
+          for (int w = 1; w < KW_TN / 4; w *= 2)
+#pragma unroll
+            for (int x = 0; x < KW_TN / 4; x += 2 * w) v[x] = (b & w) ? v[x + w] : v[x];
+          if (v[0] < thr[r]) {
+            insert_sorted<LK>(bv[r], bi[r], v[0], cbase + (b >> 1) * 8 + 2 * t + (b & 1));
+            thr[r] = fminf(thr[r], bv[r][LK - 1]);
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (KC > 0) {
+    // merge the quad's four lists of each row: k rounds of a quad minimum
+    // by (value, index); the lane holding it drops its head
+    const size_t o = ((size_t)blockIdx.y * B + wrow) * k;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      for (int j = 0; j < k; ++j) {
+        float v = bv[r][0];
+        int i = bi[r][0];
+#pragma unroll
+        for (int s = 1; s < 4; s <<= 1) {
+          const float v2 = __shfl_xor_sync(FULL_MASK, v, s);
+          const int i2 = __shfl_xor_sync(FULL_MASK, i, s);
+          if (lex_less(v2, i2, v, i)) { v = v2; i = i2; }
+        }
+        if (bi[r][0] == i) {
+#pragma unroll
+          for (int p = 0; p < LK - 1; ++p) { bv[r][p] = bv[r][p + 1]; bi[r][p] = bi[r][p + 1]; }
+          bv[r][LK - 1] = INFINITY;
+          bi[r][LK - 1] = INT_MAX;
+        }
+        if (t == 0 && wrow + 8 * r < B) {
+          out_v[o + (size_t)8 * r * k + j] = v;
+          out_i[o + (size_t)8 * r * k + j] = i;
+        }
+      }
+    }
+  }
 }
 
 // The k smallest of each row of dist [rows, N] by (value, index): round j
@@ -639,24 +907,72 @@ wide_select_kernel(const float* __restrict__ dist, int N, int k, float* __restri
   }
 }
 
-cudaError_t launch_wide(const float* z, const float* e, int B, int N, int D, int k, int rows,
-                        float* scratch, float* vals, int* idx, cudaStream_t s) {
-  float* zq = scratch;
-  float* eq = zq + B;
-  float* dist = eq + N;
-  wide_norms_kernel<<<(B + 127) / 128, 128, 0, s>>>(z, B, D, zq);
-  wide_norms_kernel<<<(N + 127) / 128, 128, 0, s>>>(e, N, D, eq);
+// x_regs_of of one build of the wide sweep, read at its first launch
+template <int KC>
+int topk_wide_regs() {
+  static const int code = x_regs_of(topk_wide_kernel<KC>);
+  return code;
+}
+
+// One launch of the wide sweep over z rows [0, B) (pointers at the rows'
+// hi / lo / |z|^2), once its build has the registers its split needs.
+template <int KC>
+cudaError_t sweep_wide(const float* zh, const float* zl, const float* zq, const float* eh,
+                       const float* el, const float* eq, int B, int N, int DP, int k,
+                       int splits, int tiles_per_split, int smem, float* out_v, int* out_i,
+                       float* dist, cudaStream_t s) {
+  const int regs = topk_wide_regs<KC>();
+  if (regs != cudaSuccess) return (cudaError_t)regs;
+  const cudaError_t err = cudaFuncSetAttribute(
+      topk_wide_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  topk_wide_kernel<KC><<<dim3((B + KW_TB - 1) / KW_TB, splits), KW_THREADS, smem, s>>>(
+      zh, zl, zq, eh, el, eq, B, N, DP, k, tiles_per_split, out_v, out_i, dist);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wide(const float* z, const float* e, int B, int N, int D, int DP, int k,
+                        int splits, int tiles_per_split, int rows, int smem, float* scratch,
+                        float* part_v, int* part_i, float* vals, int* idx, cudaStream_t s) {
+  float* zh = scratch;
+  float* zl = zh + (size_t)B * DP;
+  float* eh = zl + (size_t)B * DP;
+  float* el = eh + (size_t)N * DP;
+  float* eq = el + (size_t)N * DP;
+  float* zq = eq + N + 1;
+  float* dist = zq + B;
+  wide_split_kernel<<<(B + N + SPLIT_ROWS - 1) / SPLIT_ROWS, SPLIT_THREADS, 0, s>>>(
+      z, B, e, N, D, DP, zh, zl, zq, eh, el, eq);
   cudaError_t err = cudaGetLastError();
-  for (int r0 = 0; r0 < B && err == cudaSuccess; r0 += rows) {
-    const int nr = min(rows, B - r0);
-    const dim3 grid((N + WIDE_TILE - 1) / WIDE_TILE, (nr + WIDE_TILE - 1) / WIDE_TILE);
-    wide_dist_kernel<<<grid, dim3(WIDE_TILE, WIDE_TILE), 0, s>>>(
-        z + (size_t)r0 * D, zq + r0, nr, e, eq, N, D, dist);
-    wide_select_kernel<<<nr, SELECT_THREADS, 0, s>>>(dist, N, k, vals + (size_t)r0 * k,
-                                                      idx + (size_t)r0 * k);
-    err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (k > KW_CAP) {  // the distances of `rows` z rows at a time, then the selection
+    for (int r0 = 0; r0 < B && err == cudaSuccess; r0 += rows) {
+      const int nr = min(rows, B - r0);
+      const size_t zo = (size_t)r0 * DP;
+      err = sweep_wide<0>(zh + zo, zl + zo, zq + r0, eh, el, eq, nr, N, DP, k, splits,
+                          tiles_per_split, smem, nullptr, nullptr, dist, s);
+      if (err != cudaSuccess) return err;
+      wide_select_kernel<<<nr, SELECT_THREADS, 0, s>>>(dist, N, k, vals + (size_t)r0 * k,
+                                                        idx + (size_t)r0 * k);
+      err = cudaGetLastError();
+    }
+    return err;
   }
-  return err;
+  const bool direct = splits == 1;  // one split: the sweep writes the result
+  float* ov = direct ? vals : part_v;
+  int* oi = direct ? idx : part_i;
+  err = k <= 8 ? sweep_wide<8>(zh, zl, zq, eh, el, eq, B, N, DP, k, splits, tiles_per_split,
+                               smem, ov, oi, nullptr, s)
+               : sweep_wide<KW_CAP>(zh, zl, zq, eh, el, eq, B, N, DP, k, splits,
+                                    tiles_per_split, smem, ov, oi, nullptr, s);
+  if (err != cudaSuccess || direct) return err;
+  const dim3 grid((B + MERGE_THREADS - 1) / MERGE_THREADS);
+  if (k <= 8)
+    topk_merge_kernel<8><<<grid, MERGE_THREADS, 0, s>>>(part_v, part_i, B, splits, k, vals, idx);
+  else
+    topk_merge_kernel<KW_CAP><<<grid, MERGE_THREADS, 0, s>>>(part_v, part_i, B, splits, k, vals,
+                                                              idx);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -717,17 +1033,28 @@ extern "C" int medtok_topk_l2(const void* z, const void* e, int B, int N,
 }
 
 // The wide route (the wrapper takes it for k above 8 or dim above 256): z
-// [B, dim] and e [N, dim] fp32 row-major, any dim >= 1 and 1 <= k <= N;
-// rows z rows a chunk (1 to 1,048,560); scratch holds B + N + rows * N
-// floats; vals / idx receive [B, k].
-extern "C" int medtok_topk_l2_wide(const void* z, const void* e, int B, int N, int dim,
-                                   int k, int rows, void* scratch, void* vals, void* idx,
-                                   void* stream) {
-  if (B <= 0 || N <= 0 || dim <= 0 || k < 1 || k > N || rows <= 0 ||
-      (rows + WIDE_TILE - 1) / WIDE_TILE > 65535)
+// [B, dim] and e [N, dim] fp32 row-major, any dim >= 1 and 1 <= k <= N, by
+// the wrapper's plan: dp = dim rounded up to a multiple of 32, `splits`
+// splits of `tiles_per_split` 128-row codebook tiles (every tile in one),
+// `rows` z rows a distance chunk for k above 16 (else unused), `smem`
+// bytes of dynamic shared memory (at least the sweep's, at most 232,448).
+// scratch holds 2 (B + N) dp + B + N + 1 floats, and rows * N more for k
+// above 16; part_v / part_i hold [splits, B, k] (unused for one split or k
+// above 16); vals / idx receive [B, k].
+extern "C" int medtok_topk_l2_wide(const void* z, const void* e, int B, int N, int dim, int dp,
+                                   int k, int splits, int tiles_per_split, int rows, int smem,
+                                   void* scratch, void* part_v, void* part_i, void* vals,
+                                   void* idx, void* stream) {
+  if (B <= 0 || N <= 0 || dim <= 0 || dp < dim || dp % KW_DC || dp - dim >= KW_DC || k < 1 ||
+      k > N || splits < 1 || splits > 65535 || tiles_per_split < 1 ||
+      (long long)(splits - 1) * tiles_per_split * KW_TN >= N ||
+      (long long)splits * tiles_per_split * KW_TN < N || (k > KW_CAP && rows < 1) ||
+      smem < (long long)topk_wide_smem() || smem > X_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_wide(static_cast<const float*>(z), static_cast<const float*>(e), B, N,
-                          dim, k, rows, static_cast<float*>(scratch),
+  return (int)launch_wide(static_cast<const float*>(z), static_cast<const float*>(e), B, N, dim,
+                          dp, k, splits, tiles_per_split, rows, smem,
+                          static_cast<float*>(scratch),
+                          static_cast<float*>(part_v), static_cast<int*>(part_i),
                           static_cast<float*>(vals), static_cast<int*>(idx),
                           static_cast<cudaStream_t>(stream));
 }

@@ -3,8 +3,8 @@
 // and flash_attention.cu (K3). A wide kernel reads Dh at run time. Two
 // families:
 //
-// bf16, on the tensor cores (K2 / K4 and K3's forward), with wgmma. A
-// block is warp-specialized: a producer warpgroup streams the head width
+// bf16, on the tensor cores (K2 / K4 and K3's forward and dk / dv), with
+// wgmma. A block is warp-specialized: a producer warpgroup streams the head width
 // through shared memory in chunks of XC = 64 columns (stage_chunk, by
 // cp.async into wgmma's 128-byte swizzle layout, sw_off: 16-byte copies
 // where every row start and Dh allow it, else 4-byte copies, else (odd Dh)
@@ -14,8 +14,8 @@
 // producer's registers to the consumers (X_REGS_*: a launch is refused
 // unless the kernel was built with the registers the split needs, which
 // also keep a block alone on its SM). A consumer
-// warpgroup multiplies 64 query rows, its wgmma reading K and V (and K3's
-// Q) straight from shared memory. A score tile S = Q K^T is the sum of the
+// warpgroup multiplies 64 query rows (K3's dk / dv: 64 key rows), its
+// wgmma reading K and V (and K3's Q) straight from shared memory. A score tile S = Q K^T is the sum of the
 // chunks' products (fp32 sums, bf16 operands exact). The output columns
 // are split into slices of a few chunks (192 columns; K3: 192 or 256), a
 // grid dimension: each block holds its slice of O in registers and
@@ -25,7 +25,7 @@
 // atomics, so a launch is deterministic. The fragment layouts are those of
 // mma_bf16.cuh.
 //
-// fp32 (and K3's dq / dkv in bf16 too), on the CUDA cores: a block of WT =
+// fp32 (and K3's dq in bf16 too), on the CUDA cores: a block of WT =
 // 128 threads stages the operands through shared memory in chunks of WC =
 // 32 columns (a scalar load per element, so any Dh and any alignment of a
 // row's end work), and keeps its fp32 output sums in a global scratch

@@ -59,8 +59,10 @@ _SIGNATURES = {
     # z rows a block, codebook rows a tile, at a built width
     "medtok_topk_tile_b": ([_I], ctypes.c_int),
     "medtok_topk_tile_n": ([_I], ctypes.c_int),
-    # the wide route: z, e, B, N, dim, k, rows a chunk, scratch, vals, idx, stream
-    "medtok_topk_l2_wide": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
+    # the wide route: z, e, B, N, dim, then the plan's dim in whole chunks,
+    # k, splits, tiles a split, z rows a distance chunk, shared-memory
+    # bytes, then scratch, part_vals, part_idx, vals, idx, stream
+    "medtok_topk_l2_wide": ([_P, _P] + [_I] * 9 + [_P] * 6, ctypes.c_int),
     # q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream
     "medtok_segment_attention": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),
@@ -92,8 +94,11 @@ _SIGNATURES = {
     # chunks a slice (3 or 4), Q resident (0 / 1) and shared-memory bytes
     "medtok_flash_fwd_wide_mma": ([_P] * 6 + [_I] * 4 + _K3_TAIL, ctypes.c_int),
     "medtok_flash_dq_wide": ([_P] * 9 + _K3_TAIL, ctypes.c_int),
-    # ... dk, dv, scratch, query groups of 32 a split, *K3_TAIL
+    # ... dk, dv, scratch, query groups of 32 a split, *K3_TAIL (fp32)
     "medtok_flash_dkv_wide": ([_P] * 10 + [_I] + _K3_TAIL, ctypes.c_int),
+    # the bf16 dk / dv's: q, k, v, mask, lse, delta, dO, dk, dv, then the
+    # plan's slices, K / V resident (0 / 1) and shared-memory bytes
+    "medtok_flash_dkv_wide_mma": ([_P] * 9 + [_I] * 3 + _K3_TAIL, ctypes.c_int),
     "medtok_error_string": ([_I], ctypes.c_char_p),
 }
 

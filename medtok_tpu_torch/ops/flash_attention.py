@@ -70,14 +70,15 @@ the true width, as the JAX functions take it. A wider head takes the wide
 route (``csrc/wide.cuh``): kernels of K2 / K4 (both layouts) and of K3's
 forward, dq and dkv that read Dh at run time, with the plain versions'
 rounding points (128-key blocks for K2 / K4, 512 for K3's forward, the
-same hash). In bf16, K2 / K4 and K3's forward run on the tensor cores
-(``wgmma``): the head width streams through shared memory in chunks of
-64 columns, and the output columns are split into slices of 192 (K2 /
-K4) or of 192 or 256 (K3) that a block holds in registers (``segment_wide_plan``,
-``flash_fwd_wide_plan``: slices, block rows, shared memory and grid,
+same hash). In bf16, K2 / K4 and K3's forward and dk / dv run on the
+tensor cores (``wgmma``): the head width streams through shared memory in
+chunks of 64 columns, and the output columns are split into slices of 192
+(K2 / K4), of 192 or 256 (K3's forward) or of 128 (K3's dk / dv) that a
+block holds in registers (``segment_wide_plan``, ``flash_fwd_wide_plan``,
+``flash_dkv_wide_plan``: slices, block rows, shared memory and grid,
 computed here and passed to the kernel); no scratch. The fp32 wide routes
-and K3's dq and dkv in either dtype run on the CUDA cores with fp32 sums
-in a scratch buffer. Each wrapper counts the wide launches apart
+and K3's dq in either dtype run on the CUDA cores with fp32 sums in a
+scratch buffer. Each wrapper counts the wide launches apart
 (``.wide_launches``).
 """
 
@@ -114,6 +115,11 @@ _SEG_WIDE_ROWS, _SEG_WIDE_STAGES, _SEG_WIDE_SLICE, _SEG_WIDE_SMALL = 128, 4, 192
 # K3's forward: queries a block (two warpgroups), keys a tile, stages,
 # slice columns at most
 _FWD_WIDE_ROWS, _FWD_WIDE_TILE, _FWD_WIDE_STAGES, _FWD_WIDE_SLICE = 128, 64, 4, 256
+# K3's dk / dv: keys a block (two warpgroups), queries a tile, stages, slice
+# columns; shared bytes past the stages (lse and D of two query tiles, the
+# stages' mbarriers)
+_DKV_WIDE_ROWS, _DKV_WIDE_TILE, _DKV_WIDE_STAGES, _DKV_WIDE_SLICE = 128, 64, 4, 128
+_DKV_WIDE_SMALL = 2 * 2 * _DKV_WIDE_TILE * 4 + 16 * _DKV_WIDE_STAGES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,8 +128,9 @@ class WidePlan:
     [i * slice_width, min((i + 1) * slice_width, Dh)); ``block_rows``
     queries a block; ``smem`` bytes of dynamic shared memory; ``grid`` the
     CUDA grid (blocks numbered slice fastest, then query tile, then batch
-    row and head). ``q_resident``: K3's forward keeps the block's Q in
-    shared memory for the whole launch."""
+    row and head; K3's dk / dv: key rows and key blocks where the others
+    have queries). ``q_resident``: K3's forward keeps the block's Q (its
+    dk / dv: K and V) in shared memory for the whole launch."""
 
     slices: int
     slice_width: int
@@ -186,6 +193,29 @@ def flash_fwd_wide_plan(BH: int, Lq: int, Lk: int, Dh: int) -> WidePlan:
                          f"keys, got {Lk}")
     blocks = BH * -(-Lq // rows) * slices
     return WidePlan(slices, width, rows, smem, _wide_grid(blocks, "K3"), q_resident)
+
+
+def flash_dkv_wide_plan(BH: int, Lq: int, Lk: int, Dh: int) -> WidePlan:
+    """The plan of K3's bf16 wide dk / dv at q [BH, Lq, Dh], k / v [BH, Lk,
+    Dh]: 128 keys a block, slices of 128 output columns (the last holding
+    what is left); K's and V's chunks resident in shared memory where they
+    fit beside four stages of Q's and dO's 64-query chunks, else staged in
+    each stage beside them; lse and D of two query tiles and the mbarriers;
+    at least the two output tiles. The grid needs no query split: one block
+    a (b*h, 128 keys, slice)."""
+    if Dh <= 3 * WIDE_CHUNK:
+        raise ValueError(f"K3's bf16 wide dk / dv takes Dh above {3 * WIDE_CHUNK}, got {Dh}")
+    width = _DKV_WIDE_SLICE
+    slices = -(-Dh // width)
+    rows, tile, stages = _DKV_WIDE_ROWS, _DKV_WIDE_TILE, _DKV_WIDE_STAGES
+    kv = 2 * -(-Dh // WIDE_CHUNK) * rows * _WIDE_ROW_BYTES  # K's and V's chunks
+    resident = kv + stages * 2 * tile * _WIDE_ROW_BYTES + _DKV_WIDE_SMALL
+    kv_resident = resident <= WIDE_SMEM_MAX
+    layout = resident if kv_resident else \
+        stages * 2 * (tile + rows) * _WIDE_ROW_BYTES + _DKV_WIDE_SMALL
+    smem = max(layout, 2 * rows * (width + 8) * 2)
+    blocks = BH * -(-Lk // rows) * slices
+    return WidePlan(slices, width, rows, smem, _wide_grid(blocks, "K3's dk / dv"), kv_resident)
 
 
 def _block_softmax_pv(s, valid, v, block_k: int, keep=None):
@@ -551,11 +581,12 @@ def _k3_check(q, k, v, key_mask, extra=()) -> int | None:
     width = _build.route_width(Dh, "head width")
     if Lq < 1 or k.shape[2] < 1:
         raise ValueError(f"K3 takes Lq, Lk >= 1, got {Lq}, {k.shape[2]}")
-    # the CUDA-core wide kernels' grids (fp32; dq and dkv, which get extra):
-    # the bf16 forward's plan checks its own grid
+    # the CUDA-core wide kernels' grids (fp32; dq, which the backward shares
+    # with dkv, so both get extra): the bf16 forward's and dkv's plans check
+    # their own grids
     if width is None and (q.dtype == torch.float32 or extra) \
             and max(Lq, k.shape[2]) > _WIDE_MAX_ROWS:
-        raise ValueError(f"K3's CUDA-core wide kernels (fp32; dq and dkv) take Lq, Lk up "
+        raise ValueError(f"K3's CUDA-core wide kernels (fp32; dq) take Lq, Lk up "
                          f"to {_WIDE_MAX_ROWS} (their grids hold {_WIDE_MAX_ROWS // 8} "
                          f"tiles of 8 rows), got {Lq}, {k.shape[2]}")
     if key_mask.shape != (B, k.shape[2]) or key_mask.dtype != torch.bool:
@@ -636,7 +667,7 @@ def flash_attention_fwd(q, k, v, key_mask, *, sm_scale: float,
 
 
 def dkv_wide_splits(key_blocks: int, groups: int, sms: int) -> tuple[int, int]:
-    """(splits, query groups a split) of the dkv wide route: its ``groups``
+    """(splits, query groups a split) of the fp32 dkv wide route: its ``groups``
     query groups of 32 split into runs, as many as ``key_blocks`` x splits
     blocks of 128 keys fit in one wave of four blocks an SM (the blocks'
     shared memory allows four; a second, partial wave would double the
@@ -704,13 +735,19 @@ def flash_attention_dkv(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
     if width is None:  # the wide route, at the true width
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         if dk.numel():
-            B, H, Lq, _ = q.shape
-            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-            splits, per = dkv_wide_splits(B * H * math.ceil(k.shape[2] / 128),
-                                          math.ceil(Lq / 32), sms)
-            _k3_launch("medtok_flash_dkv_wide", q, k,
-                       (*tensors, dk, dv, _sums(*(k, v) * splits)), sm_scale,
-                       dropout_rate, dropout_seed, extra=(per,))
+            B, H, Lq, Dh = q.shape
+            if q.dtype == torch.bfloat16:  # the tensor cores, no scratch
+                plan = flash_dkv_wide_plan(B * H, Lq, k.shape[2], Dh)
+                _k3_launch("medtok_flash_dkv_wide_mma", q, k, (*tensors, dk, dv), sm_scale,
+                           dropout_rate, dropout_seed,
+                           extra=(plan.slices, int(plan.q_resident), plan.smem))
+            else:  # the CUDA cores: fp32 products, held to 1e-5
+                sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+                splits, per = dkv_wide_splits(B * H * math.ceil(k.shape[2] / 128),
+                                              math.ceil(Lq / 32), sms)
+                _k3_launch("medtok_flash_dkv_wide", q, k,
+                           (*tensors, dk, dv, _sums(*(k, v) * splits)), sm_scale,
+                           dropout_rate, dropout_seed, extra=(per,))
             flash_attention_dkv.wide_launches += 1
         return dk, dv
     qp, kp, vp, dop = (_build.pad_width(t, width) for t in (q, k, v, do))

@@ -13,12 +13,14 @@ export's codebook: 64); any other width from 1 to 256 is zero-padded up to
 the next of those (z and the codebook are copied then; zero columns add
 exact zeros to every distance), and it keeps k = 1 to 8 in registers. A
 wider D or a larger k (``QuantizerConfig.top_k``, set through
-``args.json``) takes the wide route, a second kernel in the same source:
-fp32 distances on the CUDA cores, computed as the plain version computes
-them, for the z rows in chunks whose [rows, N] distance scratch stays under
-``WIDE_SCRATCH_FLOATS``, then the k smallest of each row by (value, index).
-It takes any D and any k up to N, and counts its launches apart
-(``fused_topk_l2.wide_launches``).
+``args.json``) takes the wide route, a second kernel in the same source: the
+same 3xTF32 distances on the tensor cores (``wgmma``) for any D, the
+codebook's tiles split over one wave of blocks by ``wide_plan``, selected
+from the registers for k up to 16 (no [B, N] matrix); for a larger k the
+sweep writes the distances of z rows in chunks whose [rows, N] scratch stays
+under ``WIDE_SCRATCH_FLOATS`` and a second kernel takes the k smallest of
+each row by (value, index). It takes any D and any k up to N, and counts
+its launches apart (``fused_topk_l2.wide_launches``).
 
 Precision and bound: the kernel runs on the tensor cores in 3xTF32 (each
 fp32 value split into a TF32 hi and lo, z.e summed as hi.hi + hi.lo +
@@ -33,6 +35,7 @@ cores 0.1643 ms. The kernel's source note gives its design.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -43,7 +46,34 @@ from medtok_tpu_torch.ops.vq import squared_distance, topk_smallest
 _MAX_K = 8          # the 3xTF32 kernel's top-k in registers
 #: floats of the wide route's distance scratch for one chunk of z rows
 WIDE_SCRATCH_FLOATS = 1 << 26
-_WIDE_MAX_ROWS = 16 * 65535  # z rows a chunk: the distance kernel's grid
+# The wide sweep's blocks, as csrc/topk_l2.cu lays them out: z rows a block,
+# codebook rows a tile, columns a staged chunk, stages, the largest k its
+# register lists hold, the list lengths it is built with
+WIDE_ROWS, WIDE_TILE, WIDE_CHUNK, WIDE_STAGES, WIDE_CAP = 128, 128, 32, 3, 16
+_WIDE_LISTS = (8, WIDE_CAP)
+
+
+@dataclasses.dataclass(frozen=True)
+class WideSweepPlan:
+    """The launch of the wide sweep: z and the codebook at width ``dim``
+    (the true width rounded up to whole chunks); ``splits`` runs of
+    ``tiles_per_split`` codebook tiles of WIDE_TILE rows, a grid of
+    (ceil(rows / WIDE_ROWS), splits) blocks; ``cap``: the length of the
+    register lists that select k (8 or 16), or 0 for k above WIDE_CAP, when
+    the sweep writes the distances of ``rows`` z rows at a time for a
+    second kernel to select from; ``smem`` bytes of dynamic shared
+    memory."""
+
+    dim: int
+    splits: int
+    tiles_per_split: int
+    cap: int
+    rows: int
+    smem: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return (-(-self.rows // WIDE_ROWS), self.splits)
 
 
 def fused_topk_l2_reference(
@@ -85,6 +115,20 @@ def split_plan(row_blocks: int, tiles: int, sms: int) -> tuple[int, int]:
     splits = max(1, min(tiles, sms // row_blocks))
     per = math.ceil(tiles / splits)
     return math.ceil(tiles / per), per
+
+
+def wide_plan(B: int, N: int, D: int, k: int, sms: int) -> WideSweepPlan:
+    """The wide sweep's plan for z [B, D] against N codebook rows: width D
+    in whole chunks; the smallest list that holds k, else 0 and z rows in
+    chunks whose [rows, N] distances stay within WIDE_SCRATCH_FLOATS; the
+    codebook's tiles split so that one chunk's row blocks x splits fill one
+    wave of one block an SM (split_plan)."""
+    cap = next((c for c in _WIDE_LISTS if k <= c), 0)
+    rows = B if cap else max(1, min(B, WIDE_SCRATCH_FLOATS // N))
+    splits, per = split_plan(-(-rows // WIDE_ROWS), -(-N // WIDE_TILE), sms)
+    stage = 2 * (WIDE_ROWS + WIDE_TILE) * WIDE_CHUNK * 4 + WIDE_TILE * 4
+    return WideSweepPlan(WIDE_CHUNK * -(-D // WIDE_CHUNK), splits, per, cap, rows,
+                         WIDE_STAGES * stage + 16 * WIDE_STAGES)
 
 
 def fused_topk_l2(
@@ -139,19 +183,29 @@ def fused_topk_l2(
 
 def _wide(z: torch.Tensor, codebook: torch.Tensor, k: int
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The wide route (k above 8 or D above 256) at the true width."""
+    """The wide route (k above 8 or D above 256) at the true width, by
+    ``wide_plan``."""
     B, N, D = z.shape[0], codebook.shape[0], z.shape[1]
-    rows = max(1, min(B, WIDE_SCRATCH_FLOATS // N, _WIDE_MAX_ROWS))
     dev = z.device
-    # |z|^2, |e|^2, then one chunk's [rows, N] distances
-    scratch = torch.empty(B + N + rows * N, dtype=torch.float32, device=dev)
+    plan = wide_plan(B, N, D, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # hi and lo of z and the codebook, |e|^2 with one +inf after it, |z|^2,
+    # then (k above the lists) one chunk's [rows, N] distances
+    scratch = torch.empty(2 * (B + N) * plan.dim + B + N + 1 + (0 if plan.cap else
+                                                                plan.rows * N),
+                          dtype=torch.float32, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    part_v, part_i = vals, idx  # one split, or k above the lists: unused
+    if plan.cap and plan.splits > 1:
+        part_v = torch.empty((plan.splits, B, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((plan.splits, B, k), dtype=torch.int32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.medtok_topk_l2_wide(
-            z.data_ptr(), codebook.data_ptr(), B, N, D, k, rows, scratch.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            z.data_ptr(), codebook.data_ptr(), B, N, D, plan.dim, k, plan.splits,
+            plan.tiles_per_split, plan.rows, plan.smem, scratch.data_ptr(), part_v.data_ptr(),
+            part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "topk_l2_wide")
     fused_topk_l2.wide_launches += 1
     return vals, idx

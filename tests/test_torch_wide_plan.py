@@ -1,15 +1,16 @@
 """The launch plans of the bf16 wide routes (head widths above 256) on the
-tensor cores: K2 / K4 (``segment_wide_plan``) and K3's forward
-(``flash_fwd_wide_plan``). The kernels run only on the card; the plans
-are plain Python, computed by the wrappers and passed to the kernels, so
-they are held here:
+tensor cores: K2 / K4 (``segment_wide_plan``), K3's forward
+(``flash_fwd_wide_plan``) and K3's dk / dv (``flash_dkv_wide_plan``). The
+kernels run only on the card; the plans are plain Python, computed by the
+wrappers and passed to the kernels, so they are held here:
 
 - every output column falls in exactly one slice, as few slices as hold
-  the width at 192 (K2 / K4) or 256 (K3) columns each; the slice widths
-  are the kernels' builds: 192 for K2 / K4, 192 or 256 for K3;
+  the width at 192 (K2 / K4), 256 (K3's forward) or 128 (K3's dk / dv)
+  columns each; the slice widths are the kernels' builds: 192 for K2 / K4,
+  192 or 256 for K3's forward, 128 for its dk / dv;
 - shared memory within the card's 232,448 bytes a block and at least what
-  the kernel's layout takes (its stages, resident Q, the key-mask bits and
-  the output tile);
+  the kernel's layout takes (its stages, resident Q or K / V, the key-mask
+  bits or lse / D, and the output tiles);
 - grids within CUDA's limits at the shapes the card runs them at;
 - the plans' constants are the kernels' (read from the CUDA sources), and
   the register split of a warp-specialized block fills one block's launch
@@ -35,9 +36,10 @@ CSRC = Path(fa.__file__).resolve().parent.parent / "csrc"
 SMEM_MAX = 232_448
 ROW_BYTES = 64 * 2              # a staged chunk's row in shared memory
 GRID_X_MAX, GRID_YZ_MAX = 2**31 - 1, 65535
-KINDS = ("K2", "K4", "K3-fwd")
-SLICE_MOST = {"K2": 192, "K4": 192, "K3-fwd": 256}
-SLICE_BUILT = {"K2": (192,), "K4": (192,), "K3-fwd": (192, 256)}  # the kernels' templates
+KINDS = ("K2", "K4", "K3-fwd", "K3-dkv")
+SLICE_MOST = {"K2": 192, "K4": 192, "K3-fwd": 256, "K3-dkv": 128}
+# the kernels' templates
+SLICE_BUILT = {"K2": (192,), "K4": (192,), "K3-fwd": (192, 256), "K3-dkv": (128,)}
 ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
 
 
@@ -47,6 +49,8 @@ def _plan(kind: str, Dh: int, B: int = 3, H: int = 2, L: int = 300, Lk: int = 11
     against Lk keys."""
     if kind == "K3-fwd":
         return fa.flash_fwd_wide_plan(B * H, L, Lk, Dh)
+    if kind == "K3-dkv":
+        return fa.flash_dkv_wide_plan(B * H, L, Lk, Dh)
     return fa.segment_wide_plan(B, H, L, Dh)
 
 
@@ -68,7 +72,19 @@ def test_wide_plan_shared_memory_fits_the_card_and_the_layout(kind):
     for Dh in range(257, 2049):
         plan = _plan(kind, Dh)
         out_tile = plan.block_rows * (plan.slice_width + 8) * 2
+        if kind == "K3-dkv":  # dK's and dV's tiles, both staged at the end
+            out_tile *= 2
         assert out_tile <= plan.smem <= SMEM_MAX, (Dh, plan)
+        if kind == "K3-dkv":
+            # resident K and V (two 128-key chunks a 64 columns) beside four
+            # stages of Q's and dO's 64-query chunk, else K's and V's chunk
+            # in every stage too; then lse and D of two tiles, 4 mbarriers
+            chunks, small = -(-Dh // 64), 2 * 2 * 64 * 4 + 16 * 4
+            resident = (2 * chunks * 128 + 4 * 2 * 64) * ROW_BYTES + small
+            assert plan.q_resident == (resident <= SMEM_MAX), (Dh, plan)
+            need = resident if plan.q_resident else 4 * 2 * (64 + 128) * ROW_BYTES + small
+            assert plan.block_rows == 128 and plan.smem >= need, (Dh, plan)
+            continue
         if kind != "K3-fwd":
             # four stages of Q's and K's chunk, then a key block's segment ids
             assert plan.block_rows == 128 and not plan.q_resident
@@ -110,6 +126,26 @@ def test_flash_fwd_wide_grid_within_cuda_limits(BH, Lq, Lk, Dh):
     assert plan.smem <= SMEM_MAX
 
 
+@pytest.mark.parametrize("BH,Lq,Lk,Dh", K3_SHAPES)
+def test_flash_dkv_wide_grid_within_cuda_limits(BH, Lq, Lk, Dh):
+    """One block a (b*h, 128 keys, slice): no query split, so no scratch
+    and no second kernel."""
+    plan = fa.flash_dkv_wide_plan(BH, Lq, Lk, Dh)
+    x, y, z = plan.grid
+    assert (y, z) == (1, 1) and 1 <= x <= GRID_X_MAX
+    assert x == BH * -(-Lk // 128) * plan.slices
+    assert plan.smem <= SMEM_MAX
+
+
+@pytest.mark.parametrize("Dh,resident", [(320, True), (512, False), (1000, False)])
+def test_flash_dkv_wide_plan_keeps_k_and_v_resident_where_they_fit(Dh, resident):
+    """At Dh 320 K's and V's 128 rows (160 KB) stay in shared memory beside
+    four 16 KB stages; at 512 and 1000 they come with every score step."""
+    plan = fa.flash_dkv_wide_plan(16, 1100, 1100, Dh)
+    assert plan.q_resident == resident and plan.slices == -(-Dh // 128)
+    assert plan.smem == (230_464 if resident else 197_696)
+
+
 def test_wide_plans_raise_past_their_grid_and_shared_memory():
     with pytest.raises(ValueError, match="blocks"):
         fa.segment_wide_plan(2**16, 2**8, 2**14, 300)
@@ -117,6 +153,10 @@ def test_wide_plans_raise_past_their_grid_and_shared_memory():
         fa.flash_fwd_wide_plan(2**20, 2**18, 10, 300)
     with pytest.raises(ValueError, match="key mask"):
         fa.flash_fwd_wide_plan(1, 10, 4_000_000, 300)
+    with pytest.raises(ValueError, match="blocks"):
+        fa.flash_dkv_wide_plan(2**20, 10, 2**18, 300)
+    with pytest.raises(ValueError, match="above 192"):
+        fa.flash_dkv_wide_plan(1, 10, 10, 192)
 
 
 def test_wide_plan_constants_are_the_kernels():
@@ -151,6 +191,13 @@ def test_wide_plan_constants_are_the_kernels():
     assert const("segment_attention.cu", "SW_THREADS") == "X_THREADS"
     assert const("flash_attention.cu", "MT") == str(fa._FWD_WIDE_TILE)
     assert const("flash_attention.cu", "KB") == str(fa.K3_BLOCK_K)
+    assert const("flash_attention.cu", "XST_DKV") == str(fa._DKV_WIDE_STAGES)
+    assert const("flash_attention.cu", "XNV_DKV") == str(fa._DKV_WIDE_SLICE // 64)
+    assert const("flash_attention.cu", "DKV_KEYS") == str(fa._DKV_WIDE_ROWS)
+    assert const("flash_attention.cu", "DKV_QT") == str(fa._DKV_WIDE_TILE)
+    assert const("flash_attention.cu", "DKV_THREADS") == "X_THREADS"
+    assert const("flash_attention.cu", "DKV_SMALL") == "2 * 2 * DKV_QT * 4 + 16 * XST_DKV"
+    assert fa._DKV_WIDE_SMALL == 2 * 2 * fa._DKV_WIDE_TILE * 4 + 16 * fa._DKV_WIDE_STAGES
 
 
 @pytest.mark.parametrize("heads_dim", [1, 2], ids=["K2", "K4"])

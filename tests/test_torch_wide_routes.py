@@ -13,7 +13,8 @@ these plain versions there (chip_smoke.py's width phase); here, on the CPU:
   and tests/test_torch_flash3_bf16.py) with under 1% of the elements
   differing;
 - the wrappers on CPU tensors take those shapes and return the plain
-  versions' results.
+  versions' results; the fp32 dk / dv route's query splits cover every
+  group once; scripts/profile_wide.py runs its cases' plain versions.
 """
 
 import jax
@@ -188,3 +189,15 @@ def test_dkv_wide_splits_cover_every_query_group_once(key_blocks, groups, sms):
     assert [g for r in runs for g in r] == list(range(groups))
     # one wave of four blocks an SM
     assert splits == 1 or key_blocks * splits <= 4 * sms
+
+
+def test_profile_wide_script_runs_the_plain_versions_on_the_cpu():
+    """scripts/profile_wide.py with --device cpu: each of its five cases
+    (K1-wide at k 9, 5 and 64, bf16 K3-dkv-wide with every key valid and
+    with prefixes) runs the plain version at its small shape and reports a
+    time; the kernel split needs the card."""
+    from medtok_tpu_torch.scripts import profile_wide
+
+    got = profile_wide.main(["--device", "cpu", "--calls", "1"])
+    assert got.pop("device") == "cpu" and len(got) == 5
+    assert all(row["ms"] > 0 and "kernels_ms" not in row for row in got.values())
