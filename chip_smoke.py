@@ -98,6 +98,10 @@ Phases, each fatal on failure:
      (k = 5), finite outputs, each kernel then held to its plain version
      on the first inputs the path gave it (K3 by phase 7's bf16 rules with
      two backward passes bitwise equal, K2 by phase 4's, K1 by phase 3's);
+     K3's wide route by the same rules at [8*2, 1100, 320] (every key
+     valid) and at [2*2, 4096, 320] against 4,096 keys (one batch row every
+     key valid, one a prefix of 2,500), the shares of out, dq, dk and dv
+     that differ at 1100, 2003 and 4096 queries logged side by side;
      and an fp32 export at the verify recipe's widths
      (text hidden 32 / 4 heads, codebook 90 x 16) on the card is held to
      the plain versions on the CPU by phase 5's tie-gap rule;
@@ -1392,7 +1396,8 @@ def check_k3_bf16(q, k, v, do, mask, kw, label: str) -> dict:
     sm_scale |ds| |k| for dq, + 1e-6), under 1% differing; lse within 1e-4. Two backward passes must be bitwise equal
     and equal to the gradients through the autograd Function. A batch row
     whose mask is all False must give 0, lse -1e30 and zero gradients.
-    Returns the largest absolute errors."""
+    Returns the largest absolute errors and ("shares") the share of each
+    output's elements that differ."""
     import torch
 
     from medtok_tpu_torch.ops import flash_attention as fa
@@ -1449,7 +1454,8 @@ def check_k3_bf16(q, k, v, do, mask, kw, label: str) -> dict:
         + f", 0 beyond the tolerance; lse max abs err {lse_err:.3e}; two backward passes "
         f"and the autograd Function bitwise equal")
     return {"out": res["out"]["max_abs"], "dq": res["dq"]["max_abs"],
-            "dkv": max(res["dk"]["max_abs"], res["dv"]["max_abs"])}
+            "dkv": max(res["dk"]["max_abs"], res["dv"]["max_abs"]),
+            "shares": {key: r["share"] for key, r in res.items()}}
 
 
 def k3_edge_masks(dev, B: int, Lk: int):
@@ -2212,7 +2218,9 @@ def check_wide_paths(table, ehr: dict, dataset, dev, gen, n: int = 16) -> dict:
     (k = 5) once for each of the step's 4 sweeps, finite outputs. Then each
     kernel is held to its plain version on the first inputs the path gave
     it (wide_inputs_of_path): K3 by check_k3_bf16, K2 by hold_k2_wide_path,
-    K1 by check_k1_case. Returns each wide route's launches by path."""
+    K1 by check_k1_case; K3's wide route also at 1100 and 4,096 queries
+    (the differing shares logged beside the path's at 2003). Returns each
+    wide route's launches by path."""
     import numpy as np
     import torch
 
@@ -2255,8 +2263,26 @@ def check_wide_paths(table, ehr: dict, dataset, dev, gen, n: int = 16) -> dict:
     do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
     check(q.dtype == torch.bfloat16 and q.shape[2:] == (mask.shape[1], 320),
           f"EHR head width 320: K3's wide forward got q {q.dtype} {list(q.shape)}")
-    check_k3_bf16(q, k, v, do, mask, kw, "wide, on the EHR path's inputs")
+    shares = {q.shape[2]: check_k3_bf16(q, k, v, do, mask, kw,
+                                        "wide, on the EHR path's inputs")["shares"]}
     del q, k, v, mask, do
+    # the wide route at wide_times' 1100 queries (every key valid) and at
+    # 4,096 (one batch row every key, one a prefix of 2,500): the share of
+    # out, dq, dk and dv that differs grows with the keys and queries summed
+    for Bf, L, lens in ((8, 1100, None), (2, 4096, (4096, 2500))):
+        q, k, v, do = (torch.randn(Bf, 2, L, 320, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        lens_t = torch.full((Bf, 1), L, device=dev) if lens is None else \
+            torch.tensor(lens, device=dev)[:, None]
+        wkw = dict(sm_scale=1.0 / 320 ** 0.5, dropout_rate=0.5, dropout_seed=K3_SEED)
+        wmask = torch.arange(L, device=dev)[None] < lens_t
+        shares[L] = check_k3_bf16(q, k, v, do, wmask, wkw, f"wide at {L} queries")["shares"]
+        del q, k, v, do
+    log("K3 wide route, bf16 [B*2, L, 320], dropout 0.5: the share of the elements "
+        "that differ from the bf16 plain version by L, the queries and keys summed: "
+        + "; ".join(f"L {L}: " + ", ".join(f"{key} {100 * sh[key]:.4f}%"
+                                           for key in ("out", "dq", "dk", "dv"))
+                    for L, sh in sorted(shares.items())))
 
     codes = 256
     sub = MedCodeDataset(dataset.kg, dataset.med_codes[:codes], dataset.descs[:codes],

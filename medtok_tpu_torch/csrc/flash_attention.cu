@@ -977,14 +977,16 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //       640), else come again in each stage beside K's. The keys come in
 //       tiles of MT = 64 and blocks of KB = 512, walked twice as
 //       flash_fwd_mma_kernel walks them (tiles with no valid key are never
-//       staged): a (tile, pass) is ceil(Dh / 64) score steps, a wgmma
-//       m64n64k16 per 16 columns with Q and K both read from shared memory,
-//       summing S = Q K^T for the warpgroup's rows over the whole width
-//       (32 registers a thread), the previous step's products left running
-//       while the next stage is awaited. Pass 0 takes the key block's
-//       maximum of s * c (c = sm_scale log2 e) over the valid keys; when
-//       the block's pass 0 ends, the running maximum m2 moves to it across
-//       the quad and O and l are rescaled once. Pass 1 recomputes S (the
+//       staged): a (tile, pass) is ceil(Dh / 64) score steps, each four
+//       wgmma m64n64k16 (one per 16 columns, Q and K both read from shared
+//       memory) into a fresh accumulator, whose product is added to S = Q
+//       K^T for the warpgroup's rows in fp32 once it is done (32 + 32
+//       registers a thread; wgmma's own sum over the whole width rounds
+//       otherwise than an fp32 product, and at 4,096 keys 1.2% of the
+//       outputs then differed from the plain version's). Pass 0 takes the
+//       key block's maximum of s * c (c = sm_scale log2 e) over the valid
+//       keys; when the block's pass 0 ends, the running maximum m2 moves to
+//       it across the quad and O and l are rescaled once. Pass 1 recomputes S (the
 //       tensor cores give the same bits), takes p = 2^(s c - m2), adds the
 //       unrounded p to l, applies the hashed keep factor and 1 / (1 - rate)
 //       per element, and rounds p~ to bf16 as the A fragments of P V (0 on
@@ -1030,12 +1032,53 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //       232 registers. No scratch, no second kernel, no atomics: a launch is
 //       deterministic. lse and D of a tile come with its first step, into
 //       one of two halves of a small ring.
-//   dq in both dtypes and dkv in fp32, on the CUDA cores. dq: one block of
-//       WT threads per (b*h, WQ queries); dkv: one per (b*h, WT keys),
-//       thread t scoring key t.
+//   dq, bf16 (flash_dq_wide_mma_kernel), on the tensor cores with wgmma,
+//       warp-specialized as the forward. A block owns MR = 128 queries of
+//       one b*h (64 a consumer warpgroup) and one slice of dQ's output
+//       columns, and walks the key tiles in order, as the TPU kernel walks
+//       its key blocks with dQ in VMEM: the slice's dQ stays in registers
+//       for the whole walk (no scratch, no atomics, no second kernel, no
+//       key split; blocks numbered slice fastest, then query tile, then
+//       b*h). Registers decide the design: a consumer thread holds W / 2
+//       fp32 sums of a W-column slice, NT / 2 each of S and dP for a tile
+//       of NT keys and NT / 4 of ds's A fragments, within 232: NT =
+//       XNT_DQ = 64 keys, slices of XNV_DQ = 3 chunks (192 columns; 96 + 32
+//       + 32 + 16 registers), S and dP recomputed for each slice (10 Dh
+//       operations a (query, key) at Dh 320 against the least 6 Dh). 32-key
+//       tiles over 320 columns (no recompute, S and dP by the half-width
+//       m64n32k16) took about 20% longer on an H100 at [8*2, 1100, 320]
+//       (144 blocks, two waves of one a SM, the second nearly empty, against
+//       288) and 3-5% less at EHRTrainer's [16*2, 2003, 320].
+//       Bound: 6 Dh operations a (query, valid key), 37.17 GFLOP at [8*2,
+//       1100, 320], 0.0376 ms at the bf16 peak: operations bound it, and
+//       the per-score CUDA-core work (ex2, the hash, ds) sits between each
+//       tile's products.
+//       A key tile is nc = ceil(Dh / 64) score steps, each staging K's and
+//       V's chunk (and Q's and dO's unless they stay resident, which they
+//       do where they fit: Dh up to 320) and summing S = Q K^T and dP = dO
+//       V^T for the warpgroup's 64 queries (Q, dO as A and K, V as B, all
+//       read from shared memory); then, on the fp32 fragments, a = 2^(s c -
+//       lse log2 e) on valid keys (0 on masked ones), the hashed keep
+//       factor from premultiplied terms and ds = a (keep dP - D), repacked
+//       from the registers as bf16 A fragments (the TPU's
+//       ds.astype(k.dtype)); the slice's nv steps stage its chunks of K
+//       again, read with the keys as the reduction (the forward's P V
+//       mode), for dQ += ds K. lse and D of a thread's two rows are read
+//       once into registers. S and dP are summed by wgmma over the whole
+//       width, unlike the forward's S: chunk sums in fp32 cost a wait per
+//       chunk, and dk / dv, whose kernel has no registers for them, differ
+//       from the plain version in as many elements (about 0.7% at 4,096
+//       keys on an H100, under the 1% the checks allow). A key tile with
+//       no valid key is skipped by the producer and the consumers alike
+//       (the key mask's bits in shared memory, as the forward keeps them);
+//       a batch row with none writes dq = 0. dq = sm_scale dQ, staged as
+//       bf16 rows and stored.
+//   dq and dkv in fp32, on the CUDA cores. dq: one block of WT threads per
+//       (b*h, WQ queries); dkv: one per (b*h, WT keys), thread t scoring
+//       key t.
 //   dq: key tiles of WT: s = q.k and t = dO.v by tile_dots, a = exp(s *
-//       sm_scale - lse), ds = a (keep t - D) rounded to T, acc += ds K; a
-//       tile with no valid key is skipped; dq = sm_scale acc.
+//       sm_scale - lse), ds = a (keep t - D), acc += ds K; a tile with no
+//       valid key is skipped; dq = sm_scale acc.
 //   dkv: query groups of WG = 32 (four tile_dots of WQ rows each for s and
 //       for t): ds and a~ = keep a, rounded to T, staged in shared memory;
 //       then the thread owning column d holds the group's q and dO at d in
@@ -1212,33 +1255,36 @@ flash_fwd_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   auto release = [&]() { mbar_arrive(&empty[done++ % XST_FWD]); };
 
   for (int tile = next_tile(0), pass = 0; tile < n_tiles;) {
-    // S = Q K^T of the tile for the warpgroup's 64 rows, over the width;
-    // the first product starts the sum
-    float s[32];
+    // S = Q K^T of the tile for the warpgroup's 64 rows, over the width:
+    // each chunk's product in a fresh accumulator, added to the sum in fp32
+    // (round to nearest) once it is done. wgmma's own sum of many k-steps
+    // rounds otherwise than an fp32 product: summed over the whole width,
+    // the rounded probabilities of 4,096 keys differed from the plain
+    // version's in 1.2% of the outputs
+    float s[32], sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
     for (int c = 0; c < nc; ++c) {
       const uint8_t* st = acquire();
       const uint8_t* qc = (q_resident ? q_res + c * FWD_QCHUNK : st) + sw_off(64 * wg, 0);
       const uint8_t* kc = st + (q_resident ? 0 : FWD_QCHUNK);
       const int ks = live_steps(Dh, c * XC);
-      if (c > 0) wg_hold(s);
       wg_fence();
       if (ks == XC / 16) {  // a whole chunk: the four k-steps unconditionally
 #pragma unroll
         for (int kk = 0; kk < XC / 16; ++kk)
-          wg_ss_n64(s, wg_desc(qc + kk * 32), wg_desc(kc + kk * 32), c > 0 || kk > 0);
+          wg_ss_n64(sc, wg_desc(qc + kk * 32), wg_desc(kc + kk * 32), kk > 0);
       } else {
         for (int kk = 0; kk < ks; ++kk)
-          wg_ss_n64(s, wg_desc(qc + kk * 32), wg_desc(kc + kk * 32), c > 0 || kk > 0);
+          wg_ss_n64(sc, wg_desc(qc + kk * 32), wg_desc(kc + kk * 32), kk > 0);
       }
       wg_commit();
-      if (c > 0) {  // the previous chunk's products are done: free its stage
-        wg_wait_prev();
-        release();
-      }
+      wg_wait_all();  // the chunk's products are done: free its stage, add them
+      wg_hold(sc);
+      release();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] += sc[e];
     }
-    wg_wait_all();
-    wg_hold(s);
-    release();
     uint32_t pa[MT / 16][4];  // P's A fragments, one per 16-key group
 #pragma unroll
     for (int grp = 0; grp < MT / 16; ++grp) {
@@ -1650,6 +1696,281 @@ flash_dkv_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   store_tile(dv_b, Dh, dv_s, OLD, nrows, ncols, elems, 256);
 }
 
+constexpr int XST_DQ = 4;             // pipeline stages of the bf16 wide dq
+constexpr int XNT_DQ = 64;             // keys a tile
+constexpr int XNV_DQ = 3;              // chunks of an output slice (192 columns)
+constexpr int DQ_THREADS = X_THREADS;  // two consumer warpgroups and a producer warpgroup
+constexpr int DQ_QCHUNK = MR * XC * 2;  // bytes of Q's or dO's staged chunk
+
+// dynamic shared memory of the bf16 wide dq: Q's and dO's resident chunks
+// (or room for one of each in every stage), the stages of K's and V's
+// chunks, their mbarriers and the key-mask bits; or the output tile if
+// larger
+__host__ __device__ constexpr size_t dq_wide_smem(int Dh, bool q_resident, int Lk) {
+  const size_t chunks = (size_t)(Dh + XC - 1) / XC;
+  const size_t kv = (size_t)2 * XNT_DQ * XC * 2;  // K's and V's chunk of a tile
+  const size_t layout = (q_resident ? chunks * 2 * DQ_QCHUNK + (size_t)XST_DQ * kv
+                                    : (size_t)XST_DQ * (kv + 2 * DQ_QCHUNK)) +
+                        16 * XST_DQ + (size_t)((Lk + 31) / 32) * 4;
+  const size_t out_tile = (size_t)MR * (XNV_DQ * XC + 8) * 2;
+  return layout > out_tile ? layout : out_tile;
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const bf16* __restrict__ dout, bf16* __restrict__ dq, int Dh,
+                         int slices, int q_resident, Params P) {
+  constexpr int NT = XNT_DQ, NV = XNV_DQ;
+  constexpr int KCH = NT * XC * 2;  // bytes of K's or V's staged chunk
+  constexpr int WPT = NT / 32;      // key-mask words a tile
+  const int nc = (Dh + XC - 1) / XC;  // score chunks
+  // a stage: K's and V's chunk [, Q's and dO's unless resident]
+  const int stage_bytes = 2 * KCH + (q_resident ? 0 : 2 * DQ_QCHUNK);
+  extern __shared__ __align__(1024) uint8_t wide_smem[];
+  uint8_t* q_res = wide_smem;                // resident: [nc][DQ_QCHUNK] of Q
+  uint8_t* d_res = q_res + nc * DQ_QCHUNK;   // then of dO
+  uint8_t* ring = wide_smem + (q_resident ? 2 * nc * DQ_QCHUNK : 0);  // [XST_DQ][stage]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + XST_DQ * stage_bytes);  // [XST_DQ]
+  uint64_t* empty = full + XST_DQ;                                              // [XST_DQ]
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(empty + XST_DQ);
+
+  const int n_qt = (P.Lq + MR - 1) / MR;
+  const int slice = blockIdx.x % slices;
+  const int qt = (blockIdx.x / slices) % n_qt;
+  const int bh = blockIdx.x / slices / n_qt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warpgroup_index();  // 0, 1: queries 64 wg .. 64 wg + 63; 2: the producer
+  const int qb = qt * MR;            // the block's first query
+  const int q0 = qb + warp * 16;     // a consumer warp's first query
+  const int n0 = slice * NV * XC;    // the slice's first column
+  const int nv = min(NV, (Dh - n0 + XC - 1) / XC);  // its chunks with a column < Dh
+  const int elems = copy_elems(Dh);
+  const int n_words = (P.Lk + 31) / 32;
+  const int n_tiles = (P.Lk + NT - 1) / NT;
+  const size_t qrow0 = (size_t)bh * P.Lq + qb;
+  const bf16* q_tile = q + qrow0 * Dh;
+  const bf16* do_tile = dout + qrow0 * Dh;
+  const bf16* kb = k + (size_t)bh * P.Lk * Dh;
+  const bf16* vb = v + (size_t)bh * P.Lk * Dh;
+  if (wg < 2) load_key_bits(mask + (size_t)(bh / P.H) * P.Lk, P.Lk, n_words, kbits);
+  if (smem_u32(wide_smem) % X_ROWS8) __trap();  // the swizzle needs 1024-byte chunks
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < XST_DQ; ++i) {
+      mbar_init(&full[i], 128);   // the producer's threads, once their copies land
+      mbar_init(&empty[i], 256);  // every consumer thread
+    }
+  }
+  if (q_resident) {  // every thread copies a share, landed before the loop
+    for (int c = 0; c < nc; ++c) {
+      stage_chunk(reinterpret_cast<bf16*>(q_res + c * DQ_QCHUNK), q_tile, Dh, MR, P.Lq - qb,
+                  c * XC, Dh, elems, threadIdx.x, DQ_THREADS);
+      stage_chunk(reinterpret_cast<bf16*>(d_res + c * DQ_QCHUNK), do_tile, Dh, MR, P.Lq - qb,
+                  c * XC, Dh, elems, threadIdx.x, DQ_THREADS);
+    }
+    cp_async_wait_all();
+    fence_async_smem();
+  }
+  __syncthreads();  // kbits, the mbarriers and a resident Q / dO are complete
+
+  auto word = [&](int w) { return w < n_words ? kbits[w] : 0u; };
+  auto next_tile = [&](int tile) {  // the first tile from `tile` with a valid key
+    for (; tile < n_tiles; ++tile) {
+      uint32_t any = 0u;
+#pragma unroll
+      for (int w = 0; w < WPT; ++w) any |= word(tile * WPT + w);
+      if (any != 0u) break;
+    }
+    return tile;
+  };
+  auto group_bits = [&](int tile, int grp) {  // valid keys of a 16-key group
+    const int g16 = tile * (NT / 16) + grp;
+    return (word(g16 >> 1) >> (16 * (g16 & 1))) & 0xFFFFu;
+  };
+
+  if (wg == 2) {
+    // the producer: a key tile is nc steps of score chunks (K's and V's
+    // chunk c, and Q's and dO's unless resident), then nv steps of the
+    // slice's chunks of K
+    regs_dec<X_REGS_PRODUCER>();
+    const int tid = threadIdx.x - 256;
+    int it = 0;
+    for (int tile = next_tile(0); tile < n_tiles; tile = next_tile(tile + 1)) {
+      const int r0 = tile * NT;
+      for (int c = 0; c < nc + nv; ++c, ++it) {
+        const int slot = it % XST_DQ;
+        if (it >= XST_DQ) mbar_wait(&empty[slot], ((it / XST_DQ) - 1) & 1);
+        uint8_t* st = ring + slot * stage_bytes;
+        const int col0 = c < nc ? c * XC : n0 + (c - nc) * XC;
+        stage_chunk(reinterpret_cast<bf16*>(st), kb + (size_t)r0 * Dh, Dh, NT, P.Lk - r0, col0,
+                    Dh, elems, tid, 128);
+        if (c < nc) {
+          stage_chunk(reinterpret_cast<bf16*>(st + KCH), vb + (size_t)r0 * Dh, Dh, NT,
+                      P.Lk - r0, col0, Dh, elems, tid, 128);
+          if (!q_resident) {
+            stage_chunk(reinterpret_cast<bf16*>(st + 2 * KCH), q_tile, Dh, MR, P.Lq - qb, col0,
+                        Dh, elems, tid, 128);
+            stage_chunk(reinterpret_cast<bf16*>(st + 2 * KCH + DQ_QCHUNK), do_tile, Dh, MR,
+                        P.Lq - qb, col0, Dh, elems, tid, 128);
+          }
+        }
+        if (elems == 1)  // plain stores: released by the arrive itself
+          mbar_arrive(&full[slot]);
+        else
+          mbar_arrive_copies(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns queries qb + 64 wg .. + 63, a warp 16
+  // of them, a thread rows g and g + 8 of its warp's
+  regs_inc<X_REGS_CONSUMER>();
+  const float cs = P.sm_scale * LOG2E;
+  const float keep_scale = kDrop ? 1.f / (1.f - P.rate) : 1.f;
+  const uint32_t seed_term = seed_term_of(P, bh);
+  float lse2[2], dd[2];  // lse log2 e and D of rows g, g + 8 (0 past Lq)
+  uint32_t rs[2];        // row term ^ seed term of rows g, g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + g + 8 * r;
+    const bool in = row < P.Lq;
+    lse2[r] = in ? lse[(size_t)bh * P.Lq + row] * LOG2E : 0.f;
+    dd[r] = in ? delta[(size_t)bh * P.Lq + row] : 0.f;
+    rs[r] = (uint32_t)row * ROW_MUL ^ seed_term;
+  }
+  const int wg_rows = 64 * wg * 128;  // byte offset of the warpgroup's rows in a Q / dO chunk
+  float acc[NV][32];  // the slice of dQ, 32 registers (C fragments) a chunk
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[x][e] = 0.f;
+  int got = 0, done = 0;  // steps acquired, steps released
+  // the next step's stage, once the producer's copies into it have landed
+  auto acquire = [&]() {
+    mbar_wait(&full[got % XST_DQ], (got / XST_DQ) & 1);
+    fence_async_smem();
+    return ring + (got++ % XST_DQ) * stage_bytes;
+  };
+  // the oldest unreleased stage, once the wgmma reading it have completed
+  auto release = [&]() { mbar_arrive(&empty[done++ % XST_DQ]); };
+
+  for (int tile = next_tile(0); tile < n_tiles; tile = next_tile(tile + 1)) {
+    // S = Q K^T and dP = dO V^T for the warpgroup's 64 queries and the
+    // tile's NT keys, over the width; the first products start the sums
+    float s[NT / 2], dp[NT / 2];
+    for (int c = 0; c < nc; ++c) {
+      const uint8_t* st = acquire();
+      const uint8_t* qc = (q_resident ? q_res + c * DQ_QCHUNK : st + 2 * KCH) + wg_rows;
+      const uint8_t* dc =
+          (q_resident ? d_res + c * DQ_QCHUNK : st + 2 * KCH + DQ_QCHUNK) + wg_rows;
+      const int ks = live_steps(Dh, c * XC);
+      if (c > 0) {
+        wg_hold(s);
+        wg_hold(dp);
+      }
+      wg_fence();
+      if (ks == XC / 16) {  // a whole chunk: the four k-steps unconditionally
+#pragma unroll
+        for (int kk = 0; kk < XC / 16; ++kk)
+          wg_ss_n64(s, wg_desc(qc + kk * 32), wg_desc(st + kk * 32), c > 0 || kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < XC / 16; ++kk)
+          wg_ss_n64(dp, wg_desc(dc + kk * 32), wg_desc(st + KCH + kk * 32), c > 0 || kk > 0);
+      } else {
+        for (int kk = 0; kk < ks; ++kk)
+          wg_ss_n64(s, wg_desc(qc + kk * 32), wg_desc(st + kk * 32), c > 0 || kk > 0);
+        for (int kk = 0; kk < ks; ++kk)
+          wg_ss_n64(dp, wg_desc(dc + kk * 32), wg_desc(st + KCH + kk * 32), c > 0 || kk > 0);
+      }
+      wg_commit();
+      if (c > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_prev();
+        release();
+      }
+    }
+    wg_wait_all();
+    wg_hold(s);
+    wg_hold(dp);
+    release();
+
+    // a = 2^(s c - lse log2 e) on valid keys, the keep factor and ds = a
+    // (keep dP - D) per element (query row, key column), rounded to bf16
+    // as the A fragments of dQ += ds K (the TPU's ds.astype(k.dtype)); 0 on
+    // a 16-key group with no valid key, so every wgmma runs
+    // unconditionally
+    uint32_t dsa[NT / 16][4];
+#pragma unroll
+    for (int grp = 0; grp < NT / 16; ++grp) {
+      const uint32_t gb = group_bits(tile, grp);
+      dsa[grp][0] = dsa[grp][1] = dsa[grp][2] = dsa[grp][3] = 0u;
+      if (gb == 0u) continue;  // uniform over the block
+      const bool full_group = gb == 0xFFFFu;
+      const int j0 = tile * NT + grp * 16 + 2 * t;  // columns j0 + {0, 1, 8, 9}
+      float ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = (e >> 1) & 1;
+        float a = ex2(fmaf(s[8 * grp + e], cs, -lse2[r]));
+        if (!full_group && !((gb >> (8 * (e >> 2) + 2 * t + (e & 1))) & 1u)) a = 0.f;
+        float tt = dp[8 * grp + e];
+        if (kDrop) {
+          const uint32_t ct = (uint32_t)(j0 + 8 * (e >> 2) + (e & 1)) * COL_MUL;
+          tt = hash_rounds(rs[r] ^ ct) >= P.threshold ? tt * keep_scale : 0.f;
+        }
+        ds[e] = a * (tt - dd[r]);
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dsa[grp][x] = pack_bf16(ds[2 * x], ds[2 * x + 1]);
+    }
+    // dQ += ds K over the slice's chunks of K (its rows the reduction)
+#pragma unroll
+    for (int x = 0; x < NV; ++x) {
+      if (x >= nv) break;
+      const uint8_t* kc = acquire();
+      wg_hold(acc[x]);
+#pragma unroll
+      for (int grp = 0; grp < NT / 16; ++grp) wg_hold(dsa[grp]);
+      wg_fence();
+#pragma unroll
+      for (int grp = 0; grp < NT / 16; ++grp)
+        wg_rs_n64_t(acc[x], dsa[grp], wg_desc(kc + sw_off(grp * 16, 0)));
+      wg_commit();
+      if (x > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_prev();
+        release();
+      }
+    }
+    wg_wait_all();
+#pragma unroll
+    for (int x = 0; x < NV; ++x) wg_hold(acc[x]);
+#pragma unroll
+    for (int grp = 0; grp < NT / 16; ++grp) wg_hold(dsa[grp]);
+    release();
+  }
+
+  // dq = sm_scale * dQ (0 for a row with no valid key), staged as bf16 in
+  // shared memory, then stored row by row
+  constexpr int OLD = NV * XC + 8;
+  bf16* o_s = reinterpret_cast<bf16*>(wide_smem);  // [MR][OLD]
+  consumers_sync();  // both warpgroups are done with Q, dO and the stages
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(o_s + (warp * 16 + g + 8 * r) * OLD + x * XC + 8 * j +
+                                     2 * t) =
+            pack_bf16(P.sm_scale * acc[x][4 * j + 2 * r], P.sm_scale * acc[x][4 * j + 2 * r + 1]);
+  consumers_sync();
+  store_tile(dq + qrow0 * Dh + n0, Dh, o_s, OLD, min(MR, P.Lq - qb), min(NV * XC, Dh - n0),
+             elems, 256);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(WT)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -2047,7 +2368,7 @@ extern "C" int medtok_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // The wide route of K3: any Dh >= 1 (the wrappers take it above 256). The
-// CUDA-core kernels (fwd and dkv in fp32, dq in both dtypes) take the
+// CUDA-core kernels (fp32: fwd, dq and dkv) take the
 // arguments of medtok_flash_fwd / _dq / _dkv plus fp32 scratch for the sums:
 // [B*H, Lq, Dh] (fwd, dq); dkv: for each split of `gps` query groups of WG
 // (ceil(ceil(Lq / WG) / gps) splits), two [B*H, Lk, Dh] (dk's, then dv's).
@@ -2058,8 +2379,8 @@ bool bad_wide(int B, int H, int Lq, int Lk, int Dh, int rows) {
          (rows + WT - 1) / WT > 65535 || (rows + WQ - 1) / WQ > 65535;
 }
 
-// x_regs_of of one build of the bf16 wide forward or dkv, read at its first
-// launch
+// x_regs_of of one build of the bf16 wide forward, dq or dkv, read at its
+// first launch
 template <int NV, bool kDrop>
 int fwd_wide_regs() {
   static const int code = x_regs_of(flash_fwd_wide_mma_kernel<NV, kDrop>);
@@ -2068,6 +2389,11 @@ int fwd_wide_regs() {
 template <bool kDrop>
 int dkv_wide_regs() {
   static const int code = x_regs_of(flash_dkv_wide_mma_kernel<kDrop>);
+  return code;
+}
+template <bool kDrop>
+int dq_wide_regs() {
+  static const int code = x_regs_of(flash_dq_wide_mma_kernel<kDrop>);
   return code;
 }
 
@@ -2129,19 +2455,45 @@ extern "C" int medtok_flash_dq_wide(const void* q, const void* k, const void* v,
                                     int Lq, int Lk, int Dh, float sm_scale, float rate,
                                     unsigned threshold, const void* seed, int is_bf16,
                                     void* stream) {
-  if (bad_wide(B, H, Lq, Lk, Dh, Lq)) return (int)cudaErrorInvalidValue;
+  // fp32 only: bf16 takes medtok_flash_dq_wide_mma
+  if (is_bf16 || bad_wide(B, H, Lq, Lk, Dh, Lq)) return (int)cudaErrorInvalidValue;
   const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * H, (Lq + WQ - 1) / WQ);
-  const uint8_t* m = in<uint8_t>(mask);
-  const float* l = in<float>(lse);
-  const float* dd = in<float>(delta);
-  float* acc = outp<float>(scratch);
-  if (is_bf16)
-    return (int)launch(flash_dq_wide_kernel<bf16>, grid, WT, 0, s, in<bf16>(q), in<bf16>(k),
-                       in<bf16>(v), m, l, dd, in<bf16>(dout), outp<bf16>(dq), acc, Dh, P);
   return (int)launch(flash_dq_wide_kernel<float>, grid, WT, 0, s, in<float>(q), in<float>(k),
-                     in<float>(v), m, l, dd, in<float>(dout), outp<float>(dq), acc, Dh, P);
+                     in<float>(v), in<uint8_t>(mask), in<float>(lse), in<float>(delta),
+                     in<float>(dout), outp<float>(dq), outp<float>(scratch), Dh, P);
+}
+
+// The bf16 wide dq on the tensor cores, by the wrapper's plan: `slices`
+// slices of 192 output columns (every slice holds a column < Dh), Q and dO
+// resident in shared memory or not, `smem` bytes of dynamic shared memory
+// (at least the kernel's need, at most 232,448). The other arguments as
+// medtok_flash_dq's; no scratch.
+extern "C" int medtok_flash_dq_wide_mma(const void* q, const void* k, const void* v,
+                                        const void* mask, const void* lse, const void* delta,
+                                        const void* dout, void* dq, int slices, int q_resident,
+                                        int smem, int B, int H, int Lq, int Lk, int Dh,
+                                        float sm_scale, float rate, unsigned threshold,
+                                        const void* seed, int is_bf16, void* stream) {
+  const int cols = XNV_DQ * XC;
+  if (!is_bf16 || bad_shape(B, H, Lq, Lk) || Dh <= 0 || slices != (Dh + cols - 1) / cols ||
+      smem < (long long)dq_wide_smem(Dh, q_resident != 0, Lk) || smem > X_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * H * ((Lq + MR - 1) / MR) * slices;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const Params P = params(H, Lq, Lk, sm_scale, rate, threshold, seed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)blocks);
+  // a kernel, once dq_wide_regs has found the registers its split needs
+  auto run = [&](auto kernel, int regs) {
+    if (regs != cudaSuccess) return regs;
+    return (int)launch(kernel, grid, DQ_THREADS, (size_t)smem, s, in<bf16>(q), in<bf16>(k),
+                       in<bf16>(v), in<uint8_t>(mask), in<float>(lse), in<float>(delta),
+                       in<bf16>(dout), outp<bf16>(dq), Dh, slices, q_resident, P);
+  };
+  return rate > 0.f ? run(flash_dq_wide_mma_kernel<true>, dq_wide_regs<true>())
+                    : run(flash_dq_wide_mma_kernel<false>, dq_wide_regs<false>());
 }
 
 extern "C" int medtok_flash_dkv_wide(const void* q, const void* k, const void* v,

@@ -3,8 +3,8 @@
 // and flash_attention.cu (K3). A wide kernel reads Dh at run time. Two
 // families:
 //
-// bf16, on the tensor cores (K2 / K4 and K3's forward and dk / dv), with
-// wgmma. A block is warp-specialized: a producer warpgroup streams the head width
+// bf16, on the tensor cores (K2 / K4 and K3's forward, dq and dk / dv),
+// with wgmma. A block is warp-specialized: a producer warpgroup streams the head width
 // through shared memory in chunks of XC = 64 columns (stage_chunk, by
 // cp.async into wgmma's 128-byte swizzle layout, sw_off: 16-byte copies
 // where every row start and Dh allow it, else 4-byte copies, else (odd Dh)
@@ -17,7 +17,8 @@
 // warpgroup multiplies 64 query rows (K3's dk / dv: 64 key rows), its
 // wgmma reading K and V (and K3's Q) straight from shared memory. A score tile S = Q K^T is the sum of the
 // chunks' products (fp32 sums, bf16 operands exact). The output columns
-// are split into slices of a few chunks (192 columns; K3: 192 or 256), a
+// are split into slices of a few chunks (192 columns; K3: 192 or 256, its
+// dq 192, its dk / dv 128), a
 // grid dimension: each block holds its slice of O in registers and
 // recomputes S for it; the rounded probabilities, repacked from S's
 // registers as A fragments, are multiplied into the slice's chunks of V.
@@ -25,7 +26,7 @@
 // atomics, so a launch is deterministic. The fragment layouts are those of
 // mma_bf16.cuh.
 //
-// fp32 (and K3's dq in bf16 too), on the CUDA cores: a block of WT =
+// fp32, on the CUDA cores: a block of WT =
 // 128 threads stages the operands through shared memory in chunks of WC =
 // 32 columns (a scalar load per element, so any Dh and any alignment of a
 // row's end work), and keeps its fp32 output sums in a global scratch
@@ -55,7 +56,7 @@ namespace {
 
 constexpr int WT = 128;  // threads of a wide block; B rows (keys) of a score tile
 constexpr int WC = 32;   // columns a staged chunk
-constexpr int WQ = 8;    // query rows a wide block owns (fp32 K2 / K4 / K3-fwd; K3-dq)
+constexpr int WQ = 8;    // query rows a wide block owns (fp32 K2 / K4 / K3-fwd / K3-dq)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -94,6 +94,9 @@ _SIGNATURES = {
     # chunks a slice (3 or 4), Q resident (0 / 1) and shared-memory bytes
     "medtok_flash_fwd_wide_mma": ([_P] * 6 + [_I] * 4 + _K3_TAIL, ctypes.c_int),
     "medtok_flash_dq_wide": ([_P] * 9 + _K3_TAIL, ctypes.c_int),
+    # the bf16 dq's: q, k, v, mask, lse, delta, dO, dq, then the plan's
+    # slices, Q / dO resident (0 / 1) and shared-memory bytes
+    "medtok_flash_dq_wide_mma": ([_P] * 8 + [_I] * 3 + _K3_TAIL, ctypes.c_int),
     # ... dk, dv, scratch, query groups of 32 a split, *K3_TAIL (fp32)
     "medtok_flash_dkv_wide": ([_P] * 10 + [_I] + _K3_TAIL, ctypes.c_int),
     # the bf16 dk / dv's: q, k, v, mask, lse, delta, dO, dk, dv, then the

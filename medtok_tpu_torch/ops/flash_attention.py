@@ -70,15 +70,15 @@ the true width, as the JAX functions take it. A wider head takes the wide
 route (``csrc/wide.cuh``): kernels of K2 / K4 (both layouts) and of K3's
 forward, dq and dkv that read Dh at run time, with the plain versions'
 rounding points (128-key blocks for K2 / K4, 512 for K3's forward, the
-same hash). In bf16, K2 / K4 and K3's forward and dk / dv run on the
+same hash). In bf16, K2 / K4 and K3's forward, dq and dk / dv run on the
 tensor cores (``wgmma``): the head width streams through shared memory in
 chunks of 64 columns, and the output columns are split into slices of 192
-(K2 / K4), of 192 or 256 (K3's forward) or of 128 (K3's dk / dv) that a
-block holds in registers (``segment_wide_plan``, ``flash_fwd_wide_plan``,
-``flash_dkv_wide_plan``: slices, block rows, shared memory and grid,
-computed here and passed to the kernel); no scratch. The fp32 wide routes
-and K3's dq in either dtype run on the CUDA cores with fp32 sums in a
-scratch buffer. Each wrapper counts the wide launches apart
+(K2 / K4), of 192 or 256 (K3's forward), of 192 (K3's dq) or of 128 (K3's
+dk / dv) that a block holds in registers (``segment_wide_plan``,
+``flash_fwd_wide_plan``, ``flash_dq_wide_plan``, ``flash_dkv_wide_plan``:
+slices, block rows, shared memory and grid, computed here and passed to
+the kernel); no scratch. The fp32 wide routes run on the CUDA cores with
+fp32 sums in a scratch buffer. Each wrapper counts the wide launches apart
 (``.wide_launches``).
 """
 
@@ -92,7 +92,7 @@ import torch
 from medtok_tpu_torch.ops import _build
 
 _MASKED = -1e30  # finite stand-in for -inf, as in the TPU kernel
-# rows of a CUDA-core wide launch (fp32; K3's dq and dkv): 8 a block, 65535 blocks
+# rows of a CUDA-core wide launch (fp32): 8 a block, 65535 blocks
 _WIDE_MAX_ROWS = 8 * 65535
 _M32 = 0xFFFFFFFF
 K3_BLOCK_K = 512  # K3's key block: the TPU kernel's default block_k
@@ -120,6 +120,9 @@ _FWD_WIDE_ROWS, _FWD_WIDE_TILE, _FWD_WIDE_STAGES, _FWD_WIDE_SLICE = 128, 64, 4, 
 # stages' mbarriers)
 _DKV_WIDE_ROWS, _DKV_WIDE_TILE, _DKV_WIDE_STAGES, _DKV_WIDE_SLICE = 128, 64, 4, 128
 _DKV_WIDE_SMALL = 2 * 2 * _DKV_WIDE_TILE * 4 + 16 * _DKV_WIDE_STAGES
+# K3's dq: queries a block (two warpgroups), keys a tile, stages, slice
+# columns (S and dP recomputed for each slice)
+_DQ_WIDE_ROWS, _DQ_WIDE_TILE, _DQ_WIDE_STAGES, _DQ_WIDE_SLICE = 128, 64, 4, 192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +133,8 @@ class WidePlan:
     CUDA grid (blocks numbered slice fastest, then query tile, then batch
     row and head; K3's dk / dv: key rows and key blocks where the others
     have queries). ``q_resident``: K3's forward keeps the block's Q (its
-    dk / dv: K and V) in shared memory for the whole launch."""
+    dq: Q and dO; its dk / dv: K and V) in shared memory for the whole
+    launch."""
 
     slices: int
     slice_width: int
@@ -193,6 +197,34 @@ def flash_fwd_wide_plan(BH: int, Lq: int, Lk: int, Dh: int) -> WidePlan:
                          f"keys, got {Lk}")
     blocks = BH * -(-Lq // rows) * slices
     return WidePlan(slices, width, rows, smem, _wide_grid(blocks, "K3"), q_resident)
+
+
+def flash_dq_wide_plan(BH: int, Lq: int, Lk: int, Dh: int) -> WidePlan:
+    """The plan of K3's bf16 wide dq at q [BH, Lq, Dh], k / v [BH, Lk,
+    Dh]: 128 queries a block, 64 keys a tile, slices of 192 output columns
+    (S and dP recomputed for each; the last slice holding what is left).
+    Q's and dO's chunks resident in shared memory where they fit beside
+    four stages of K's and V's chunk of a tile, their mbarriers and the key
+    mask's bits, else staged in each stage beside them; at least the
+    output tile. The grid needs no key split: one block a (b*h, 128
+    queries, slice). Raises when even the streamed layout exceeds
+    WIDE_SMEM_MAX (the mask's bits of about 286,000 keys)."""
+    width, key_tile = _DQ_WIDE_SLICE, _DQ_WIDE_TILE
+    slices = -(-Dh // width)
+    rows, stages = _DQ_WIDE_ROWS, _DQ_WIDE_STAGES
+    bits = 4 * -(-Lk // 32)
+    small = 16 * stages + bits  # the stages' mbarriers, the key-mask bits
+    resident = (2 * -(-Dh // WIDE_CHUNK) * rows + stages * 2 * key_tile) * _WIDE_ROW_BYTES \
+        + small
+    q_resident = resident <= WIDE_SMEM_MAX
+    layout = resident if q_resident else \
+        stages * 2 * (key_tile + rows) * _WIDE_ROW_BYTES + small
+    smem = max(layout, rows * (width + 8) * 2)
+    if smem > WIDE_SMEM_MAX:
+        raise ValueError(f"K3's bf16 wide dq holds the key mask of at most "
+                         f"{(WIDE_SMEM_MAX - layout + bits) // 4 * 32} keys, got {Lk}")
+    blocks = BH * -(-Lq // rows) * slices
+    return WidePlan(slices, width, rows, smem, _wide_grid(blocks, "K3's dq"), q_resident)
 
 
 def flash_dkv_wide_plan(BH: int, Lq: int, Lk: int, Dh: int) -> WidePlan:
@@ -581,12 +613,10 @@ def _k3_check(q, k, v, key_mask, extra=()) -> int | None:
     width = _build.route_width(Dh, "head width")
     if Lq < 1 or k.shape[2] < 1:
         raise ValueError(f"K3 takes Lq, Lk >= 1, got {Lq}, {k.shape[2]}")
-    # the CUDA-core wide kernels' grids (fp32; dq, which the backward shares
-    # with dkv, so both get extra): the bf16 forward's and dkv's plans check
-    # their own grids
-    if width is None and (q.dtype == torch.float32 or extra) \
-            and max(Lq, k.shape[2]) > _WIDE_MAX_ROWS:
-        raise ValueError(f"K3's CUDA-core wide kernels (fp32; dq) take Lq, Lk up "
+    # the CUDA-core wide kernels' grids (fp32): the bf16 wide kernels' plans
+    # check their own grids
+    if width is None and q.dtype == torch.float32 and max(Lq, k.shape[2]) > _WIDE_MAX_ROWS:
+        raise ValueError(f"K3's CUDA-core wide kernels (fp32) take Lq, Lk up "
                          f"to {_WIDE_MAX_ROWS} (their grids hold {_WIDE_MAX_ROWS // 8} "
                          f"tiles of 8 rows), got {Lq}, {k.shape[2]}")
     if key_mask.shape != (B, k.shape[2]) or key_mask.dtype != torch.bool:
@@ -709,8 +739,15 @@ def flash_attention_dq(q, k, v, key_mask, lse, delta, do, *, sm_scale: float,
     if width is None:  # the wide route, at the true width
         dq = torch.empty_like(q)
         if dq.numel():
-            _k3_launch("medtok_flash_dq_wide", q, k,
-                       (*tensors, dq, _sums(q)), sm_scale, dropout_rate, dropout_seed)
+            if q.dtype == torch.bfloat16:  # the tensor cores, no scratch
+                B, H, Lq, Dh = q.shape
+                plan = flash_dq_wide_plan(B * H, Lq, k.shape[2], Dh)
+                _k3_launch("medtok_flash_dq_wide_mma", q, k, (*tensors, dq), sm_scale,
+                           dropout_rate, dropout_seed,
+                           extra=(plan.slices, int(plan.q_resident), plan.smem))
+            else:  # the CUDA cores: fp32 products, held to 1e-5
+                _k3_launch("medtok_flash_dq_wide", q, k, (*tensors, dq, _sums(q)), sm_scale,
+                           dropout_rate, dropout_seed)
             flash_attention_dq.wide_launches += 1
         return dq
     qp, kp, vp, dop = (_build.pad_width(t, width) for t in (q, k, v, do))

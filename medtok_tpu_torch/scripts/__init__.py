@@ -1,7 +1,7 @@
 """A/B entry points of the port (counterparts of the JAX package's
 ``scripts/``): ``bench_adj`` times the dense-adjacency Count builds,
 ``profile_bert`` splits the packed BERT forward into its parts and
-``profile_wide`` splits K1's and K3-dkv's wide routes by kernel. Each runs
+``profile_wide`` splits K1's and K3's wide routes by kernel. Each runs
 as ``python -m medtok_tpu_torch.scripts.<name>`` and has ``main(argv) ->
 dict``.
 """

@@ -1,10 +1,13 @@
-"""Device time of two wide routes, call by call and kernel by kernel: K1's
+"""Device time of four wide routes, call by call and kernel by kernel: K1's
 (``fused_topk_l2`` at D above 256 or k above 8) at z [4096, 320] against
 21000 codewords, k 9, 5 and 64 (above the register lists: the distances
-written, then selected), and K3's bf16 dk / dv (``flash_attention_dkv`` at a
-head width above 256) at [8*2, 1100, 320], every key valid, dropout 0.5 —
-the shapes ``chip_smoke.py::wide_times`` times them at — and at EHRTrainer's
-[16*2, 2003, 320] with each row's valid keys a prefix of 500-2002.
+written, then selected), with fp32 matmul + ``torch.topk`` at k 64 beside
+it, and K3's bf16 forward, dq and dk / dv (``flash_attention_fwd``,
+``flash_attention_dq``, ``flash_attention_dkv`` at a head width above 256)
+at [8*2, 1100, 320],
+every key valid, dropout 0.5 — the shapes ``chip_smoke.py::wide_times``
+times them at — and at EHRTrainer's [16*2, 2003, 320] with each row's valid
+keys a prefix of 500-2002.
 
     python -m medtok_tpu_torch.scripts.profile_wide [--device cuda] [--calls 5]
 
@@ -56,6 +59,12 @@ def cases(dev: torch.device) -> dict:
     e = torch.nn.functional.normalize(torch.randn(N, D, generator=gen, device=dev), dim=1)
     calls = {f"K1 wide z [{B}, {D}] x e [{N}, {D}], k {k}":
              (lambda k=k: fused_topk_l2(z, e, k=k)) for k in (9, 5, 64)}
+
+    def matmul_topk(k=64):  # the library's call for K1's function
+        d = (z * z).sum(1, keepdim=True) + (e * e).sum(1)[None] - 2.0 * (z @ e.T)
+        return torch.topk(d, k, dim=1, largest=False)
+
+    calls[f"library fp32 matmul + torch.topk z [{B}, {D}] x e [{N}, {D}], k 64"] = matmul_topk
     Dh = 320
     kw = dict(sm_scale=1.0 / math.sqrt(Dh), dropout_rate=0.5, dropout_seed=SEED)
     for Bf, L, ehr in ((1, 100, False), (1, 160, True)) if small else \
@@ -67,9 +76,11 @@ def cases(dev: torch.device) -> dict:
         mask = torch.arange(L, device=dev)[None] < lens  # [Bf, L]
         out, lse = fa.flash_attention_fwd(q, k, v, mask, **kw)
         bwd = (q, k, v, mask, lse, (do.float() * out.float()).sum(-1), do)
-        valid = "keys a prefix of each row" if ehr else "every key valid"
-        calls[f"K3-dkv wide bf16 [{Bf}*2, {L}, {Dh}], {valid}, dropout 0.5"] = \
-            lambda bwd=bwd: fa.flash_attention_dkv(*bwd, **kw)
+        shape = f"bf16 [{Bf}*2, {L}, {Dh}], " + (
+            "keys a prefix of each row" if ehr else "every key valid") + ", dropout 0.5"
+        calls[f"K3-fwd wide {shape}"] = lambda bwd=bwd: fa.flash_attention_fwd(*bwd[:4], **kw)
+        calls[f"K3-dq wide {shape}"] = lambda bwd=bwd: fa.flash_attention_dq(*bwd, **kw)
+        calls[f"K3-dkv wide {shape}"] = lambda bwd=bwd: fa.flash_attention_dkv(*bwd, **kw)
     return calls
 
 

@@ -1,13 +1,15 @@
 """The launch plans of the bf16 wide routes (head widths above 256) on the
 tensor cores: K2 / K4 (``segment_wide_plan``), K3's forward
-(``flash_fwd_wide_plan``) and K3's dk / dv (``flash_dkv_wide_plan``). The
-kernels run only on the card; the plans are plain Python, computed by the
-wrappers and passed to the kernels, so they are held here:
+(``flash_fwd_wide_plan``), K3's dq (``flash_dq_wide_plan``) and K3's dk / dv
+(``flash_dkv_wide_plan``). The kernels run only on the card; the plans are
+plain Python, computed by the wrappers and passed to the kernels, so they
+are held here:
 
 - every output column falls in exactly one slice, as few slices as hold
-  the width at 192 (K2 / K4), 256 (K3's forward) or 128 (K3's dk / dv)
-  columns each; the slice widths are the kernels' builds: 192 for K2 / K4,
-  192 or 256 for K3's forward, 128 for its dk / dv;
+  the width at 192 (K2 / K4), 256 (K3's forward), 192 (K3's dq) or 128
+  (K3's dk / dv) columns each; the slice widths are the kernels' builds:
+  192 for K2 / K4, 192 or 256 for K3's forward, 192 for its dq, 128 for its
+  dk / dv;
 - shared memory within the card's 232,448 bytes a block and at least what
   the kernel's layout takes (its stages, resident Q or K / V, the key-mask
   bits or lse / D, and the output tiles);
@@ -36,10 +38,11 @@ CSRC = Path(fa.__file__).resolve().parent.parent / "csrc"
 SMEM_MAX = 232_448
 ROW_BYTES = 64 * 2              # a staged chunk's row in shared memory
 GRID_X_MAX, GRID_YZ_MAX = 2**31 - 1, 65535
-KINDS = ("K2", "K4", "K3-fwd", "K3-dkv")
-SLICE_MOST = {"K2": 192, "K4": 192, "K3-fwd": 256, "K3-dkv": 128}
+KINDS = ("K2", "K4", "K3-fwd", "K3-dkv", "K3-dq")
+SLICE_MOST = {"K2": 192, "K4": 192, "K3-fwd": 256, "K3-dkv": 128, "K3-dq": 192}
 # the kernels' templates
-SLICE_BUILT = {"K2": (192,), "K4": (192,), "K3-fwd": (192, 256), "K3-dkv": (128,)}
+SLICE_BUILT = {"K2": (192,), "K4": (192,), "K3-fwd": (192, 256), "K3-dkv": (128,),
+               "K3-dq": (192,)}
 ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
 
 
@@ -51,6 +54,8 @@ def _plan(kind: str, Dh: int, B: int = 3, H: int = 2, L: int = 300, Lk: int = 11
         return fa.flash_fwd_wide_plan(B * H, L, Lk, Dh)
     if kind == "K3-dkv":
         return fa.flash_dkv_wide_plan(B * H, L, Lk, Dh)
+    if kind == "K3-dq":
+        return fa.flash_dq_wide_plan(B * H, L, Lk, Dh)
     return fa.segment_wide_plan(B, H, L, Dh)
 
 
@@ -75,6 +80,17 @@ def test_wide_plan_shared_memory_fits_the_card_and_the_layout(kind):
         if kind == "K3-dkv":  # dK's and dV's tiles, both staged at the end
             out_tile *= 2
         assert out_tile <= plan.smem <= SMEM_MAX, (Dh, plan)
+        if kind == "K3-dq":
+            # Q's and dO's 128-row chunks resident beside four stages of K's
+            # and V's chunk of a 64-key tile, else all four chunks in every
+            # stage; then 4 mbarriers and the key-mask bits
+            chunks, tile = -(-Dh // 64), 64
+            small = 16 * 4 + 4 * -(-1100 // 32)
+            resident = (2 * chunks * 128 + 4 * 2 * tile) * ROW_BYTES + small
+            assert plan.q_resident == (resident <= SMEM_MAX), (Dh, plan)
+            need = resident if plan.q_resident else 4 * 2 * (tile + 128) * ROW_BYTES + small
+            assert plan.block_rows == 128 and plan.smem >= need, (Dh, plan)
+            continue
         if kind == "K3-dkv":
             # resident K and V (two 128-key chunks a 64 columns) beside four
             # stages of Q's and dO's 64-query chunk, else K's and V's chunk
@@ -137,6 +153,29 @@ def test_flash_dkv_wide_grid_within_cuda_limits(BH, Lq, Lk, Dh):
     assert plan.smem <= SMEM_MAX
 
 
+@pytest.mark.parametrize("BH,Lq,Lk,Dh", K3_SHAPES)
+def test_flash_dq_wide_grid_within_cuda_limits(BH, Lq, Lk, Dh):
+    """One block a (b*h, 128 queries, slice): no key split, so no scratch
+    and no second kernel."""
+    plan = fa.flash_dq_wide_plan(BH, Lq, Lk, Dh)
+    x, y, z = plan.grid
+    assert (y, z) == (1, 1) and 1 <= x <= GRID_X_MAX
+    assert x == BH * -(-Lq // 128) * plan.slices
+    assert plan.slices == -(-Dh // 192)
+    assert plan.smem <= SMEM_MAX
+
+
+@pytest.mark.parametrize("Dh,resident,smem", [
+    (320, True, 229_580), (512, False, 196_812), (1000, False, 196_812)])
+def test_flash_dq_wide_plan_keeps_q_and_do_resident_where_they_fit(Dh, resident, smem):
+    """At Dh 320 Q's and dO's 128 rows (160 KB) stay in shared memory beside
+    four 16 KB stages of 64 keys; at 512 and 1000 they come with every
+    score step (four stages of 48 KB)."""
+    plan = fa.flash_dq_wide_plan(16, 1100, 1100, Dh)
+    assert plan.q_resident == resident and plan.smem == smem
+    assert plan.slices == -(-Dh // 192)
+
+
 @pytest.mark.parametrize("Dh,resident", [(320, True), (512, False), (1000, False)])
 def test_flash_dkv_wide_plan_keeps_k_and_v_resident_where_they_fit(Dh, resident):
     """At Dh 320 K's and V's 128 rows (160 KB) stay in shared memory beside
@@ -157,6 +196,10 @@ def test_wide_plans_raise_past_their_grid_and_shared_memory():
         fa.flash_dkv_wide_plan(2**20, 10, 2**18, 300)
     with pytest.raises(ValueError, match="above 192"):
         fa.flash_dkv_wide_plan(1, 10, 10, 192)
+    with pytest.raises(ValueError, match="blocks"):
+        fa.flash_dq_wide_plan(2**20, 2**18, 10, 300)
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_dq_wide_plan(1, 10, 4_000_000, 300)
 
 
 def test_wide_plan_constants_are_the_kernels():
@@ -198,6 +241,12 @@ def test_wide_plan_constants_are_the_kernels():
     assert const("flash_attention.cu", "DKV_THREADS") == "X_THREADS"
     assert const("flash_attention.cu", "DKV_SMALL") == "2 * 2 * DKV_QT * 4 + 16 * XST_DKV"
     assert fa._DKV_WIDE_SMALL == 2 * 2 * fa._DKV_WIDE_TILE * 4 + 16 * fa._DKV_WIDE_STAGES
+    assert const("flash_attention.cu", "XST_DQ") == str(fa._DQ_WIDE_STAGES)
+    assert const("flash_attention.cu", "DQ_THREADS") == "X_THREADS"
+    assert const("flash_attention.cu", "DQ_QCHUNK") == "MR * XC * 2"
+    assert fa._DQ_WIDE_ROWS == 16 * int(const("flash_attention.cu", "MW"))
+    assert const("flash_attention.cu", "XNT_DQ") == str(fa._DQ_WIDE_TILE) == "64"
+    assert 64 * int(const("flash_attention.cu", "XNV_DQ")) == fa._DQ_WIDE_SLICE == 192
 
 
 @pytest.mark.parametrize("heads_dim", [1, 2], ids=["K2", "K4"])
