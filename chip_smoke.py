@@ -142,7 +142,7 @@ Phases, each fatal on failure:
      rows: 1 warm-up and 3 timed QAFinetuner steps at B = 16, cutoff 256,
      total_len 512 on medmcqa_200.json rows (ms/step, tokens/s, peak
      memory, losses; fail on a non-finite loss, a changed base weight or
-     a trainable tensor that did not move); generate at B = 16, 64 new
+     a trainable tensor that did not move); generate at B = 16, 32 new
      tokens: greedy (prefill ms and decode ms/token from the streaming
      route), greedy with an eos every row reaches (the early exit and the
      eos fill), sampling at temperature 0.4, top-p 0.9 twice from one seed
@@ -150,7 +150,7 @@ Phases, each fatal on failure:
      against the CPU (loss within 1e-5, trainable gradients within 1e-4 of
      the largest, greedy tokens equal unless the top-2 gap at the first
      differing step is below 1e-4 of the largest logit); then
-     python -m medtok_tpu_torch.cli.qa finetune and eval (16 new tokens a
+     python -m medtok_tpu_torch.cli.qa finetune and eval (8 new tokens a
      question) with --tiny and a byte-level tokenizer.json written by the
      phase (the regex-free BPE and the chat template);
  18. the EHR downstream entry point and the export routes that feed it:
@@ -163,7 +163,7 @@ Phases, each fatal on failure:
      to the packed sweep's by phase 5's tie-gap rule, PretrainedMedTok on
      the written files answering three codes equal to their rows; then
      medtok_tpu_torch.cli.ehr --task readmission at its default flags
-     (EHRTrainConfig() width, K3 by --flash auto, 2 epochs) on
+     (EHRTrainConfig() width, K3 by --flash auto, 1 epoch) on
      MIMIC-III-schema CSVs that the port's synthetic_mimic3 writes for
      46,520 patients over phase 5's vocabulary at MIMIC-III v1.4's rows a
      patient and an admission (v14_rates: about 1.27 admissions a patient,
@@ -200,7 +200,7 @@ Phases, each fatal on failure:
      codebook held to its plain version), cli.export --workdir of it
      (launches, K2 on its first packing held to its plain version),
      MedTok.from_checkpoint of it, and cli.train --text-dropout-in-train
-     (GCN, unpacked, 3 steps: 6 K1 and no K2 a step);
+     (GCN, unpacked, 2 steps: 6 K1 and no K2 a step);
  21. data parallel: (a) `python -m torch.distributed.run --standalone
      --nproc-per-node 1 -m medtok_tpu_torch.cli.train` (world 1, NCCL) with
      phase 16's files and flags to step 2, its checkpoint bitwise equal to
@@ -237,13 +237,25 @@ Phases, each fatal on failure:
      one-device port: losses within 1e-2 relative, the gathered lora_b
      within 5e-2 of its largest entry, 16 greedy tokens equal wherever the
      one-device top-2 logit gap exceeds 1e-2; the bytes a step all-reduces
-     and its ms beside the one-device step's.
+     and its ms beside the one-device step's;
+ 23. the data-parallel export on phase 18's fp32 workdir (ModelConfig()
+     width, the 16,384-code vocabulary as a user's files): (a) `python -m
+     torch.distributed.run --standalone --nproc-per-node 1 -m
+     medtok_tpu_torch.cli.export --mesh-dp -1` (world 1, NCCL) with
+     --packed off and on, each route's arrays bitwise equal to phase 18's
+     one-device arrays and its K1 / K2 launches theirs; the export's
+     seconds and codes/s beside phase 18's, the gather's seconds and bytes;
+     (b) two rank processes sharing the card over gloo (this script with
+     --dp-rank --dp-task export) running cli.export --packed on
+     --mesh-dp -1: every rank's arrays and rank 0's files bitwise phase
+     18's, rank 0 alone printing, each rank's launches 4 K1 and 12 K2 a
+     step of its share (steps r, r + 2, ...).
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
-It then prints the card, one JSON line of kernel measurements (K1's and
-K3's rows add their launches on each path that runs them, K1's on each
-tp rank of phase 22) and, last,
+It then prints the card, one JSON line of kernel measurements (K1's,
+K2's and K3's rows add their launches on each path that runs them, K1's on
+each tp rank of phase 22, K1's and K2's on each rank of phase 23) and, last,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result. fp32 matmuls and
 convolutions run in full fp32 (TF32 off) throughout.
@@ -255,7 +267,9 @@ import argparse
 import contextlib
 import dataclasses
 import datetime
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -2926,7 +2940,7 @@ def run_clis(seed: int, dev, keep: Path) -> dict:
 QA_BATCH = 16           # the reference finetune's shape: B = 16, cutoff 256,
 QA_CUTOFF = 256         # total_len 512
 QA_TOTAL = 512
-QA_NEW_TOKENS = 64
+QA_NEW_TOKENS = 32
 QA_TIMED_STEPS = 3
 QA_LORA_RANK = 16
 QA_MISS_ROWS = 100
@@ -2935,7 +2949,7 @@ QA_REF_LAYERS = 2
 QA_REF_BATCH = 2
 QA_REF_CUTOFF = 64
 QA_REF_NEW_TOKENS = 16
-QA_CLI_NEW_TOKENS = 16      # cli.qa eval's tokens a question (its own default: 64)
+QA_CLI_NEW_TOKENS = 8       # cli.qa eval's tokens a question (its own default: 64)
 QA_TOKENIZER_MERGES = 240   # 256 bytes + 240 merges + 5 specials: ids < 512
 LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
                    "<|end_header_id|>", "<|eot_id|>")
@@ -3148,7 +3162,7 @@ def qa_finetune(ft, rows, dev) -> dict:
 
 
 def qa_generate(ft, rows, dev, seed: int) -> dict:
-    """Soft-prompted generate at B = QA_BATCH, total_len QA_TOTAL, 64 new
+    """Soft-prompted generate at B = QA_BATCH, total_len QA_TOTAL, 32 new
     tokens: greedy without eos (timed: prefill and decode ms/token from the
     streaming route's per-token times), greedy with an eos id that every row
     reaches (early exit, eos fill), and sampling twice from one seed."""
@@ -3458,7 +3472,7 @@ EHR_FIXTURE_TABLES = ("DIAGNOSES_ICD", "PROCEDURES_ICD", "PRESCRIPTIONS", "LABEV
 # tests/test_torch_ehr_parsers.py
 EHR_FIXTURE_COUNTS = {"patients": 120, "visits": 427, "events": 5210}
 EHR_PATIENTS = 46_520   # MIMIC-III v1.4's patients
-EHR_CLI_EPOCHS = 2
+EHR_CLI_EPOCHS = 1
 EHR_OTHER_TASKS = ("mortality", "lenofstay", "phenotype", "drugrec", "new_disease")
 EXPORT_BATCH = 1024     # the export CLI's default --batch-size
 
@@ -3538,15 +3552,18 @@ def run_export_routes(workdir: Path, n: int, dev) -> dict:
         packed_segment_attention.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        arrays = export_cli.main(["--workdir", str(workdir), "--packed", route,
-                                  "--out-dir", str(workdir / f"packed_{route}")])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            arrays = export_cli.main(["--workdir", str(workdir), "--packed", route,
+                                      "--out-dir", str(workdir / f"packed_{route}")])
         torch.cuda.synchronize()
         launches = {"topk_l2": fused_topk_l2.launches,
                     "segment_attention": packed_segment_attention.launches}
-        out[route] = dict(arrays=arrays, wall_s=time.perf_counter() - t0, launches=launches)
+        out[route] = dict(arrays=arrays, wall_s=time.perf_counter() - t0, launches=launches,
+                          export_s=export_seconds(printed.getvalue()))
         log(f"export CLI --packed {route}: {n} codes in {out[route]['wall_s']:.3f} s "
-            f"({n / out[route]['wall_s']:.1f} codes/s, the CLI's reads inside), launches "
-            f"{launches}")
+            f"({n / out[route]['wall_s']:.1f} codes/s, the CLI's reads inside; the export "
+            f"alone {out[route]['export_s']:.3f} s), launches {launches}")
     batches = -(-n // EXPORT_BATCH)
     check(out["off"]["launches"] == {"topk_l2": 4 * batches, "segment_attention": 0},
           f"unpacked export: launches {out['off']['launches']}, want K1 4 x {batches} "
@@ -3568,8 +3585,16 @@ def run_export_routes(workdir: Path, n: int, dev) -> dict:
               and (api.encode(c) == got["tokens_all"][i0].reshape(-1)).all(),
               f"PretrainedMedTok: {c} differs from the unpacked export's row {i0}")
     log("PretrainedMedTok on the unpacked files: 3 codes equal to their rows")
-    return {route: {"wall_s": v["wall_s"], "launches": v["launches"]}
-            for route, v in out.items()}
+    return {route: {"wall_s": v["wall_s"], "launches": v["launches"],
+                    "export_s": v["export_s"]} for route, v in out.items()}
+
+
+def export_seconds(printed: str) -> float:
+    """The seconds of the export alone, from the export CLI's ``exported N
+    codes (...) in S s`` line."""
+    m = re.search(r"^exported \d+ codes \(\w+\) in ([0-9.]+) s", printed, re.M)
+    check(m is not None, f"the export CLI printed no export line:\n{printed[-2000:]}")
+    return float(m.group(1))
 
 
 def phenotype_index(dataset, path: Path) -> None:
@@ -3583,7 +3608,7 @@ def phenotype_index(dataset, path: Path) -> None:
 
 
 def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, seed: int,
-                       dev) -> dict:
+                       dev, keep: Path) -> dict:
     """Phase 18: the EHR downstream entry point and the export routes that
     feed it (see the docstring)."""
     import math
@@ -3618,10 +3643,14 @@ def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, se
         n = len(dataset)
         # 2. the unpacked export against the packed one, then PretrainedMedTok
         t0 = time.perf_counter()
-        workdir = write_export_workdir(root, model_state, buffers, cfg, dataset)
+        # the export files and workdir stay under keep for phase 23
+        files = keep / "export"
+        files.mkdir()
+        workdir = write_export_workdir(files, model_state, buffers, cfg, dataset)
         log(f"export files: kg.csv of {len(dataset.kg.edge_src)} edges, codes.jsonl of {n} "
             f"codes, an fp32 workdir, written in {time.perf_counter() - t0:.2f} s")
         out["export"] = run_export_routes(workdir, n, dev)
+        out["export"]["workdir"] = workdir
 
         # 3. the EHR CLI at EHRTrainConfig() width on MIMIC-III-schema CSVs
         ehr_root = root / "EHR"
@@ -3637,7 +3666,7 @@ def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, se
             f"rows an admission ({rows}) over the {n}-code "
             f"vocabulary, {size} bytes of CSV, written in {write_s:.2f} s")
         common = ["--dataset", "MIMIC_III", "--task", "readmission", "--ehr-root",
-                  str(ehr_root), "--med-codes", str(root / "codes.jsonl"),
+                  str(ehr_root), "--med-codes", str(files / "codes.jsonl"),
                   "--embedding-path", str(root / "embeddings_all.npy")]
         for f in kernel_wrappers().values():
             f.launches = 0
@@ -3689,7 +3718,7 @@ def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, se
         phenotype_index(dataset, root / "phenotype_index.pkl")
         t0 = time.perf_counter()
         patients = MIMIC3Dataset(ehr_root / "MIMIC_III").patients
-        mapper = CodeMapper(root / "codes.jsonl")
+        mapper = CodeMapper(files / "codes.jsonl")
         counts = {"parse_s": time.perf_counter() - t0}
         for task in EHR_OTHER_TASKS:
             t0 = time.perf_counter()
@@ -3957,7 +3986,7 @@ def run_host_runtime(dataset, dataset_np, dev, seed: int) -> None:
 # ------------------------------------------------------ training variants --
 
 VARIANT_STEPS = 4       # cli.train steps of the GAT + kmeans + revival run
-DROPOUT_STEPS = 3       # cli.train steps of the text-dropout run
+DROPOUT_STEPS = 2       # cli.train steps of the text-dropout run
 VARIANT_REF_STEPS = 3   # card-against-CPU steps of the small fp32 variant
 VARIANT_REF_CODES = 64  # codes a batch of the small fp32 variant
 # rows the small fp32 variant starts dead (the others at the share 1 / C): a
@@ -4336,7 +4365,7 @@ def run_training_variants(dataset, dev, gen) -> dict:
 
 # --------------------------------------------------------- data parallel --
 
-DP_TIMED_ROUNDS = 6      # grouped / ungrouped step pairs of phase 21 (b)
+DP_TIMED_ROUNDS = 4      # grouped / ungrouped step pairs of phase 21 (b)
 DP_EHR_STEPS = 2         # EHR steps of phase 21 (c) and (d)
 DP_REF_STEPS = 3         # tokenizer steps of the two ranks of phase 21 (d)
 DP_REF_CODES = 64        # the global batch of phase 21 (d)
@@ -5326,6 +5355,190 @@ def run_tensor_parallel(dataset, table, dev, seed: int, root: Path) -> dict:
     return dict(launches=[r["tokenizer"]["launches"] for r in ranks], wall_s=wall)
 
 
+# ------------------------------------------------ data-parallel export --
+
+DPX_RANKS = 2           # ranks sharing the card over gloo in phase 23 (b)
+
+
+def dpx_printed(printed: str, label: str) -> dict:
+    """What rank 0 of a data-parallel ``cli.export`` printed: the export's
+    seconds, the world size, the backend, the gather's seconds and bytes,
+    and each rank's (K1, K2) launches."""
+    g = re.search(r"data parallel: (\d+) ranks over (\w+), the gather ([0-9.]+) s for "
+                  r"(\d+) bytes; launches \(K1, K2\) by rank (.*)$", printed, re.M)
+    check(g is not None, f"{label}: rank 0 printed no data-parallel line:\n{printed[-3000:]}")
+    launches = [tuple(int(x) for x in part.split(":")[1].split(","))
+                for part in g.group(5).split()]
+    return dict(export_s=export_seconds(printed), world=int(g.group(1)), backend=g.group(2),
+                gather_s=float(g.group(3)), gather_bytes=int(g.group(4)), launches=launches)
+
+
+EXPORT_ARRAYS = ("embeddings_all", "tokens_all", "weights_all")
+
+
+def load_export(out_dir: Path) -> dict:
+    import numpy as np
+
+    return {name: np.load(out_dir / f"{name}.npy") for name in EXPORT_ARRAYS}
+
+
+def differing(got: dict, want: dict) -> list[str]:
+    """The export arrays of ``got`` that are not bitwise those of ``want``."""
+    return [name for name in EXPORT_ARRAYS
+            if got[name].dtype != want[name].dtype or got[name].shape != want[name].shape
+            or got[name].tobytes() != want[name].tobytes()]
+
+
+def dpx_world1(workdir: Path, n: int, one: dict) -> dict:
+    """Phase 23 (a): ``torchrun --nproc-per-node 1 -m
+    medtok_tpu_torch.cli.export --mesh-dp -1`` over NCCL on phase 18's
+    workdir, unpacked and packed, each route's arrays bitwise phase 18's
+    one-device arrays and its launches theirs."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    out = {}
+    for route in ("off", "on"):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "medtok_tpu_torch.cli.export", "--workdir",
+               str(workdir), "--mesh-dp", "-1", "--packed", route, "--out-dir",
+               str(workdir / f"dp_{route}")]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        label = f"data-parallel export (a) --packed {route}"
+        check(run.returncode == 0, f"{label}: torchrun cli.export exited {run.returncode}:\n"
+              f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        got = dpx_printed(run.stdout, label)
+        check(got["world"] == 1 and got["backend"] == "nccl",
+              f"{label}: world {got['world']} over {got['backend']}, want 1 over nccl")
+        want = one[route]["launches"]
+        check(got["launches"] == [(want["topk_l2"], want["segment_attention"])],
+              f"{label}: launches {got['launches']}, the one-device run's {want}")
+        differ = differing(load_export(workdir / f"dp_{route}"), one[route]["arrays"])
+        check(not differ, f"{label}: {differ} differ from phase 18's one-device arrays")
+        log(f"{label}: {n} codes, torchrun {wall:.3f} s wall, the export alone "
+            f"{got['export_s']:.3f} s ({n / got['export_s']:.1f} codes/s; one device in "
+            f"phase 18: {one[route]['export_s']:.3f} s, {n / one[route]['export_s']:.1f} "
+            f"codes/s, {one[route]['wall_s']:.3f} s wall in process), the gather "
+            f"{got['gather_s']:.3f} s for {got['gather_bytes']} bytes, launches (K1, K2) "
+            f"{got['launches'][0]}; embeddings_all, tokens_all and weights_all bitwise "
+            "equal to phase 18's")
+        out[route] = dict(got, wall_s=wall)
+    return out
+
+
+def dpx_rank(rank: int, world: int, root: Path) -> int:
+    """One rank of phase 23 (b), started by ``dpx_two_ranks``: a gloo group
+    on the card shared with the other rank, then ``cli.export`` (packed,
+    ``--mesh-dp -1``) on the workdir that ``root/spec.pkl`` names. Writes
+    rank{rank}.pkl under root: the arrays returned, this rank's K1 and K2
+    launches, what the CLI printed."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.cli import export as export_cli
+    from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    torch.cuda.set_device(torch.device("cuda", 0))
+    dist.init_process_group("gloo", init_method=f"file://{root / 'group'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    spec = pickle.loads((root / "spec.pkl").read_bytes())
+    fused_topk_l2.launches = 0
+    packed_segment_attention.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        arrays = export_cli.main(["--workdir", spec["workdir"], "--packed", "on",
+                                  "--mesh-dp", "-1", "--out-dir", str(root / "out")])
+    out = dict(arrays=arrays, printed=printed.getvalue(),
+               launches=(fused_topk_l2.launches, packed_segment_attention.launches))
+    (root / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dpx_two_ranks(workdir: Path, n: int, one: dict, root: Path) -> dict:
+    """Phase 23 (b): DPX_RANKS ranks share the card over gloo and run the
+    packed export of phase 18's workdir: every rank's arrays and the files
+    rank 0 wrote bitwise phase 18's one-device arrays, each rank's launches
+    4 K1 and 12 K2 a step of its share."""
+    import os
+    import pickle
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "spec.pkl").write_bytes(pickle.dumps({"workdir": str(workdir)}))
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(r), "--dp-world", str(DPX_RANKS), "--dp-root", str(root),
+                               "--dp-task", "export"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(DPX_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    label = "data-parallel export (b)"
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{label}: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    ranks = [pickle.loads((root / f"rank{r}.pkl").read_bytes()) for r in range(DPX_RANKS)]
+    got = dpx_printed(ranks[0]["printed"], label)
+    check(got["world"] == DPX_RANKS and got["backend"] == "gloo",
+          f"{label}: world {got['world']} over {got['backend']}")
+    check(not any(r["printed"] for r in ranks[1:]), f"{label}: a rank other than 0 printed")
+    differ = differing(load_export(root / "out"), one["on"]["arrays"])
+    check(not differ, f"{label}: rank 0's files {differ} differ from phase 18's one-device "
+          "arrays")
+    for r, rank in enumerate(ranks):
+        differ = differing(rank["arrays"], one["on"]["arrays"])
+        check(not differ, f"{label}: rank {r}'s {differ} differ from phase 18's one-device "
+              "arrays")
+    # the one-device run's steps, K1 4 and K2 12 a step, split r, r + world, ...
+    steps = one["on"]["launches"]["topk_l2"] // 4
+    want = [(4 * len(range(r, steps, DPX_RANKS)), 12 * len(range(r, steps, DPX_RANKS)))
+            for r in range(DPX_RANKS)]
+    check([r["launches"] for r in ranks] == want == got["launches"],
+          f"{label}: launches {[r['launches'] for r in ranks]} (printed {got['launches']}), "
+          f"want {want} of {steps} steps")
+    log(f"{label}: {DPX_RANKS} ranks sharing the card over gloo, packed, {n} codes: "
+        f"{wall:.3f} s wall for both rank processes, the export alone {got['export_s']:.3f} "
+        f"s ({n / got['export_s']:.1f} codes/s), the gather {got['gather_s']:.3f} s for "
+        f"{got['gather_bytes']} bytes; {steps} steps, launches (K1, K2) by rank {want}; "
+        "every rank's arrays and rank 0's files bitwise equal to phase 18's one-device "
+        "export")
+    return dict(got, wall_s=wall, steps=steps)
+
+
+def run_dp_export(ehr_downstream: dict, n: int, keep: Path) -> dict:
+    """Phase 23: the data-parallel export. (a) cli.export under torchrun at
+    world size 1 over NCCL, both routes; (b) two gloo ranks sharing the
+    card, packed; each bitwise phase 18's one-device arrays."""
+    import gc
+
+    import torch
+
+    phase_t0 = time.perf_counter()
+    # the rank processes share the card with this one
+    gc.collect()
+    torch.cuda.empty_cache()
+    export = ehr_downstream["export"]
+    workdir = export["workdir"]
+    one = {route: dict(export[route], arrays=load_export(workdir / f"packed_{route}"))
+           for route in ("off", "on")}
+    out = {"world1": dpx_world1(workdir, n, one),
+           "ranks": dpx_two_ranks(workdir, n, one, keep / "dpx")}
+    log(f"data-parallel export: phase {time.perf_counter() - phase_t0:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5335,6 +5548,9 @@ def main(argv=None) -> int:
     p.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dp-world", type=int, default=DP_RANKS, help=argparse.SUPPRESS)
     p.add_argument("--dp-root", type=str, default=None, help=argparse.SUPPRESS)
+    # its task: phase 21 (d)'s training, or phase 23 (b)'s export
+    p.add_argument("--dp-task", default="train", choices=["train", "export"],
+                   help=argparse.SUPPRESS)
     # one rank of phase 22, started by the phase itself
     p.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--tp-world", type=int, default=TP_RANKS, help=argparse.SUPPRESS)
@@ -5353,7 +5569,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(repo))
     if args.dp_rank is not None:
-        return dp_rank(args.dp_rank, args.dp_world, Path(args.dp_root))
+        rank_fn = dpx_rank if args.dp_task == "export" else dp_rank
+        return rank_fn(args.dp_rank, args.dp_world, Path(args.dp_root))
     if args.tp_rank is not None:
         return tp_rank(args.tp_rank, args.tp_world, Path(args.tp_root))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5436,12 +5653,13 @@ def main(argv=None) -> int:
     clis = run_clis(args.seed, dev, keep)
     run_qa(table, dev, args.seed)
     ehr_downstream = run_ehr_downstream(model_state, buffers, cfg, dataset, table, args.seed,
-                                        dev)
+                                        dev, keep)
     run_host_runtime(dataset, dataset_np, dev, args.seed)
     variants = run_training_variants(dataset, dev, gen)
     try:
         dp = run_data_parallel(dataset, table, ehr, dev, gen, keep, clis["argv"], args.seed)
         tp = run_tensor_parallel(dataset, table, dev, args.seed, keep / "tp")
+        dpx = run_dp_export(ehr_downstream, len(dataset), keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -5473,6 +5691,17 @@ def main(argv=None) -> int:
         dp["ranks"]["launches"]["topk_l2"]
     k2["launches_by_path"]["data parallel, a gloo rank of 2 (phase 21 d)"] = \
         dp["ranks"]["launches"]["segment_attention"]
+    # phase 23's paths: the world-1 NCCL export CLI, each gloo rank's share
+    for route, what in (("off", "unpacked"), ("on", "packed")):
+        k1_n, k2_n = dpx["world1"][route]["launches"][0]
+        path = f"cli.export --mesh-dp -1 {what}, world-1 NCCL (phase 23 a)"
+        k1["launches_by_path"][path] = k1_n
+        if k2_n:
+            k2["launches_by_path"][path] = k2_n
+    for r, (k1_n, k2_n) in enumerate(dpx["ranks"]["launches"]):
+        path = f"cli.export --mesh-dp -1 packed, gloo rank {r} of {DPX_RANKS} (phase 23 b)"
+        k1["launches_by_path"][path] = k1_n
+        k2["launches_by_path"][path] = k2_n
     # phase 22's path: the tensor-parallel sweep on each gloo rank
     for t, n in enumerate(tp["launches"]):
         k1["launches_by_path"][

@@ -15,10 +15,18 @@ padded with repeats of its last code; ``packed=True`` takes the packed
 sweep. Each batch's rows are written at their code indices, so the
 artifacts are in vocabulary order: ``embeddings_all [N, 256]``,
 ``tokens_all [N, 4, k]``, ``weights_all [N, 4, k]``.
+
+Both take ``dp=``, the ``DataParallel`` of ``parallel/mesh.py``
+(``initialize_distributed``): every rank computes the same step list (the
+packed route's groups, the unpacked route's batches) and runs steps
+rank, rank + world, ... in full; one exact all-gather then gives every rank
+the three whole arrays, and rank 0 alone writes them while the others wait
+on a barrier. ``last_gather`` holds the gather's seconds and bytes.
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -30,11 +38,14 @@ from medtok_tpu_torch.data.compact import unpack_compact
 from medtok_tpu_torch.data.dataset import MedCodeDataset
 from medtok_tpu_torch.data.packing import derive_packed_meta, iter_groups
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+from medtok_tpu_torch.parallel.mesh import DataParallel
 
 CODE_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
 # groups in flight before the oldest result is copied back: the host packs
 # the next groups while the device works
 _PREFETCH = 2
+#: the last data-parallel gather: its seconds and the bytes of the gathered buffer
+last_gather: dict[str, float] = {"seconds": 0.0, "bytes": 0}
 
 
 def packed_layout(dataset: MedCodeDataset, *, row_len: int | None = None,
@@ -78,10 +89,13 @@ def export_all_packed(
     out_dir: str | Path | None = None,
     row_len: int | None = None,
     num_rows: int | None = None,
+    dp: DataParallel | None = None,
 ) -> dict[str, np.ndarray]:
     """Sweep the whole vocabulary; returns (and optionally saves) the three
-    artifacts. Runs on CUDA unless ``device`` names another device."""
-    dev = resolve_device(device)
+    artifacts. Runs on CUDA unless ``device`` names another device; with
+    ``dp`` on the rank's device, its share of the groups (see the module
+    docstring)."""
+    dev = resolve_device(device) if dp is None else dp.device
     model = model.to(dev).eval()
     n = len(dataset)
     k = model.cfg.quantizer.top_k
@@ -105,9 +119,10 @@ def export_all_packed(
         tokens[group] = out.tokens[:m].cpu().numpy()
         weights[group] = out.weights[:m].cpu().numpy()
 
+    steps = export_groups(dataset, row_len=row_len, num_rows=num_rows)
     # the record_function ranges name the host phases in a torch.profiler
     # trace (chip_smoke.py reads them); they cost nothing when no profiler runs
-    for group in export_groups(dataset, row_len=row_len, num_rows=num_rows):
+    for group in _own_steps(steps, dp):
         C = next((c for c in buckets if len(group) <= c), buckets[-1])
         pad = C - len(group)
         with record_function("export.pack_text"):
@@ -141,8 +156,64 @@ def export_all_packed(
         while inflight:
             drain(inflight.pop(0))
 
-    return _save({"embeddings_all": embeddings, "tokens_all": tokens,
-                  "weights_all": weights}, out_dir)
+    return _finish({"embeddings_all": embeddings, "tokens_all": tokens,
+                    "weights_all": weights}, steps, dp, out_dir)
+
+
+def _own_steps(steps: list[np.ndarray], dp: DataParallel | None) -> list[np.ndarray]:
+    """This rank's steps: rank r of the world runs steps r, r + world, ...
+    in full.
+
+    Ranks take whole steps rather than a share of every step's rows: each
+    step then runs the kernels at the one-device shapes (so the arrays are
+    bitwise the one-device export's), the host packing and copies split
+    with the device work, and no collective runs inside a step (sharding a
+    BERT step's rows would change the GEMM shapes and need an all-gather of
+    the hidden states a step). The one gather comes after the sweep."""
+    return steps if dp is None else steps[dp.rank::dp.world]
+
+
+def _finish(arrays: dict[str, np.ndarray], steps: list[np.ndarray],
+            dp: DataParallel | None, out_dir: str | Path | None) -> dict[str, np.ndarray]:
+    """Gather the ranks' rows (data parallel), then save (rank 0 alone)."""
+    if dp is None:
+        return _save(arrays, out_dir)
+    _gather_rows(arrays, steps, dp)
+    if dp.rank == 0:
+        _save(arrays, out_dir)
+    dp.barrier()
+    return arrays
+
+
+def _gather_rows(arrays: dict[str, np.ndarray], steps: list[np.ndarray],
+                 dp: DataParallel) -> None:
+    """Fill every rank's arrays with the rows of the other ranks' steps.
+
+    Each rank sends its own rows as one int32 buffer (the fp32 arrays by
+    their bits, so the copy is exact, -0.0 and NaN included), padded to the
+    longest rank's rows; one all-gather over the group (on the card for
+    NCCL, on the host for gloo), and each rank's rows go back to the code
+    indices of its steps, which every rank knows."""
+    t0 = time.perf_counter()
+    n = len(next(iter(arrays.values())))
+    views = [a.reshape(n, -1).view(np.int32) for a in arrays.values()]
+    owned = [np.concatenate([np.asarray(s, np.int64) for s in steps[r::dp.world]] or
+                            [np.zeros(0, np.int64)]) for r in range(dp.world)]
+    rows = max(max(len(o) for o in owned), 1)
+    width = sum(v.shape[1] for v in views)
+    mine = owned[dp.rank]
+    send = np.zeros((rows, width), np.int32)
+    send[:len(mine)] = np.concatenate([v[mine] for v in views], axis=1)
+    got = dp.all_gather(torch.from_numpy(send).to(dp.comm_device), axis=None)
+    got = got.cpu().numpy().reshape(dp.world, rows, width)
+    for r, idx in enumerate(owned):
+        if r == dp.rank:
+            continue
+        col = 0
+        for v in views:
+            v[idx] = got[r, :len(idx), col:col + v.shape[1]]
+            col += v.shape[1]
+    last_gather.update(seconds=time.perf_counter() - t0, bytes=got.nbytes)
 
 
 def _save(arrays: dict[str, np.ndarray], out_dir: str | Path | None) -> dict[str, np.ndarray]:
@@ -163,14 +234,16 @@ def export_all(
     packed: bool = False,
     device: str | torch.device | None = None,
     out_dir: str | Path | None = None,
+    dp: DataParallel | None = None,
 ) -> dict[str, np.ndarray]:
     """Sweep the whole vocabulary in batches of ``batch_size`` codes;
     returns (and optionally saves) the three artifacts. ``packed=True``
     takes ``export_all_packed`` (``batch_size`` unused). Runs on CUDA unless
-    ``device`` names another device."""
+    ``device`` names another device; with ``dp`` on the rank's device, its
+    share of the batches (see the module docstring)."""
     if packed:
-        return export_all_packed(model, dataset, device=device, out_dir=out_dir)
-    dev = resolve_device(device)
+        return export_all_packed(model, dataset, device=device, out_dir=out_dir, dp=dp)
+    dev = resolve_device(device) if dp is None else dp.device
     model = model.to(dev).eval()
     n = len(dataset)
     k = model.cfg.quantizer.top_k
@@ -186,8 +259,8 @@ def export_all(
         tokens[idxs] = out.tokens[:m].cpu().numpy()
         weights[idxs] = out.weights[:m].cpu().numpy()
 
-    for start in range(0, n, batch_size):
-        idxs = np.arange(start, min(start + batch_size, n))
+    steps = [np.arange(start, min(start + batch_size, n)) for start in range(0, n, batch_size)]
+    for idxs in _own_steps(steps, dp):
         with record_function("export.make_batch"):
             # the tail batch is padded to full size with repeats of its last code
             ids = idxs.tolist() + [int(idxs[-1])] * (batch_size - len(idxs))
@@ -203,5 +276,5 @@ def export_all(
     with record_function("export.drain"):
         while inflight:
             drain(inflight.pop(0))
-    return _save({"embeddings_all": embeddings, "tokens_all": tokens,
-                  "weights_all": weights}, out_dir)
+    return _finish({"embeddings_all": embeddings, "tokens_all": tokens,
+                    "weights_all": weights}, steps, dp, out_dir)

@@ -5,7 +5,9 @@ together) for ``sm_90a`` and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``. The library lands in
 ``medtok_tpu_torch/_build/`` under a name keyed by a hash of the sources,
 the headers they include (``*.cuh``) and the flags, so an unchanged tree
-reuses it and a changed one rebuilds.
+reuses it and a changed one rebuilds. Processes that start at once (the
+ranks of a ``torchrun``) take a file lock beside the library, so one of
+them builds and the others load what it built.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``,
 launches on that stream and returns ``cudaGetLastError()``; ``check`` turns a
@@ -24,6 +26,7 @@ read the width at run time, so no width is too wide for them.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -184,9 +187,14 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             path = _library_path()
             if not path.exists():
-                t0 = time.perf_counter()
-                build_log = _build(path)
-                build_seconds = time.perf_counter() - t0
+                find_nvcc()             # raises before anything is written
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(path.with_suffix(".lock"), "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not path.exists():
+                        t0 = time.perf_counter()
+                        build_log = _build(path)
+                        build_seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(path))
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -103,6 +103,16 @@ class CheckpointManager:
         """The checkpoint dict of ``step`` (default: the latest)."""
         step = self.latest_step() if step is None else step
         if step is None:
+            orbax = sorted(p.name for p in self.ckpt_dir.glob("*")
+                           if p.is_dir() and p.name.isdigit())
+            if orbax:
+                raise FileNotFoundError(
+                    f"{self.ckpt_dir} holds orbax step directories ({', '.join(orbax)}) "
+                    "of a JAX training run and no .pt checkpoint of the port: convert "
+                    "one where JAX is installed with `python scripts/jax_workdir_to_npz.py "
+                    f"--workdir {self.workdir} --out params.npz`, then export with "
+                    f"`--config {self.workdir / 'args.json'} --params params.npz --kg ... "
+                    "--codes ... --vocab ...`")
             raise FileNotFoundError(f"no checkpoints under {self.ckpt_dir}")
         return torch.load(self.path(step), map_location=map_location, weights_only=True)
 

@@ -2,8 +2,8 @@
 
 ``cli.export`` takes ``--mesh-dp`` (default -1) and ``cli.qa`` takes
 ``--mesh-dp`` / ``--mesh-tp`` (default 1), as the JAX CLIs do; -1 and 1 run
-on one device. Above 1 the export raises, and ``cli.qa`` without a process
-group of the mesh's size stops at parse time, naming the torchrun launch. The
+on one device. Above 1, either CLI without a process group of the mesh's
+size stops at parse time, naming the torchrun launch. The
 smallest input that failed before (``cli.qa finetune --data d.json
 --embedding-path e.npy --mesh-dp 1 --mesh-tp 1``: "unrecognized arguments")
 parses to the JAX parser's values.
@@ -49,7 +49,9 @@ def test_export_parser_takes_the_jax_mesh_flag(mesh, tmp_path):
     assert got.value.filename == want.value.filename
 
 
-def test_export_mesh_above_one_raises_before_reading(tmp_path):
-    with pytest.raises(NotImplementedError, match="one device"):
+def test_export_mesh_above_one_raises_before_reading(tmp_path, monkeypatch, capsys):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit) as e:
         export_cli.main(["--workdir", str(tmp_path / "missing"), "--mesh-dp", "2",
                          "--device", "cpu"])
+    assert e.value.code == 2 and "torchrun --nproc-per-node 2" in capsys.readouterr().err

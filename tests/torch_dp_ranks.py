@@ -281,7 +281,57 @@ def task_tp_cli(world, spec: dict) -> dict:
                 qa_eval=qa_eval)
 
 
-TASKS = {"train": task_train, "ehr": task_ehr, "cli": task_cli, "tp_sweep": task_tp_sweep,
+def task_export(dp, spec: dict) -> dict:
+    """``export_all(dp=)`` on each vocabulary of ``spec["codes"]``, unpacked
+    (batches of ``spec["batch_size"]``) and packed (the full vocabulary in
+    ``spec["pack"]``'s small rows): the arrays and the steps this rank ran;
+    then ``cli.export`` with ``spec["cli_argv"]`` into ``spec["cli_out"]``
+    and the output directories this rank saved to."""
+    from medtok_tpu_torch import export as export_mod
+    from medtok_tpu_torch.cli import export as export_cli
+    from medtok_tpu_torch.config import MedTokConfig
+    from medtok_tpu_torch.convert import load_params
+    from medtok_tpu_torch.data.dataset import MedCodeDataset
+    from medtok_tpu_torch.data.kg import KnowledgeGraph
+    from medtok_tpu_torch.data.text import WordPieceTokenizer
+    from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+
+    cfg = MedTokConfig.load(spec["config"])
+    model = load_params(MultimodalTokenizer(cfg.model), spec["params"])
+    kg = KnowledgeGraph.from_csv(spec["kg"])
+    tokenizer = WordPieceTokenizer.from_vocab_file(spec["vocab"])
+    steps = []
+    own_steps = export_mod._own_steps
+
+    def spy_steps(all_steps, dp):
+        mine = own_steps(all_steps, dp)
+        steps.append(len(mine))
+        return mine
+
+    saves = []
+    save = export_mod._save
+
+    def spy_save(arrays, out_dir):
+        if out_dir is not None:
+            saves.append(str(out_dir))
+        return save(arrays, out_dir)
+
+    export_mod._own_steps, export_mod._save = spy_steps, spy_save
+    out: dict = {}
+    for name, codes in spec["codes"].items():
+        ds = MedCodeDataset.from_path(kg, codes, tokenizer, cfg=cfg.data)
+        arrays = export_mod.export_all(model, ds, batch_size=spec["batch_size"],
+                                       device="cpu", dp=dp)
+        out[(name, False)] = dict(arrays=arrays, steps=steps[-1])
+        arrays = export_mod.export_all_packed(model, ds, device="cpu", dp=dp,
+                                              **(spec["pack"] if name == "full" else {}))
+        out[(name, True)] = dict(arrays=arrays, steps=steps[-1])
+    out["cli"] = export_cli.main([*spec["cli_argv"], "--out-dir", spec["cli_out"]])
+    out["saves"] = saves
+    return out
+
+
+TASKS = {"export": task_export, "train": task_train, "ehr": task_ehr, "cli": task_cli, "tp_sweep": task_tp_sweep,
          "tp_qa": task_tp_qa, "tp_cli": task_tp_cli}
 
 
