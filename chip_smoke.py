@@ -171,8 +171,9 @@ Phases, each fatal on failure:
      embeddings_all as the table: each stage's wall time and the fit's
      samples/s logged, K3 fwd / dq / dkv launched, test_metrics.json finite
      and reproduced by the reloaded best_model; a 2-point --hyper-search at
-     1 epoch; the other five task builders over the same patients (sample
-     counts logged, phenotype on an index the phase writes);
+     1 epoch and the other five task builders (sample counts logged,
+     phenotype on an index the phase writes) over 4,652 patients written
+     the same way;
  19. the host data runtime: NativeWordPiece's ids against the Python
      tokenizer's for every description (both timed); every export group's
      compact batch, copied from the pinned pool and unpacked on the card,
@@ -249,13 +250,34 @@ Phases, each fatal on failure:
      --dp-rank --dp-task export) running cli.export --packed on
      --mesh-dp -1: every rank's arrays and rank 0's files bitwise phase
      18's, rank 0 alone printing, each rank's launches 4 K1 and 12 K2 a
-     step of its share (steps r, r + 2, ...).
+     step of its share (steps r, r + 2, ...);
+ 24. the auxiliaries: (a) examples/quickstart_torch.py and
+     examples/downstream_torch.py through their main() with their own
+     checks (K1 in the quickstart, K3 in the downstream's EHR encoder,
+     counted from 0); (b) ops.ema.norm_ema_quantize at ModelConfig()'s
+     21000 x 64 codebook on z [4096, 64] fp32, train and eval, K1 at k = 1
+     once a call, held to the plain route on the CPU (indices by the 1e-5
+     tie gap, codebook, usage EMA and loss within 1e-6 on the rows no
+     differing index touched), over a world-1 NCCL group bitwise equal to
+     no group, on two gloo ranks sharing the card (half the rows each)
+     equal in indices and within 1e-6 of one device on all rows;
+     revival_quantize with each anchor, the closest one within 1e-5 of the
+     CPU; (c) utils.zero.apply_zero at stages 0-3 on ModelConfig()'s fp32
+     parameters and Adam state (the bytes a rank holds at each), one Adam
+     step (foreach=False) on stage-3 DTensors bitwise the replicated step
+     over the world-1 NCCL group and within 1e-6 on each of two gloo ranks;
+     (d) utils.profiling.trace and StepTimer around a packed export of the
+     codes of phase 5's first two export steps, twice: the trace holds the
+     export.bert and export.quantize ranges and K1's and K2's kernels;
+     (e) ops.drop_path on a [1024, 128, 768] bf16 tensor at p 0.1: kept
+     samples exactly x / keep in bf16, the dropped share within 4 sigma.
 Phase 5's profile also reports the device time of the Count build
 (gcn_norm_adj) in the export's tail node buckets, of K2, and of K1 per
 shape (z rows x codebook rows) with its launches.
 It then prints the card, one JSON line of kernel measurements (K1's,
 K2's and K3's rows add their launches on each path that runs them, K1's on
-each tp rank of phase 22, K1's and K2's on each rank of phase 23) and, last,
+each tp rank of phase 22, K1's and K2's on each rank of phase 23, K1's and
+K3's in the examples and K1's in the norm-EMA quantizer of phase 24) and, last,
 {"ok": true, "device": {...}}. Without CUDA, or without the repository
 beside it, it exits non-zero and prints no result. fp32 matmuls and
 convolutions run in full fp32 (TF32 off) throughout.
@@ -3472,6 +3494,9 @@ EHR_FIXTURE_TABLES = ("DIAGNOSES_ICD", "PROCEDURES_ICD", "PRESCRIPTIONS", "LABEV
 # tests/test_torch_ehr_parsers.py
 EHR_FIXTURE_COUNTS = {"patients": 120, "visits": 427, "events": 5210}
 EHR_PATIENTS = 46_520   # MIMIC-III v1.4's patients
+# the patients of phase 18's grid and task builders: a tenth, so the CSVs
+# they parse again take seconds, not the full set's tens of seconds each
+EHR_GRID_PATIENTS = EHR_PATIENTS // 10
 EHR_CLI_EPOCHS = 1
 EHR_OTHER_TASKS = ("mortality", "lenofstay", "phenotype", "drugrec", "new_disease")
 EXPORT_BATCH = 1024     # the export CLI's default --batch-size
@@ -3703,21 +3728,26 @@ def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, se
         del trainer
         out["cli"] = dict(wall_s=wall, stages=st, k3=k3, test=tm["test"])
 
-        # 4. a 2-point grid, and the other five task builders
+        # 4. a 2-point grid, and the other five task builders, on a tenth
+        small_root = root / "EHR_small"
+        synthetic_mimic3(small_root / "MIMIC_III", dataset.med_codes,
+                         num_patients=EHR_GRID_PATIENTS, seed=seed, v14_rates=True)
+        small = [str(small_root) if a == str(ehr_root) else a for a in common]
         t0 = time.perf_counter()
-        grid = ehr_cli.main([*common, "--epochs", "1", "--hyper-search", "--search-grid",
+        grid = ehr_cli.main([*small, "--epochs", "1", "--hyper-search", "--search-grid",
                              '{"dropout": [0.1, 0.5]}', "--save-result-path",
                              str(root / "grid")])
         hs = json.loads((root / "grid" / "hyper_search.json").read_text())
         auprs = [r["best_val"]["aupr"] for r in hs["results"]]
         check(len(auprs) == 2 and auprs == sorted(auprs, reverse=True),
               f"cli.ehr --hyper-search: {hs['results']}")
-        log(f"cli.ehr --hyper-search (dropout 0.1 / 0.5, 1 epoch): "
+        log(f"cli.ehr --hyper-search (dropout 0.1 / 0.5, 1 epoch, {EHR_GRID_PATIENTS} "
+            "patients): "
             f"{time.perf_counter() - t0:.3f} s, val aupr {auprs}, stages "
             + ", ".join(f"{k} {v:.3f}" for k, v in grid["stages"].items() if k.endswith("_s")))
         phenotype_index(dataset, root / "phenotype_index.pkl")
         t0 = time.perf_counter()
-        patients = MIMIC3Dataset(ehr_root / "MIMIC_III").patients
+        patients = MIMIC3Dataset(small_root / "MIMIC_III").patients
         mapper = CodeMapper(files / "codes.jsonl")
         counts = {"parse_s": time.perf_counter() - t0}
         for task in EHR_OTHER_TASKS:
@@ -3728,7 +3758,7 @@ def run_ehr_downstream(model_state: dict, buffers: dict, cfg, dataset, table, se
                             round(time.perf_counter() - t0, 3))
         check(all(counts[t][0] > 0 for t in ("mortality", "lenofstay", "new_disease")),
               f"EHR tasks: {counts}")
-        log(f"EHR task builders over the {EHR_PATIENTS} patients (patients, samples, s): "
+        log(f"EHR task builders over {EHR_GRID_PATIENTS} patients (patients, samples, s): "
             f"{counts}")
         out["tasks"] = counts
     log(f"EHR downstream phase: {time.perf_counter() - t_phase:.2f} s")
@@ -5539,6 +5569,489 @@ def run_dp_export(ehr_downstream: dict, n: int, keep: Path) -> dict:
     return out
 
 
+# ----------------------------------------------------------- auxiliaries --
+
+AUX_RANKS = 2           # ranks sharing the card over gloo in phase 24 (b) and (c)
+AUX_ROWS = 4096         # z rows of phase 24 (b): the export's sweep
+AUX_DROP = (1024, 128, 768)   # phase 24 (e)'s bf16 tensor
+AUX_DROP_P = 0.1
+
+
+def zero_launches() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    for f in kernel_wrappers().values():
+        f.launches = 0
+        if hasattr(f, "wide_launches"):
+            f.wide_launches = 0
+
+
+def run_examples(keep: Path) -> dict:
+    """Phase 24 (a): examples/quickstart_torch.py and
+    examples/downstream_torch.py on the card, each through its main() with
+    its own checks, the kernel counts set to 0 just before each and read
+    just after: K1 in the quickstart's training, export and API, K3 in the
+    downstream's EHR encoder."""
+    import importlib.util
+
+    repo = Path(__file__).resolve().parent
+    out = {}
+    for name in ("quickstart_torch", "downstream_torch"):
+        spec = importlib.util.spec_from_file_location(name, repo / "examples" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        printed = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = module.main(["--workdir", str(keep / name)])
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in kernel_launches().items() if n}
+        out[name] = dict(result=result, launches=launches, wall_s=wall)
+        tail = " | ".join(line.strip() for line in printed.getvalue().splitlines()[-4:])
+        log(f"auxiliaries (a): examples/{name}.py on the card in {wall:.3f} s, launches "
+            f"{launches}; its last lines: {tail}")
+    q, d = out["quickstart_torch"], out["downstream_torch"]
+    check(q["launches"].get("topk_l2", 0) > 0, f"quickstart: no K1 launch ({q['launches']})")
+    check(q["result"]["api_diff"] <= 2e-3, f"quickstart: APIs differ by {q['result']['api_diff']}")
+    check(all(d["launches"].get(f"flash_attention_{k}", 0) > 0 for k in ("fwd", "dq", "dkv")),
+          f"downstream: a K3 kernel never ran ({d['launches']})")
+    return out
+
+
+def aux_ema_inputs(seed: int):
+    """Phase 24 (b)'s inputs on the CPU, from ``seed``: ModelConfig()'s
+    codebook as unit rows [21000, 64], z [AUX_ROWS, 64], a usage EMA, an
+    embed_prob with the share of every 8th codeword 0."""
+    import torch
+
+    from medtok_tpu_torch.config import ModelConfig
+    from medtok_tpu_torch.ops import ema, vq
+
+    q = ModelConfig().quantizer
+    g = torch.Generator().manual_seed(seed + 24)
+    w = vq.l2_normalize(torch.randn(q.codebook_size, q.codebook_embed_dim, generator=g))
+    z = torch.randn(AUX_ROWS, q.codebook_embed_dim, generator=g)
+    cluster = torch.rand(q.codebook_size, generator=g)
+    prob = torch.rand(q.codebook_size, generator=g) / q.codebook_size
+    prob[::8] = 0.0
+    return ema.embedding_ema_init(q.codebook_size, q.codebook_embed_dim, init_weight=w), \
+        z, cluster, prob
+
+
+def state_to(state, dev):
+    return type(state)(*(t.to(dev) for t in state))
+
+
+def k1_row_gaps(got, want, flat, weight) -> "np.ndarray":
+    """The float64 distance gap, at each row where two top-1 index vectors
+    differ, between the two picks."""
+    import numpy as np
+
+    rows = np.flatnonzero(got != want)
+    f = flat.double().cpu().numpy()[rows]
+    w = weight.double().cpu().numpy()
+    dist = lambda idx: ((f - w[idx[rows]]) ** 2).sum(axis=1)  # noqa: E731
+    return np.abs(dist(got) - dist(want))
+
+
+def hold_ema(got, want, flat, weight, label: str, tol: float) -> str:
+    """A card run of a stand-alone quantizer against the plain route's:
+    indices equal but at rows whose two picks are tied within 1e-5; the
+    updated codebook rows and usage entries within ``tol``, those touched
+    by a differing row aside."""
+    import numpy as np
+
+    gi, wi = got.indices.cpu().numpy(), want.indices.cpu().numpy()
+    gaps = k1_row_gaps(gi, wi, flat, weight)
+    check(float(gaps.max(initial=0.0)) <= 1e-5,
+          f"{label}: indices differ beyond a tie (gaps {sorted(gaps.tolist())[-5:]})")
+    touched = np.zeros(weight.shape[0], bool)
+    touched[gi[gi != wi]] = touched[wi[gi != wi]] = True
+    w_err = float((got.state.weight.cpu() - want.state.weight)[~touched].abs().max())
+    check(w_err <= tol, f"{label}: codebook error {w_err} > {tol}")
+    c_err = 0.0
+    if hasattr(got, "cluster_size"):
+        c_err = float((got.cluster_size.cpu() - want.cluster_size)[~touched].abs().max())
+        check(c_err <= tol, f"{label}: usage EMA error {c_err} > {tol}")
+    l_err = abs(float(got.loss) - float(want.loss))
+    check(l_err <= tol, f"{label}: loss error {l_err} > {tol}")
+    return (f"{int((gi != wi).sum())}/{len(gi)} indices differ (max tie gap "
+            f"{float(gaps.max(initial=0.0)):.3e}), codebook err {w_err:.3e}, usage err "
+            f"{c_err:.3e}, loss err {l_err:.3e} ({int(touched.sum())} touched rows aside)")
+
+
+def aux_norm_ema(dev, seed: int) -> dict:
+    """Phase 24 (b), one device: norm_ema_quantize at ModelConfig()'s
+    codebook width on the card (K1 at k = 1: one launch a call, counted
+    from 0) in training and eval, each held to the plain route on the CPU;
+    then revival_quantize with each anchor, the closest one held to the
+    CPU within 1e-5. Returns the card's results (CPU copies) and the
+    launches."""
+    import torch
+
+    from medtok_tpu_torch.ops import ema
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    state, z, cluster, prob = aux_ema_inputs(seed)
+    flat = ema.l2_normalize(z)
+    st_d, z_d, cl_d = state_to(state, dev), z.to(dev), cluster.to(dev)
+    out = {}
+    zero_launches()
+    for train in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ema.norm_ema_quantize(z_d, st_d, cl_d, train=train)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = ema.norm_ema_quantize(z, state, cluster, train=train)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        summary = hold_ema(got, want, flat, state.weight, f"norm_ema_quantize train={train}",
+                           1e-6)
+        out[train] = got
+        log(f"auxiliaries (b): norm_ema_quantize train={train}, z [{AUX_ROWS}, 64] against "
+            f"{state.weight.shape[0]} x 64 on the card in {ms:.3f} ms (the CPU plain route "
+            f"{cpu_ms:.3f} ms): {summary}")
+    launches = fused_topk_l2.launches + fused_topk_l2.wide_launches
+    check(fused_topk_l2.launches == 2 and fused_topk_l2.wide_launches == 0,
+          f"norm_ema_quantize: K1 launches {fused_topk_l2.launches} (wide "
+          f"{fused_topk_l2.wide_launches}), want 1 a call")
+    pool = ema.feature_pool_init(state.weight.shape[0], 64,
+                                 generator=torch.Generator(device=dev).manual_seed(seed),
+                                 device=dev)
+    for anchor in ema.ANCHORS:
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        got = ema.revival_quantize(z_d, st_d, prob.to(dev), pool, anchor=anchor,
+                                   contras_loss=True, generator=g)
+        torch.cuda.synchronize()
+        fin = all(bool(torch.isfinite(t).all()) for t in (got.z_q, got.state.weight,
+                                                          got.contra_loss, got.embed_prob))
+        check(fin, f"revival_quantize {anchor}: non-finite outputs")
+        note = ""
+        if anchor == "closest":
+            want = ema.revival_quantize(z, state, prob, ema.feature_pool_init(1, 64),
+                                        anchor=anchor, contras_loss=True)
+            note = "; against the CPU: " + hold_ema(got, want, flat, state.weight,
+                                                   "revival_quantize closest", 1e-5)
+            c_err = abs(float(got.contra_loss) - float(want.contra_loss))
+            check(c_err <= 1e-5, f"revival_quantize closest: contrastive term error {c_err}")
+        revived = int((got.state.weight - st_d.weight).norm(dim=1).gt(0.1).sum())
+        log(f"auxiliaries (b): revival_quantize {anchor}: {revived} codewords moved by more "
+            f"than 0.1, contrastive term {float(got.contra_loss):.4f}{note}")
+    return {"train": out[True], "launches": launches}
+
+
+def aux_zero_params(dev, seed: int):
+    """ModelConfig()'s parameters in fp32 (the frozen BERT's too), random
+    from ``seed`` on the card, a gradient for each, and the Adam state of a
+    replicated step on them."""
+    import torch
+
+    from medtok_tpu_torch.config import ModelConfig
+    from medtok_tpu_torch.models.layers import init_random_
+    from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+
+    g = torch.Generator(device=dev).manual_seed(seed + 24)
+    model = init_random_(MultimodalTokenizer(ModelConfig(), param_dtype=torch.float32,
+                                             device=dev), g)
+    params = {k: v.detach().float() for k, v in model.named_parameters()}
+    del model
+    grads = {k: 1e-3 * torch.randn(v.shape, generator=g, device=dev) for k, v in params.items()}
+    ps = [torch.nn.Parameter(v.clone()) for v in params.values()]
+    opt = torch.optim.Adam(ps, lr=1e-4, foreach=False)
+    for p, gr in zip(ps, grads.values()):
+        p.grad = gr
+    opt.step()
+    opt_state = {k: opt.state[p] for k, p in zip(params, ps)}
+    return params, grads, opt_state
+
+
+def adam_step(params: dict, grads: dict) -> dict:
+    """One Adam step (``foreach=False``) on copies of ``params`` (tensors or
+    DTensors) with ``grads``; the new parameters."""
+    import torch
+
+    ps = {k: torch.nn.Parameter(v.clone()) for k, v in params.items()}
+    opt = torch.optim.Adam(list(ps.values()), lr=1e-4, foreach=False)
+    for k, p in ps.items():
+        p.grad = grads[k]
+    opt.step()
+    return {k: p.detach() for k, p in ps.items()}
+
+
+def aux_zero(dp, seed: int) -> dict:
+    """Phase 24 (c) on ``dp``: apply_zero at stages 0-3 on ModelConfig()'s
+    parameters and Adam state (the bytes this rank holds at each), then one
+    Adam step on the stage-3 DTensors against the replicated step; returns
+    the bytes by stage and the largest difference of this rank's shards."""
+    import torch
+
+    from medtok_tpu_torch.utils import zero
+
+    params, grads, opt_state = aux_zero_params(dp.device, seed)
+    held = {}
+    for stage in range(4):
+        p, o = zero.apply_zero(stage, dp, params, opt_state)
+        held[stage] = (zero.local_bytes(p), zero.local_bytes(o))
+        del p, o
+    p3 = zero.apply_zero(3, dp, params)
+    g3 = zero.apply_zero(3, dp, grads)
+    got = adam_step(p3, g3)
+    want = adam_step(params, grads)
+    err, bitwise = 0.0, True
+    for k, t in got.items():
+        local = t.to_local()
+        dim = zero.dp_shard_spec(tuple(want[k].shape), dp.dp_size)
+        ref = want[k] if dim is None else want[k].chunk(dp.dp_size, dim)[dp.rank]
+        bitwise &= torch.equal(local, ref)
+        err = max(err, float((local - ref).abs().max()))
+    torch.cuda.synchronize(dp.device)
+    return {"held": held, "err": err, "bitwise": bitwise,
+            "total": (zero.local_bytes(params), zero.local_bytes(opt_state))}
+
+
+def aux_rank_results(dp, seed: int) -> dict:
+    """What one gloo rank of phase 24 computes on ``dp``: norm_ema_quantize
+    with ``dp=`` on its part of the rows, then ``aux_zero``."""
+    from medtok_tpu_torch.ops import ema
+
+    state, z, cluster, _ = aux_ema_inputs(seed)
+    mine = z.chunk(dp.world)[dp.rank].to(dp.device)
+    o = ema.norm_ema_quantize(mine, state_to(state, dp.device), cluster.to(dp.device),
+                              train=True, dp=dp)
+    return {"indices": o.indices.cpu(), "weight": o.state.weight.cpu(),
+            "cluster": o.cluster_size.cpu(), "zero": aux_zero(dp, seed)}
+
+
+def aux_rank(rank: int, world: int, root: Path) -> int:
+    """One rank of phase 24 (b) and (c), started by ``aux_two_ranks``: a
+    gloo group on the card shared with the other rank, then
+    ``aux_rank_results``, written to rank{rank}.pkl under root."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.parallel.mesh import DataParallel
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{root / 'group'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    spec = pickle.loads((root / "spec.pkl").read_bytes())
+    out = aux_rank_results(DataParallel(rank, world, dev), spec["seed"])
+    (root / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def hold_aux_ranks(ranks: list, one: dict) -> None:
+    """Phase 24 (b) and (c)'s checks of the gloo ranks' results: the ranks'
+    indices together one device's; codebook and usage EMA within 1e-6 of
+    one device's on all rows; each rank's stage-3 shard within 1e-6 of the
+    replicated step."""
+    import torch
+
+    idx = torch.cat([r["indices"] for r in ranks])
+    check(torch.equal(idx, one["train"].indices.cpu()),
+          "auxiliaries (b): the gloo ranks' indices differ from one device's")
+    errs = [max(float((r["weight"] - one["train"].state.weight.cpu()).abs().max()),
+                float((r["cluster"] - one["train"].cluster_size.cpu()).abs().max()))
+            for r in ranks]
+    check(max(errs) <= 1e-6, f"auxiliaries (b): gloo ranks against one device: {errs} > 1e-6")
+    zerr = [r["zero"]["err"] for r in ranks]
+    check(max(zerr) <= 1e-6, f"auxiliaries (c): gloo stage-3 step against replicated: {zerr}")
+    log(f"auxiliaries (b): {len(ranks)} gloo ranks sharing the card, norm_ema_quantize on "
+        f"{len(ranks[0]['indices'])} rows each: indices equal to one device's, codebook and "
+        f"usage within {max(errs):.3e} of it on all rows")
+    for r, rank in enumerate(ranks):
+        z = rank["zero"]
+        log(f"auxiliaries (c): gloo rank {r} of {len(ranks)}: bytes held (params, Adam "
+            f"state) by stage {z['held']} of {z['total']}; the stage-3 step's shard within "
+            f"{z['err']:.3e} of the replicated step (bitwise: {z['bitwise']})")
+
+
+def aux_two_ranks(one: dict, seed: int, root: Path) -> dict:
+    """Phase 24 (b) and (c) on AUX_RANKS gloo ranks sharing the card
+    (``aux_rank`` processes), held by ``hold_aux_ranks``."""
+    import os
+    import pickle
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "spec.pkl").write_bytes(pickle.dumps({"seed": seed}))
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(r), "--dp-world", str(AUX_RANKS), "--dp-root", str(root),
+                               "--dp-task", "aux"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(AUX_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"auxiliaries, gloo rank {r} exited {p.returncode}:\n"
+              f"{text[-4000:]}")
+    ranks = [pickle.loads((root / f"rank{r}.pkl").read_bytes()) for r in range(AUX_RANKS)]
+    hold_aux_ranks(ranks, one)
+    log(f"auxiliaries: the {AUX_RANKS} gloo rank processes took {wall:.3f} s wall")
+    return {"wall_s": wall, "zero": [r["zero"] for r in ranks]}
+
+
+def aux_world1(dev, one: dict, seed: int) -> dict:
+    """Phase 24 (b) and (c) in a world-1 NCCL group joined here:
+    norm_ema_quantize with the group bitwise equal to without it; apply_zero
+    at stages 0-3 and the stage-3 Adam step bitwise equal to the replicated
+    one."""
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from medtok_tpu_torch.ops import ema
+    from medtok_tpu_torch.parallel.mesh import initialize_distributed, warmup_collectives
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    try:
+        dp = initialize_distributed(dev)
+        warmup_collectives(dp)
+        check(dp.backend == "nccl", f"auxiliaries: backend {dp.backend}, want nccl")
+        state, z, cluster, _ = aux_ema_inputs(seed)
+        got = ema.norm_ema_quantize(z.to(dev), state_to(state, dev), cluster.to(dev),
+                                    train=True, dp=dp)
+        want = one["train"]
+        same = all(torch.equal(a, b) for a, b in zip(
+            (got.indices, got.z_q, got.loss, got.cluster_size, *got.state),
+            (want.indices, want.z_q, want.loss, want.cluster_size, *want.state)))
+        check(same, "auxiliaries (b): norm_ema_quantize over the world-1 NCCL group differs "
+              "from no group")
+        t0 = time.perf_counter()
+        zr = aux_zero(dp, seed)
+        zero_s = time.perf_counter() - t0
+        check(zr["bitwise"], f"auxiliaries (c): the world-1 NCCL stage-3 Adam step differs "
+              f"from the replicated one by {zr['err']}")
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+    log("auxiliaries (b): norm_ema_quantize over a world-1 NCCL group bitwise equal to no "
+        "group")
+    log(f"auxiliaries (c): world-1 NCCL, ModelConfig() in fp32: bytes held (params, Adam "
+        f"state) by stage {zr['held']} of {zr['total']}; the stage-3 Adam step (foreach=False) "
+        f"bitwise equal to the replicated step; {zero_s:.3f} s")
+    return zr
+
+
+def aux_profile(model_state: dict, buffers: dict, cfg, dataset, dev, keep: Path) -> dict:
+    """Phase 24 (d): trace() and StepTimer around a packed export of the
+    first two of phase 5's export steps (phase 5's model rebuilt from its
+    weights), twice: the trace file holds the export.bert and
+    export.quantize ranges and K1's and K2's kernels; the timer's summary
+    is logged."""
+    import json as json_module
+
+    import numpy as np
+    import torch
+
+    from medtok_tpu_torch.data.dataset import MedCodeDataset
+    from medtok_tpu_torch.export import export_all_packed, export_groups
+    from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+    from medtok_tpu_torch.utils.profiling import StepTimer, trace
+
+    model = MultimodalTokenizer(cfg.model, device=dev).eval()
+    model.load_state_dict(model_state)
+    for name, buf in buffers.items():
+        model.get_buffer(name).copy_(buf)
+    first = sorted(int(i) for g in export_groups(dataset)[:2] for i in np.asarray(g).ravel())
+    sub = MedCodeDataset(dataset.kg, [dataset.med_codes[i] for i in first],
+                         [dataset.descs[i] for i in first],
+                         [dataset.pkg_index_lists[i] for i in first],
+                         dataset.tokenizer, cfg=dataset.cfg)
+    sub.warm_cache()
+    steps = len(export_groups(sub))
+    timer = StepTimer()
+    logdir = keep / "trace"
+    with trace(logdir):
+        for _ in range(2):
+            timer.start(sync_on=torch.zeros(1, device=dev))
+            arrays = export_all_packed(model, sub, device=dev)
+            timer.stop(sync_on=torch.zeros(1, device=dev))
+    files = list(logdir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"auxiliaries (d): trace files {files}")
+    names = {e.get("name", "") for e in json_module.loads(files[0].read_text())["traceEvents"]}
+    for want in ("export.bert", "export.quantize"):
+        check(want in names, f"auxiliaries (d): no {want} range in the trace")
+    for kernel in ("topk_tf32_kernel", "segment_attention_mma_kernel"):
+        check(any(kernel in n for n in names), f"auxiliaries (d): no {kernel} in the trace")
+    check(bool(np.isfinite(arrays["embeddings_all"]).all()), "auxiliaries (d): non-finite")
+    summary = timer.summary()
+    log(f"auxiliaries (d): trace of {len(sub)} codes ({steps} packed export steps) twice: "
+        f"{files[0].stat().st_size / 2**20:.1f} MiB, export.bert / export.quantize ranges "
+        f"and K1's / K2's kernels in it; StepTimer {summary}")
+    return summary
+
+
+def aux_drop_path(dev, seed: int) -> dict:
+    """Phase 24 (e): drop_path on a CUDA [1024, 128, 768] bf16 tensor at p
+    0.1: the kept samples exactly x * (1 / keep) in bf16, the dropped ones
+    0, the dropped share within 4 sigma of p."""
+    import torch
+
+    from medtok_tpu_torch.ops.drop_path import drop_path
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*AUX_DROP, generator=g, device=dev, dtype=torch.bfloat16)
+    out = drop_path(x, AUX_DROP_P, generator=g)
+    kept = (out != 0).flatten(1).any(dim=1)
+    scale = torch.ones((), dtype=torch.bfloat16, device=dev) / torch.tensor(
+        1 - AUX_DROP_P, dtype=torch.bfloat16, device=dev)
+    check(torch.equal(out[kept], x[kept] * scale), "drop_path: kept samples not scaled exactly")
+    check(not out[~kept].any(), "drop_path: a dropped sample is not zero")
+    share = 1.0 - float(kept.float().mean())
+    sigma = (AUX_DROP_P * (1 - AUX_DROP_P) / AUX_DROP[0]) ** 0.5
+    check(abs(share - AUX_DROP_P) <= 4 * sigma,
+          f"drop_path: dropped share {share} beyond 4 sigma ({sigma}) of {AUX_DROP_P}")
+    ms = cuda_ms(lambda: drop_path(x, AUX_DROP_P, generator=g), 20)
+    log(f"auxiliaries (e): drop_path on [{', '.join(map(str, AUX_DROP))}] bf16 at p "
+        f"{AUX_DROP_P}: dropped share {share:.4f} (4 sigma {4 * sigma:.4f}), kept samples "
+        f"exactly x * {float(scale)}; {ms:.4f} ms a call")
+    return {"share": share, "ms": ms}
+
+
+def run_auxiliaries(model_state: dict, buffers: dict, cfg, dataset, dev, seed: int,
+                    keep: Path) -> dict:
+    """Phase 24: the auxiliaries on the card, (a)-(e)."""
+    import gc
+
+    import torch
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"examples": run_examples(keep / "examples")}
+    out["ema"] = aux_norm_ema(dev, seed)
+    out["world1"] = aux_world1(dev, out["ema"], seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ranks"] = aux_two_ranks(out["ema"], seed, keep / "aux")
+    out["profile"] = aux_profile(model_state, buffers, cfg, dataset, dev, keep)
+    out["drop_path"] = aux_drop_path(dev, seed)
+    log(f"auxiliaries: phase {time.perf_counter() - phase_t0:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5548,8 +6061,9 @@ def main(argv=None) -> int:
     p.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dp-world", type=int, default=DP_RANKS, help=argparse.SUPPRESS)
     p.add_argument("--dp-root", type=str, default=None, help=argparse.SUPPRESS)
-    # its task: phase 21 (d)'s training, or phase 23 (b)'s export
-    p.add_argument("--dp-task", default="train", choices=["train", "export"],
+    # its task: phase 21 (d)'s training, phase 23 (b)'s export, or phase 24's
+    # norm-EMA and ZeRO step
+    p.add_argument("--dp-task", default="train", choices=["train", "export", "aux"],
                    help=argparse.SUPPRESS)
     # one rank of phase 22, started by the phase itself
     p.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -5569,7 +6083,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(repo))
     if args.dp_rank is not None:
-        rank_fn = dpx_rank if args.dp_task == "export" else dp_rank
+        rank_fn = {"export": dpx_rank, "aux": aux_rank}.get(args.dp_task, dp_rank)
         return rank_fn(args.dp_rank, args.dp_world, Path(args.dp_root))
     if args.tp_rank is not None:
         return tp_rank(args.tp_rank, args.tp_world, Path(args.tp_root))
@@ -5660,6 +6174,7 @@ def main(argv=None) -> int:
         dp = run_data_parallel(dataset, table, ehr, dev, gen, keep, clis["argv"], args.seed)
         tp = run_tensor_parallel(dataset, table, dev, args.seed, keep / "tp")
         dpx = run_dp_export(ehr_downstream, len(dataset), keep)
+        aux = run_auxiliaries(model_state, buffers, cfg, dataset, dev, args.seed, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -5706,13 +6221,24 @@ def main(argv=None) -> int:
     for t, n in enumerate(tp["launches"]):
         k1["launches_by_path"][
             f"tensor-parallel sweep, gloo rank {t} of {TP_RANKS} (phase 22 a)"] = n
+    # phase 24's paths: the examples, and the stand-alone norm-EMA quantizer
+    quick = aux["examples"]["quickstart_torch"]["launches"]
+    down = aux["examples"]["downstream_torch"]["launches"]
+    k1["launches_by_path"]["examples/quickstart_torch.py (phase 24 a)"] = quick["topk_l2"]
+    k2["launches_by_path"]["examples/quickstart_torch.py (phase 24 a)"] = \
+        quick.get("segment_attention", 0)
+    k1["launches_by_path"][
+        "norm_ema_quantize, 21000 x 64, z [4096, 64], train + eval (phase 24 b)"] = \
+        aux["ema"]["launches"]
     for row, key in zip(k3, ("fwd", "dq", "dkv")):
         row["launches_by_path"] = {"EHRTrainer.fit + evaluate (phase 8)": k3_launches[key],
                                    "cli.ehr (phase 18)": ehr_downstream["cli"]["k3"][key],
                                    "EHRTrainer, world-1 NCCL (phase 21 c)":
                                        dp["ehr"]["counts"][key],
                                    "EHRTrainer, a gloo rank of 2 (phase 21 d)":
-                                       dp["ranks"]["k3"][key]}
+                                       dp["ranks"]["k3"][key],
+                                   "examples/downstream_torch.py (phase 24 a)":
+                                       down[f"flash_attention_{key}"]}
     for row in wide:
         if row["name"] in wide_paths:
             row["launches_by_path"] = wide_paths[row["name"]]

@@ -37,6 +37,8 @@ from pathlib import Path
 
 import numpy as np
 
+from medtok_tpu_torch.utils.platform import apply_platform_env
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -85,6 +87,7 @@ def main(argv=None) -> dict:
     """Run the CLI; returns the run's summary: the stage wall times
     (``stages``), and either the best validation and test metrics, the
     number of classes and the test batches, or the grid's ``results``."""
+    apply_platform_env()
     p = build_parser()
     args = p.parse_args(argv)
     if args.wandb:

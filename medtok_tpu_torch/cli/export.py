@@ -38,11 +38,14 @@ from __future__ import annotations
 import argparse
 import time
 
+from medtok_tpu_torch.utils.platform import apply_platform_env
+
 _FILES = ("config", "params", "kg", "codes", "vocab")
 
 
 def main(argv=None) -> dict:
     """Export; returns the arrays written."""
+    apply_platform_env()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--workdir", help="training workdir of the port (args.json + "

@@ -39,6 +39,8 @@ from pathlib import Path
 
 import numpy as np
 
+from medtok_tpu_torch.utils.platform import apply_platform_env
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -95,6 +97,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     """Run a mode; returns ``{"losses": [...], "adapter_path": ...}`` after
     finetune and ``{"accuracy": ..., "predictions": [...]}`` after eval."""
+    apply_platform_env()
     args = parse_args(argv)
     if not args.tiny and not args.tokenizer_json:
         raise SystemExit(

@@ -42,6 +42,8 @@ import argparse
 import time
 from pathlib import Path
 
+from medtok_tpu_torch.utils.platform import apply_platform_env
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -200,6 +202,7 @@ def config_from_args(args):
 
 def main(argv=None) -> Path:
     """Train; returns the experiment directory."""
+    apply_platform_env()
     args = parse_args(argv)
 
     import torch

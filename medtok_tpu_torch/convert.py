@@ -33,6 +33,10 @@ and under ``use_kmeans`` its ``quantize/ema_codebook``, ``ema_cluster`` and
 Values are cast to each tensor's dtype, so one tree loads into the eval
 model (parameters in the compute dtype) and into the training model (fp32
 parameters) alike.
+
+The stand-alone EMA quantizers' state (``ops/ema.py``: an
+``EmbeddingEMAState``, a ``FeaturePoolState``, an ``embed_prob``) comes
+across by ``ema_state_from_arrays``.
 """
 
 from __future__ import annotations
@@ -128,3 +132,23 @@ def load_qa_params(llm: nn.Module, soft_prompt: nn.Module, tree: Mapping) -> Non
     ``MedTokSoftPrompt``, every parameter present on both sides."""
     load_params(llm, tree["llm"])
     load_params(soft_prompt, tree["soft_prompt"])
+
+
+def ema_state_from_arrays(state, device=None):
+    """The JAX EMA quantizers' state as the port's: an ``EmbeddingEMAState``
+    or ``FeaturePoolState`` (any NamedTuple with those fields, holding numpy
+    arrays or anything ``np.asarray`` takes) becomes the port's NamedTuple of
+    tensors of the same dtypes; one array (an ``embed_prob`` or a
+    ``cluster_size`` buffer) becomes one tensor."""
+    from medtok_tpu_torch.ops.ema import EmbeddingEMAState, FeaturePoolState
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    fields = getattr(state, "_fields", None)
+    if fields is None:
+        return tensor(state)
+    for cls in (EmbeddingEMAState, FeaturePoolState):
+        if tuple(fields) == cls._fields:
+            return cls(*(tensor(x) for x in state))
+    raise ValueError(f"no EMA state of the port has the fields {fields}")

@@ -1,8 +1,9 @@
-"""Knowledge graph as edge arrays + CSR, and the edge dropout of the
-training view (own copy of the array part of ``medtok_tpu/data/kg.py``).
+"""Knowledge graph as edge arrays + CSR, the edge dropout of the training
+view, and the typed ``HeteroKG`` view (own copy of
+``medtok_tpu/data/kg.py``).
 
-Built from arrays; ``from_csv`` reads a PrimeKG ``kg.csv`` with the ``csv``
-module (no pandas, which the port does not require).
+Built from arrays; the ``from_csv`` readers take a PrimeKG ``kg.csv`` with
+the ``csv`` module (no pandas, which the port does not require).
 """
 
 from __future__ import annotations
@@ -35,15 +36,7 @@ class KnowledgeGraph:
         p = Path(kg_path)
         if p.is_dir():
             p = p / "kg.csv"
-        with open(p, newline="") as f:
-            reader = csv.reader(f)
-            header = next(reader, [])
-            try:
-                cols = [header.index(c) for c in ("x_index", "y_index", "display_relation")]
-            except ValueError:
-                raise ValueError(f"{p}: kg.csv needs the columns x_index, y_index and "
-                                 f"display_relation, found {header}") from None
-            columns = list(zip(*map(operator.itemgetter(*cols), reader))) or [(), (), ()]
+        columns = _read_columns(p, ("x_index", "y_index", "display_relation"))
         src = np.array(columns[0], dtype=np.int64)
         dst = np.array(columns[1], dtype=np.int64)
         rel_vocab: dict[str, int] = {}
@@ -86,6 +79,104 @@ class KnowledgeGraph:
         local_src = np.searchsorted(nodes, self.edge_src[cand]).astype(np.int32)
         rel = self.rel_index[cand].astype(np.int32)
         return local_src, local_dst, rel
+
+
+def _read_columns(p: Path, names: tuple[str, ...]) -> list[tuple[str, ...]]:
+    """The ``names`` columns of a csv file as tuples of strings, in any
+    position among the others."""
+    with open(p, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader, [])
+        try:
+            cols = [header.index(c) for c in names]
+        except ValueError:
+            raise ValueError(f"{p}: kg.csv needs the columns {', '.join(names)}, "
+                             f"found {header}") from None
+        return list(zip(*map(operator.itemgetter(*cols), reader))) or [()] * len(names)
+
+
+@dataclass
+class HeteroKG:
+    """The typed PrimeKG view (not on the training path): each node's type
+    and its index among the nodes of that type, and the edges grouped by
+    (x_type, relation, y_type) in type-local indices, with an ``.npz``
+    cache in the JAX package's layout (each package reads the other's)."""
+
+    # node_index -> node type, and -> its index within the type
+    node_type: dict[int, str]
+    node_type_graph_index: dict[int, int]
+    # (x_type, relation, y_type) -> (src_local [E], dst_local [E]) int64
+    edge_groups: dict[tuple[str, str, str], tuple[np.ndarray, np.ndarray]]
+
+    @classmethod
+    def from_csv(cls, kg_path: str | Path, cache_path: str | Path | None = None) -> "HeteroKG":
+        """Read kg.csv (the file or its directory), or ``cache_path`` when
+        it exists (written there otherwise). The JAX reader's pandas order:
+        nodes in first appearance over all x_index rows, then all y_index
+        rows, each taking the type of its first row; the type-local index
+        counts the nodes of its type so far; edge groups in first appearance
+        of their (x_type, relation, y_type). Type and relation values are
+        the file's strings."""
+        if cache_path is not None and Path(cache_path).exists():
+            return cls._load(cache_path)
+        p = Path(kg_path)
+        if p.is_dir():
+            p = p / "kg.csv"
+        xi, xt, rel, yi, yt = _read_columns(
+            p, ("x_index", "x_type", "relation", "y_index", "y_type"))
+        xi, yi = [int(i) for i in xi], [int(i) for i in yi]
+        node_type: dict[int, str] = {}
+        for i, t in zip(xi + yi, xt + yt):
+            node_type.setdefault(i, t)
+        counts: dict[str, int] = {}
+        local: dict[int, int] = {}
+        for i, t in node_type.items():
+            local[i] = counts.get(t, 0)
+            counts[t] = local[i] + 1
+        rows: dict[tuple[str, str, str], list[int]] = {}
+        for r, key in enumerate(zip(xt, rel, yt)):
+            rows.setdefault(key, []).append(r)
+        edge_groups = {
+            key: (np.asarray([local[xi[r]] for r in rs], np.int64),
+                  np.asarray([local[yi[r]] for r in rs], np.int64))
+            for key, rs in rows.items()}
+        kg = cls(node_type, local, edge_groups)
+        if cache_path is not None:
+            kg._save(cache_path)
+        return kg
+
+    def num_nodes(self, ntype: str) -> int:
+        return sum(1 for t in self.node_type.values() if t == ntype)
+
+    def num_edges(self) -> int:
+        return sum(len(s) for s, _ in self.edge_groups.values())
+
+    def get_type_graph_index(self, org_idx: int) -> int:
+        return self.node_type_graph_index[org_idx]
+
+    def _save(self, path: str | Path) -> None:
+        arrays = {}
+        for i, (s, d) in enumerate(self.edge_groups.values()):
+            arrays[f"src_{i}"] = s
+            arrays[f"dst_{i}"] = d
+        meta = {
+            "keys": list(self.edge_groups),
+            "node_index": list(self.node_type),
+            "node_type": list(self.node_type.values()),
+            "local": list(self.node_type_graph_index.values()),
+        }
+        np.savez_compressed(path, meta=np.asarray([repr(meta)]), **arrays)
+
+    @classmethod
+    def _load(cls, path: str | Path) -> "HeteroKG":
+        import ast
+
+        with np.load(path, allow_pickle=False) as z:
+            meta = ast.literal_eval(str(z["meta"][0]))
+            groups = {tuple(k): (z[f"src_{i}"], z[f"dst_{i}"])
+                      for i, k in enumerate(meta["keys"])}
+        return cls(dict(zip(meta["node_index"], meta["node_type"])),
+                   dict(zip(meta["node_index"], meta["local"])), groups)
 
 
 def edge_dropout(

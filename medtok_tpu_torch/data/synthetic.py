@@ -1,16 +1,143 @@
-"""Synthetic vocabulary and KG at production scale (numpy versions of
-``medtok_tpu/data/synthetic.py::synthetic_vocab_frame`` / ``synthetic_kg``).
+"""Synthetic fixtures (counterpart of ``medtok_tpu/data/synthetic.py``):
+random CodeBatches, reference-schema ``kg.csv`` and vocabulary files, and
+the vocabulary and KG at production scale.
 
 The draws are the JAX package's, in the same order, so the same seeded
-generator yields the same codes, descriptions and node lists; the vocabulary
-comes back as plain columns instead of a DataFrame.
+generator yields the same batches, rows, codes, descriptions and node
+lists. No pandas: the kg.csv is written by the ``csv`` module as pandas'
+``to_csv(index=False)`` writes it (the same bytes), the vocabulary as
+``.jsonl`` (or ``.parquet`` where pandas is installed), and the
+production-scale vocabulary comes back as plain columns instead of a
+DataFrame.
 """
 
 from __future__ import annotations
 
+import csv
+from pathlib import Path
+
 import numpy as np
 
+from medtok_tpu_torch.data.dataset import VOCAB_COLUMNS, write_jsonl
 from medtok_tpu_torch.data.kg import KnowledgeGraph
+from medtok_tpu_torch.data.types import CodeBatch
+
+
+def random_code_batch(
+    rng: np.random.Generator,
+    *,
+    batch: int = 8,
+    text_len: int = 32,
+    max_nodes: int = 16,
+    max_edges_per_graph: int = 32,
+    text_vocab: int = 30522,
+    num_kg_nodes: int = 130000,
+    edge_dropout_p: float = 0.1,
+) -> CodeBatch:
+    """A random, well-formed CodeBatch of numpy arrays: ragged texts and
+    graphs padded to (text_len, max_nodes, max_edges_per_graph), graph i's
+    edges in slots [i * Epg, i * Epg + ne) with within-graph node indices,
+    and the augmented edges an independent edge dropout of them."""
+    B, Lt, Ln = batch, text_len, max_nodes
+    E = batch * max_edges_per_graph
+
+    text_lens = rng.integers(4, Lt + 1, size=B)
+    input_ids = np.zeros((B, Lt), np.int32)
+    attention_mask = np.zeros((B, Lt), np.int32)
+    for i, L in enumerate(text_lens):
+        input_ids[i, :L] = rng.integers(1, text_vocab, size=L)
+        attention_mask[i, :L] = 1
+
+    node_counts = rng.integers(1, Ln + 1, size=B)
+    node_ids = np.zeros((B, Ln), np.int32)
+    node_mask = np.zeros((B, Ln), bool)
+    for i, n in enumerate(node_counts):
+        node_ids[i, :n] = rng.choice(num_kg_nodes, size=n, replace=False)
+        node_mask[i, :n] = True
+
+    edge_src = np.zeros((E,), np.int32)
+    edge_dst = np.zeros((E,), np.int32)
+    edge_weight = np.zeros((E,), np.float32)
+    Epg = max_edges_per_graph
+    for i, n in enumerate(node_counts):
+        ne = int(rng.integers(0, Epg + 1)) if n > 1 else 0
+        if ne:
+            edge_src[i * Epg:i * Epg + ne] = rng.integers(0, n, size=ne)
+            edge_dst[i * Epg:i * Epg + ne] = rng.integers(0, n, size=ne)
+            edge_weight[i * Epg:i * Epg + ne] = 1.0
+    keep = (rng.random(E) > edge_dropout_p) & (edge_weight > 0)
+    edge_weight_aug = np.where(keep, edge_weight, 0.0).astype(np.float32)
+
+    return CodeBatch(
+        input_ids=input_ids,
+        attention_mask=attention_mask,
+        node_ids=node_ids,
+        node_mask=node_mask,
+        edge_src=edge_src,
+        edge_dst=edge_dst,
+        edge_weight=edge_weight,
+        edge_src_aug=edge_src.copy(),
+        edge_dst_aug=edge_dst.copy(),
+        edge_weight_aug=edge_weight_aug,
+        code_indices=np.arange(B, dtype=np.int32),
+    )
+
+
+KG_RELATIONS = ["ppi", "carrier", "enzyme", "target", "transporter", "indication"]
+KG_NODE_TYPES = ["gene/protein", "drug", "disease", "effect/phenotype"]
+
+
+def synthetic_kg_csv(
+    path: str | Path, rng: np.random.Generator, *, num_nodes: int = 500,
+    num_edges: int = 4000,
+) -> None:
+    """Write a PrimeKG-schema kg.csv (relation, display_relation, and the
+    index / id / type / name / source of x and y), a node's type by its
+    index."""
+    x = rng.integers(0, num_nodes, size=num_edges)
+    y = rng.integers(0, num_nodes, size=num_edges)
+    r = rng.integers(0, len(KG_RELATIONS), size=num_edges)
+    types = KG_NODE_TYPES
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["relation", "display_relation", "x_index", "x_id", "x_type", "x_name",
+                    "x_source", "y_index", "y_id", "y_type", "y_name", "y_source"])
+        for xi, yi, ri in zip(x.tolist(), y.tolist(), r.tolist()):
+            rel = KG_RELATIONS[ri]
+            w.writerow([rel, rel, xi, xi, types[xi % len(types)], f"node_{xi}", "synthetic",
+                        yi, yi, types[yi % len(types)], f"node_{yi}", "synthetic"])
+
+
+CODE_WORDS = ["diabetes", "mellitus", "acute", "chronic", "infection", "fracture",
+              "hypertension", "renal", "cardiac", "therapy", "syndrome", "disorder"]
+
+
+def synthetic_code_vocab(
+    path: str | Path, rng: np.random.Generator, *, num_codes: int = 64,
+    num_nodes: int = 500,
+) -> None:
+    """Write an all_codes_mappings-schema vocabulary (med_code / desc /
+    pkg_index_list): 1-8 distinct nodes and 2-7 words a code. A ``.jsonl``
+    path gets JSON Lines (``data/dataset.py::write_jsonl``), a ``.parquet``
+    one a parquet file (needs pandas and pyarrow), as the readers choose by
+    suffix."""
+    suffix = Path(path).suffix
+    if suffix not in (".jsonl", ".parquet"):
+        raise ValueError(f"{path}: the code vocabulary must be a .parquet or a .jsonl file")
+    columns: dict[str, list] = {c: [] for c in VOCAB_COLUMNS}
+    for i in range(num_codes):
+        n = int(rng.integers(1, 9))
+        nodes = rng.choice(num_nodes, size=n, replace=False).tolist()
+        desc = " ".join(rng.choice(CODE_WORDS, size=int(rng.integers(2, 8))).tolist())
+        columns["med_code"].append(f"C{i:05d}")
+        columns["desc"].append(desc)
+        columns["pkg_index_list"].append(nodes)
+    if suffix == ".jsonl":
+        write_jsonl(columns, path)
+    else:
+        import pandas as pd
+
+        pd.DataFrame(columns).to_parquet(path)
 
 MEDICAL_WORDS = [
     "diabetes", "mellitus", "acute", "chronic", "infection", "fracture",

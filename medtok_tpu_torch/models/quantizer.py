@@ -46,7 +46,7 @@ from torch.profiler import record_function
 from medtok_tpu_torch.config import QuantizerConfig
 from medtok_tpu_torch.models.layers import CrossAttention, global_mean_pool
 from medtok_tpu_torch.ops import vq as vq_ops
-from medtok_tpu_torch.ops.ema import ema_update, norm_ema_update
+from medtok_tpu_torch.ops.ema import assignment_stats, ema_update, norm_ema_weight
 
 
 class SoftVQQuantizer(nn.Module):
@@ -145,15 +145,10 @@ class SoftVQQuantizer(nn.Module):
         C, decay = c.codebook_size, c.codebook_ema_decay
         w = self.ema_codebook
         flat_n = flat_n.detach().float()
-        top1 = top1.long()
-        bins = torch.zeros(C, dtype=torch.float32, device=w.device).index_put_(
-            (top1,), torch.ones_like(top1, dtype=torch.float32), accumulate=True)
-        embed_sum = torch.zeros_like(w).index_put_((top1,), flat_n, accumulate=True)
+        bins, embed_sum = assignment_stats(flat_n, top1.long(), C)
         if self.dp is not None:
             self.dp.all_reduce_sum_([bins, embed_sum], axis="dp")
-        zero = bins == 0
-        mean = vq_ops.l2_normalize(embed_sum / torch.where(zero, 1.0, bins)[:, None])
-        new_w = norm_ema_update(w, torch.where(zero[:, None], w, mean), decay)
+        new_w = norm_ema_weight(w, bins, embed_sum, decay)
         self.ema_cluster = ema_update(self.ema_cluster, bins, decay)
         if c.codebook_revival:
             avg_probs = bins / torch.clamp(bins.sum(), min=1.0)

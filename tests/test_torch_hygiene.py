@@ -35,7 +35,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    files = sorted((REPO / "medtok_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "medtok_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
+        REPO / "examples" / "downstream_torch.py"]
     assert len(files) > 15
     bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files}

@@ -331,7 +331,54 @@ def task_export(dp, spec: dict) -> dict:
     return out
 
 
-TASKS = {"export": task_export, "train": task_train, "ehr": task_ehr, "cli": task_cli, "tp_sweep": task_tp_sweep,
+def task_norm_ema(dp, spec: dict) -> dict:
+    """``ops.ema.norm_ema_quantize`` with ``dp=`` on this rank's block of
+    the spec's rows (train on and off, from the spec's state): the rank's
+    indices, loss, new weight and both cluster sizes."""
+    from medtok_tpu_torch.ops.ema import EmbeddingEMAState, norm_ema_quantize
+
+    z = torch.from_numpy(np.array_split(spec["z"], dp.world)[dp.rank])
+    state = EmbeddingEMAState(*(torch.from_numpy(np.array(x)) for x in spec["state"]))
+    out = {}
+    for train in (True, False):
+        o = norm_ema_quantize(z, state, torch.from_numpy(spec["cluster"]), train=train, dp=dp)
+        out[train] = {"indices": o.indices.numpy(), "loss": float(o.loss),
+                      "weight": o.state.weight.numpy(), "ema_cluster": o.cluster_size.numpy(),
+                      "state_cluster": o.state.cluster_size.numpy()}
+    return out
+
+
+def task_zero(dp, spec: dict) -> dict:
+    """One Adam step (``foreach=False``) of the JAX ZeRO test's loss on
+    ``spec``'s tiny parameters, replicated and on stage-3 DTensors
+    (``utils.zero.apply_zero``): both steps' full parameters, each leaf's
+    placement and this rank's shard shape."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from medtok_tpu_torch.utils.zero import apply_zero
+
+    params = {k: torch.from_numpy(v) for k, v in spec["params"].items()}
+    x, y = torch.from_numpy(spec["x"]), torch.from_numpy(spec["y"])
+
+    def step(leaves, mesh=None):
+        ps = {k: torch.nn.Parameter(v) for k, v in leaves.items()}
+        opt = torch.optim.Adam(list(ps.values()), lr=1e-2, foreach=False)
+        xx, yy = x, y
+        if mesh is not None:
+            xx, yy = (distribute_tensor(t, mesh, [Replicate()]) for t in (x, y))
+        ((xx @ ps["w"] + ps["b"] + ps["odd"].sum() - yy) ** 2).mean().backward()
+        opt.step()
+        return {k: (v.full_tensor() if mesh is not None else v).detach().numpy()
+                for k, v in ps.items()}
+
+    p3 = apply_zero(3, dp, params)
+    return {"replicated": step({k: v.clone() for k, v in params.items()}),
+            "stage3": step(p3, p3["w"].device_mesh),
+            "placements": {k: str(v.placements[0]) for k, v in p3.items()},
+            "local_shapes": {k: tuple(v.to_local().shape) for k, v in p3.items()}}
+
+
+TASKS = {"norm_ema": task_norm_ema, "zero": task_zero, "export": task_export, "train": task_train, "ehr": task_ehr, "cli": task_cli, "tp_sweep": task_tp_sweep,
          "tp_qa": task_tp_qa, "tp_cli": task_tp_cli}
 
 
