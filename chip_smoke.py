@@ -83,10 +83,17 @@ Phases, each fatal on failure:
      head widths 8, 12, 32, 64, 128, 256; K2 and K4 at 8, 16, 32, 128, 256;
      K1 at 16, 32, 100, 128, 256 (widths that are no built width run
      zero-padded); then the wide routes the same way: K3, K2 and K4 at
-     257, 320, 512 and 1000, K1 at those D with k = 9, 16 and 64, k = 9-64
-     at D = 64, and a case of exact ties at D = 320, k = 16; each wide
-     route's launches counted and each timed beside its plain version, the
-     library call and its bound;
+     257, 320, 512 and 1000, K1 at those D with k = 9, 16, 17, 64, 500
+     and N, the same k at D = 64, and cases of exact ties at D = 320, k =
+     16 (the register lists) and 63, 64, 501, 4097 (the radix select above
+     k 16; odd k splits a pair at the k-th place); above k 16 also z rows
+     equal to codewords, rows whose keys stay in device memory (60,000
+     codewords) and the selection alone (select_smallest) on signed zeros,
+     subnormals, ties and NaN bit for bit the CPU's stable sort; each wide
+     route's launches counted (K1's radix select apart) and each timed
+     beside its plain version, the library call and its bound (K1 at k 9
+     and at k 64, held to the plain version there first: two chunks of
+     3,195 rows);
  14. the model-level witnesses: EHRTrainer(EHRTrainConfig(num_heads=2))
      (head width 32) trains two steps on the card with 4 launches of each
      K3 kernel a step; the flags that reach the wide routes:
@@ -326,9 +333,10 @@ K3_WIDTHS = (8, 12, 32, 64, 128, 256)
 SEGMENT_WIDTHS = (8, 16, 32, 128, 256)
 K1_WIDTHS = (16, 32, 100, 128, 256)
 # widths above the widest built one (the kernels' wide routes), and K1's k
-# above the 3xTF32 kernel's 8
+# above the 3xTF32 kernel's 8: the register lists' 9 and 16, the radix
+# select's first k (17), 64 and several hundred (k = N is checked beside)
 WIDE_WIDTHS = (257, 320, 512, 1000)
-WIDE_K = (9, 16, 64)
+WIDE_K = (9, 16, 17, 64, 500)
 # (B, Ln, Epg) of the Count checks: the bench's Ln=512 tail shape, an export
 # bucket, and a dense shape whose cells sum many fractional weights
 K5_SHAPES = ((512, 512, 8192), (512, 128, 1024), (64, 16, 8192))
@@ -403,8 +411,10 @@ def check_k1_case(z, e, label: str, k: int = K, scale=1.0) -> float:
     tol = 1e-5 * torch.as_tensor(scale, dtype=torch.float32, device=z.device).reshape(-1, 1)
     tol_note = "" if isinstance(scale, float) and scale == 1.0 else \
         f" (tolerances 1e-5 x |z||e|, up to {float(tol.max()):.3e}, on rows scaled up)"
-    pv, pi = vq.topk_smallest(vq.squared_distance(z, e), k + 1)
+    pv, pi = vq.topk_smallest(vq.squared_distance(z, e), min(k + 1, e.shape[0]))
     gaps = pv[:, 1:] - pv[:, :-1]                  # [B, k]
+    if pv.shape[1] == k:  # k = N: no (k+1)-th, so no near tie at the k-th
+        gaps = torch.cat([gaps, torch.full_like(pv[:, :1], float("inf"))], dim=1)
     clean = (gaps > tol).all(dim=1)                # no near tie anywhere
     boundary_ok = gaps[:, k - 1] > tol[:, 0]       # no tie at the k-th
     check(torch.equal(idx[clean].long(), pi[clean, :k]),
@@ -426,10 +436,14 @@ def check_k1_case(z, e, label: str, k: int = K, scale=1.0) -> float:
 
 
 def check_k1_ties(z, base, k: int, label: str) -> None:
-    """Exact ties: K1 on z against every codeword of ``base`` twice. Each
-    pair must rank the lower copy first with bit-identical distances, and
-    the pairs' winners must be the plain version's on rows without a near
-    tie (gaps > 1e-5)."""
+    """Exact ties: K1 on z against every codeword of ``base`` twice (copy c
+    and c + N0). On every row the picks must be in strict (value, index)
+    order; every upper copy picked must have its lower copy picked with a
+    bit-identical distance; a lower copy picked without its upper one must
+    be where the k-th place splits the pair (the last pick ranks below the
+    upper copy). On rows without a near tie (gaps > 1e-5) the picks must be
+    the plain version's winners, each lower copy followed by its upper one
+    (the last alone when k is odd)."""
     import torch
 
     from medtok_tpu_torch.ops import vq
@@ -438,18 +452,34 @@ def check_k1_ties(z, base, k: int, label: str) -> None:
     N0, m = base.shape[0], (k + 1) // 2
     vals, idx = fused_topk_l2(z, torch.cat([base, base]), k=k)
     idx = idx.long()
-    pairs = k // 2
-    check(bool((idx[:, 1:2 * pairs:2] == idx[:, 0:2 * pairs:2] + N0).all()
-               and (idx[:, 0::2] < N0).all()),
-          f"{label}: duplicated rows not ranked lowest index first")
-    check(bool((vals[:, 0:2 * pairs:2] == vals[:, 1:2 * pairs:2]).all()),
-          f"{label}: duplicated rows gave different distances")
+    v0, v1, i0, i1 = vals[:, :-1], vals[:, 1:], idx[:, :-1], idx[:, 1:]
+    check(bool(((v0 < v1) | ((v0 == v1) & (i0 < i1))).all()),
+          f"{label}: picks not in strict (value, index) order")
+    picked = torch.zeros(z.shape[0], 2 * N0, dtype=torch.bool, device=z.device)
+    picked.scatter_(1, idx, True)
+    at = torch.full((z.shape[0], 2 * N0), float("nan"), device=z.device)
+    at.scatter_(1, idx, vals)
+    upper = idx >= N0
+    twin = torch.where(upper, idx - N0, idx + N0)
+    twin_picked = picked.gather(1, twin)
+    check(bool((twin_picked | ~upper).all()
+               and (at.gather(1, twin) == vals)[twin_picked].all()),
+          f"{label}: an upper copy picked without its lower copy, or their distances differ")
+    orphan = ~upper & ~twin_picked  # a lower copy whose upper copy was left out
+    last_v, last_i = vals[:, -1:], idx[:, -1:]
+    below_twin = (last_v < vals) | ((last_v == vals) & (last_i < twin))
+    check(bool(below_twin[orphan].all()),
+          f"{label}: a pair split before the k-th place (duplicated rows not ranked "
+          "lowest index first)")
     pv, pi = vq.topk_smallest(vq.squared_distance(z, base), m + 1)
     clean = ((pv[:, 1:] - pv[:, :-1]) > 1e-5).all(dim=1)
-    check(torch.equal(idx[clean][:, 0::2], pi[clean, :m]),
-          f"{label}: winners differ from the plain version")
+    want = torch.stack([pi[:, :m], pi[:, :m] + N0], dim=2).reshape(z.shape[0], -1)[:, :k]
+    check(torch.equal(idx[clean], want[clean]),
+          f"{label}: picks differ from the plain version's winners and their copies")
     log(f"{label}: {z.shape[0]} rows at D={z.shape[1]}, k={k} lowest-index-first over "
-        f"{2 * N0} duplicated rows, bit-identical distances for each pair")
+        f"{2 * N0} duplicated rows, bit-identical distances for each pair, "
+        f"{int(orphan.any(dim=1).sum())} rows with a pair split at the k-th place, "
+        f"{int(clean.sum())} rows without near ties the plain version's")
 
 
 def check_k1(gen, dev) -> dict:
@@ -1848,6 +1878,7 @@ def check_widths(gen, dev) -> list[dict]:
               fa.packed_segment_attention, fa.packed_segment_attention_nt, fused_topk_l2):
         f.launches = 0
         f.wide_launches = 0
+    fused_topk_l2.select_launches = 0
     for Dh in K3_WIDTHS:
         kw = dict(sm_scale=1.0 / Dh ** 0.5, dropout_rate=0.5, dropout_seed=K3_SEED)
         check_k3_fp32(gen, dev, width_masks(dev, 600), kw, Dh=Dh)
@@ -1982,21 +2013,23 @@ def check_width_witnesses(dev) -> None:
 
 
 def wide_counters() -> dict:
-    """Name in the kernels line -> the wrapper whose ``wide_launches``
-    counts that wide route."""
+    """Name in the kernels line -> (the wrapper, the attribute that counts
+    that wide route's launches): K1's radix select above k 16 counts apart
+    (``select_launches``, a part of K1's ``wide_launches``)."""
     from medtok_tpu_torch.ops import flash_attention as fa
     from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
 
-    return {"topk_l2_wide": fused_topk_l2,
-            "segment_attention_wide": fa.packed_segment_attention,
-            "segment_attention_nt_wide": fa.packed_segment_attention_nt,
-            "flash_attention_fwd_wide": fa.flash_attention_fwd,
-            "flash_attention_dq_wide": fa.flash_attention_dq,
-            "flash_attention_dkv_wide": fa.flash_attention_dkv}
+    return {"topk_l2_wide": (fused_topk_l2, "wide_launches"),
+            "topk_l2_wide_select": (fused_topk_l2, "select_launches"),
+            "segment_attention_wide": (fa.packed_segment_attention, "wide_launches"),
+            "segment_attention_nt_wide": (fa.packed_segment_attention_nt, "wide_launches"),
+            "flash_attention_fwd_wide": (fa.flash_attention_fwd, "wide_launches"),
+            "flash_attention_dq_wide": (fa.flash_attention_dq, "wide_launches"),
+            "flash_attention_dkv_wide": (fa.flash_attention_dkv, "wide_launches")}
 
 
 def wide_launches() -> dict:
-    return {name: f.wide_launches for name, f in wide_counters().items()}
+    return {name: getattr(f, attr) for name, (f, attr) in wide_counters().items()}
 
 
 def check_wide_routes(gen, dev) -> dict:
@@ -2004,11 +2037,14 @@ def check_wide_routes(gen, dev) -> dict:
     3, 4, 7 and 10, in both dtypes where the kernel has both: K3 fwd / dq /
     dkv at WIDE_WIDTHS (fp32 through autograd at L = 600, bf16 at Lq = 300
     against Lk = 1100, dropout 0.5, width_masks), K2 and K4 at WIDE_WIDTHS
-    (edge_segments at L = 300), K1 at WIDE_WIDTHS with k in WIDE_K (512 rows
-    against 3000 codewords and their last third), k in WIDE_K at the built
-    width 64, and exact ties at D = 320, k = 16. Returns each route's
-    largest error (bf16 for the attention routes, as the kernels line
-    reports them)."""
+    (edge_segments at L = 300), K1 at WIDE_WIDTHS with k in WIDE_K and k =
+    N (512 rows against 3000 codewords and their last third), the same k at
+    the built width 64, exact ties at D = 320 (k 16; k 63, 64, 501 and 4097
+    for the radix select, ties straddling the k-th place at odd k), z rows
+    equal to codewords (k1_near_zero) and rows whose keys stay in device
+    memory (k1_global_row). Returns each route's largest error (bf16 for
+    the attention routes, as the kernels line reports them); K1's above k
+    16 apart, as "topk_l2_wide_select"."""
     import torch
 
     from medtok_tpu_torch.ops import vq
@@ -2031,18 +2067,106 @@ def check_wide_routes(gen, dev) -> dict:
                                    f"wide Dh={Dh}, edge segments L=300", H=2, Dh=Dh)
             name = "segment_attention_nt_wide" if nt else "segment_attention_wide"
             errs[name] = max(errs[name], c["err16"])
+    def k1(z, e, label, k):
+        name = "topk_l2_wide_select" if k > 16 else "topk_l2_wide"
+        errs[name] = max(errs[name], check_k1_case(z, e, label, k=k))
+
     for Dk in WIDE_WIDTHS:
         z, cb = unit_rows(gen, dev, 512, Dk), unit_rows(gen, dev, 3000, Dk)
-        for k in WIDE_K:
-            for label, e in (("full", cb), ("region", vq.region_slice(cb, "graph"))):
-                err = check_k1_case(z, e, f"wide D={Dk} {label}", k=k)
-                errs["topk_l2_wide"] = max(errs["topk_l2_wide"], err)
+        for label, e in (("full", cb), ("region", vq.region_slice(cb, "graph"))):
+            for k in (*WIDE_K, e.shape[0]):
+                k1(z, e, f"wide D={Dk} {label}", k)
     z, cb = unit_rows(gen, dev, 512, D), unit_rows(gen, dev, 3000, D)
-    for k in WIDE_K:
-        check_k1_case(z, cb, f"wide k, D={D} full", k=k)
+    for k in (*WIDE_K, cb.shape[0]):
+        k1(z, cb, f"wide k, D={D} full", k)
     check_k1_ties(unit_rows(gen, dev, 512, 320), unit_rows(gen, dev, 1500, 320), 16,
                   "K1 wide ties")
+    # ties straddling the k-th place (odd k) and not (even), at the radix
+    # select's shared-memory sort and (k 4097) its global sort
+    for k in (63, 64, 501):
+        check_k1_ties(unit_rows(gen, dev, 512, 320), unit_rows(gen, dev, 1500, 320), k,
+                      f"K1 wide ties k={k}")
+    check_k1_ties(unit_rows(gen, dev, 128, 320), unit_rows(gen, dev, 3000, 320), 4097,
+                  "K1 wide ties k=4097")
+    k1_near_zero(gen, dev, errs)
+    k1_global_row(gen, dev, errs)
+    k1_select_signs(gen, dev)
     return errs
+
+
+def k1_near_zero(gen, dev, errs: dict) -> None:
+    """z rows equal to codewords whose entries are exact in TF32 (lo = 0,
+    so the 3xTF32 sums carry no lo.lo term): each row's own distance is 0
+    up to the rounding of the sums, whose signs the log counts (the plain
+    version's fp32 sums give both signs; signed zeros and negative values
+    the sweep does not give reach the selection in k1_select_signs). K1-wide
+    at k 17 and 64 against the plain version."""
+    import torch
+
+    cb = unit_rows(gen, dev, 3000, 320)
+    cb = (cb.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    z = cb[torch.randperm(3000, generator=gen, device=dev)[:512]].contiguous()
+    for k in (17, 64):
+        errs["topk_l2_wide_select"] = max(errs["topk_l2_wide_select"], check_k1_case(
+            z, cb, "wide, z rows = codewords", k=k))
+    from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
+
+    own = fused_topk_l2(z, cb, k=17)[0][:, 0]
+    log(f"K1 wide, z rows = codewords: the own distance (first pick) < 0 in "
+        f"{int((own < 0).sum())}, = 0 in {int((own == 0).sum())}, > 0 in "
+        f"{int((own > 0).sum())} of 512 rows, within [{float(own.min()):.3e}, "
+        f"{float(own.max()):.3e}]")
+
+
+def k1_select_signs(gen, dev) -> None:
+    """The radix select alone (``select_smallest``) on rows the sweep does
+    not give it (its distances for z rows equal to codewords come out
+    positive): half the entries from a pool of signed zeros, tiny and
+    subnormal values of both signs, +-1 and NaN, half normals of scale 1e-6,
+    so that nearly every row ties at the k-th place. Held to the plain
+    stable sort run on the CPU: indices equal and values bit for bit (the
+    sign of zero included); shared-memory sorts (k up to 4,096) and the
+    global one, keys in shared and in device memory."""
+    import torch
+
+    from medtok_tpu_torch.ops.topk_l2 import select_plan, select_smallest
+    from medtok_tpu_torch.ops.vq import topk_smallest
+
+    pool = torch.tensor([-0.0, 0.0, -1e-7, 1e-7, -2.5e-6, 2.5e-6, -1.4e-45, 1.4e-45, -1.0,
+                         1.0, float("nan")], device=dev)
+    select_smallest.launches = 0
+    done = []
+    for B, N, ks in ((512, 3000, (17, 64, 501, 3000)), (64, 6000, (5000,)),
+                     (16, 60000, (64, 5000))):
+        pick = torch.randint(0, len(pool), (B, N), generator=gen, device=dev)
+        d = torch.where(torch.rand(B, N, generator=gen, device=dev) < 0.5, pool[pick],
+                        1e-6 * torch.randn(B, N, generator=gen, device=dev)).contiguous()
+        for k in ks:
+            vals, idx = select_smallest(d, k)
+            pv, pi = topk_smallest(d.cpu(), k)
+            check(torch.equal(idx.cpu().long(), pi)
+                  and torch.equal(vals.cpu().view(torch.int32), pv.view(torch.int32)),
+                  f"K1 select alone [{B}, {N}], k={k}: differs from the stable sort on the CPU")
+            done.append((N, k, select_plan(N, k)[:2]))
+    check(select_smallest.launches == len(done),
+          f"K1 select alone: {select_smallest.launches} launches for {len(done)} calls")
+    log(f"K1 select alone on signed zeros, subnormals, ties and NaN: (N, k, (row_shared, "
+        f"sort_shared)) {done} each bit for bit the CPU's stable sort")
+
+
+def k1_global_row(gen, dev, errs: dict) -> None:
+    """The radix select where a row's keys do not fit in shared memory
+    (60,000 codewords): each pass reads the distances again; k 17 and 64
+    sort in shared memory, k 5000 and k = N through global scratch."""
+    from medtok_tpu_torch.ops import topk_l2
+
+    z, cb = unit_rows(gen, dev, 256, 320), unit_rows(gen, dev, 60000, 320)
+    for k in (17, 64, 5000, 60000):
+        plan = topk_l2.wide_plan(256, 60000, 320, k, 132)
+        check(not plan.row_shared and plan.sort_shared == (k <= 4096),
+              f"K1 wide, 60,000 codewords: plan {plan}")
+        errs["topk_l2_wide_select"] = max(errs["topk_l2_wide_select"], check_k1_case(
+            z, cb, "wide, keys in device memory", k=k))
 
 
 def wide_times(gen, dev, errs: dict, ran: dict) -> list[dict]:
@@ -2053,7 +2177,8 @@ def wide_times(gen, dev, errs: dict, ran: dict) -> list[dict]:
     peak for the inputs' type, as the kernels' own rows count them (K1's
     fp32 products as 3xTF32, 3 x 2 B N D operations at the TF32 peak; bf16
     attention at the bf16 peak), or its bytes, whichever is slower. K1 at z
-    [4096, 320] against 21000 codewords, k = 9; K2 / K4 bf16 at [256, 4,
+    [4096, 320] against 21000 codewords, k = 9 and (the radix select) k =
+    64; K2 / K4 bf16 at [256, 4,
     128, 320] on edge_segments rows (segment_bound's work); K3 bf16 at
     [8*2, 1100, 320], all keys valid, dropout 0.5 (check_k3's work
     counts)."""
@@ -2078,20 +2203,28 @@ def wide_times(gen, dev, errs: dict, ran: dict) -> list[dict]:
                     library_ms=library_ms)
 
     rows = []
-    B, N, Dk, k = 4096, 21000, 320, 9
+    B, N, Dk = 4096, 21000, 320
     z, cb = unit_rows(gen, dev, B, Dk), unit_rows(gen, dev, N, Dk)
 
-    def library():
+    def library(k):
         d = (z * z).sum(1, keepdim=True) + (cb * cb).sum(1)[None] - 2.0 * (z @ cb.T)
         return torch.topk(d, k, dim=1, largest=False)
 
-    rows.append(row("topk_l2_wide", "topk_l2.cu", "medtok_tpu/ops/vq_pallas.py:139",
-                    cuda_ms(lambda: fused_topk_l2(z, cb, k=k), 5),
-                    cuda_ms(lambda: fused_topk_l2_reference(z, cb, k), 3),
-                    cuda_ms(library, 5), 3 * 2.0 * B * N * Dk, PEAK_TF32,
-                    4.0 * (B + N) * Dk + 8.0 * B * k))
-    log(f"topk_l2_wide at the paths' k = {K} (a list of 8; the row above: k = {k}, a "
-        f"list of 16): kernel {cuda_ms(lambda: fused_topk_l2(z, cb, k=K), 5):.4f} ms")
+    # k 9 (a register list of 16) and k 64 (the radix select, two chunks of
+    # 3,195 rows, held to the plain version here first)
+    errs["topk_l2_wide_select"] = max(errs["topk_l2_wide_select"], check_k1_case(
+        z, cb, "wide, wide_times' shape (two chunks)", k=64))
+    for name, k in (("topk_l2_wide", 9), ("topk_l2_wide_select", 64)):
+        rows.append(row(name, "topk_l2.cu", "medtok_tpu/ops/vq_pallas.py:139",
+                        cuda_ms(lambda: fused_topk_l2(z, cb, k=k), 5),
+                        cuda_ms(lambda: fused_topk_l2_reference(z, cb, k), 3),
+                        cuda_ms(lambda: library(k), 5), 3 * 2.0 * B * N * Dk, PEAK_TF32,
+                        4.0 * (B + N) * Dk + 8.0 * B * k))
+    log(f"topk_l2_wide at the paths' k = {K} (a list of 8; the rows above: k = 9, a "
+        f"list of 16, and k = 64, the radix select): kernel "
+        f"{cuda_ms(lambda: fused_topk_l2(z, cb, k=K), 5):.4f} ms; the radix select's "
+        f"route at k 17 {cuda_ms(lambda: fused_topk_l2(z, cb, k=17), 5):.4f} ms, at k 1000 "
+        f"{cuda_ms(lambda: fused_topk_l2(z, cb, k=1000), 5):.4f} ms")
     del z, cb
 
     Dh, H = 320, 4

@@ -108,8 +108,26 @@
 //      shared memory once a warpgroup rather than once a warp, and a block
 //      of 128 x 128 outputs stages 64 KB for 2 x 128 x 128 x 32 x 3 products.
 //   3. k above 16: the same sweep writes its tiles' distances to a [rows, N]
-//      scratch (KC = 0) for z rows in chunks, and wide_select_kernel picks
-//      the k smallest of each row by (value, index) in k rounds.
+//      scratch (KC = 0) for z rows in chunks, and radix_select_kernel picks
+//      the k smallest of each row by (value, index), one 512-thread block a
+//      row, reading the row a fixed number of times whatever k is (steps 1-3
+//      at most 7, step 4 never): (1) an order-preserving uint32 key of each
+//      distance (-0 made +0, NaN last), kept in shared memory where the row
+//      fits (21000 keys are 84 KB: then device memory is read once), with
+//      the row's least and largest key; (2) the k-th smallest key T by a
+//      radix select of 8-bit digits of key - least, from the top bit of
+//      the row's spread (at most 4 passes, each a per-warp shared-memory
+//      histogram and a scan of its 256 bins); (3) compaction in index
+//      order, every key below T and then the first k - (count below) equal
+//      to it (ballots within a warp's contiguous segment, a scan across the
+//      warps), so ties at the k-th place go to the lowest index; (4) the k
+//      survivors sorted by (key, index): bitonic in shared memory for k up
+//      to 4,096, else a stable LSD radix sort of the keys through a global
+//      [rows, 2, k] scratch (at most 4 passes over the survivors, none over
+//      the row). Bound: reading the [rows, N] distances once (344 MB at
+//      4096 x 21000: 0.10 ms) against the function's 0.3336 ms of products.
+//      The plan (which steps run in shared memory, the chunk rows) is the
+//      wrapper's (topk_l2.wide_plan).
 
 #include <cuda_runtime.h>
 
@@ -562,7 +580,6 @@ constexpr int KW_THREADS = X_THREADS;  // two consumer warpgroups and a producer
 constexpr int KW_ZCHUNK = KW_TB * KW_DC * 4;  // bytes of z's hi or lo chunk
 constexpr int KW_ECHUNK = KW_TN * KW_DC * 4;  // bytes of the codebook's hi or lo chunk
 constexpr int KW_STAGE = 2 * (KW_ZCHUNK + KW_ECHUNK);
-constexpr int SELECT_THREADS = 256;
 static_assert(KW_DC * 4 == 128 && KW_ZCHUNK % X_ROWS8 == 0 && KW_ECHUNK % X_ROWS8 == 0,
               "a chunk is 128-byte rows in whole 8-row swizzle atoms");
 
@@ -862,49 +879,321 @@ topk_wide_kernel(const float* __restrict__ zh_g, const float* __restrict__ zl_g,
   }
 }
 
-// The k smallest of each row of dist [rows, N] by (value, index): round j
-// takes the least pair above round j - 1's pick. One block a row.
-__global__ void __launch_bounds__(SELECT_THREADS)
-wide_select_kernel(const float* __restrict__ dist, int N, int k, float* __restrict__ vals,
-                   int* __restrict__ idx) {
-  constexpr int WARPS = SELECT_THREADS / 32;
-  __shared__ float warp_v[WARPS];
-  __shared__ int warp_i[WARPS];
-  __shared__ float pick_v;
-  __shared__ int pick_i;
-  const float* row = dist + (size_t)blockIdx.x * N;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float prev_v = -INFINITY;
-  int prev_i = -1;
-  for (int j = 0; j < k; ++j) {
-    float bv = INFINITY;
-    int bi = INT_MAX;
-    for (int c = threadIdx.x; c < N; c += SELECT_THREADS) {
-      const float x = row[c];
-      const bool above = x > prev_v || (x == prev_v && c > prev_i);
-      if (above && lex_less(x, c, bv, bi)) { bv = x; bi = c; }
+// ------------------------------------------------------- the selection --
+// k above 16 (item 3 of "Wide route" at the top): one block a row of the
+// [rows, N] distances.
+constexpr int SELECT_THREADS = 512;
+constexpr int SELECT_WARPS = SELECT_THREADS / 32;
+constexpr int SELECT_BINS = 256;       // an 8-bit digit
+constexpr int SELECT_SORT_MAX = 4096;  // the most survivors (k up to a power of 2) sorted in shared memory
+constexpr int SELECT_MISC = 2048;      // bytes of shared memory for reductions and digit offsets
+
+__host__ __device__ constexpr int pow2_at_least(int k) {
+  int p = 1;
+  while (p < k) p <<= 1;
+  return p;
+}
+
+// Dynamic shared memory of the selection: the survivors to sort
+// (sort_shared), the per-warp histograms (a second table for the global
+// sort), SELECT_MISC bytes, the row's keys (row_shared; 3 words of slack
+// align their 16-byte stores).
+__host__ __device__ constexpr size_t select_smem(int N, int k, int row_shared, int sort_shared) {
+  return (sort_shared ? 8 * (size_t)pow2_at_least(k) : 0) +
+         4 * (size_t)SELECT_WARPS * SELECT_BINS * (sort_shared ? 1 : 2) + SELECT_MISC +
+         (row_shared ? 4 * ((size_t)N + 3) : 0);
+}
+
+// An order-preserving key of a distance: -0 is +0 (equal values rank by
+// index), NaN above everything (a sort puts it last).
+__device__ __forceinline__ uint32_t order_key(float x) {
+  if (x != x) return 0xffffffffu;
+  uint32_t b = __float_as_uint(x);
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The block's least and largest key, in every thread (red: 2 x SELECT_WARPS words)
+__device__ __forceinline__ void block_min_max(uint32_t& lo, uint32_t& hi, uint32_t* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  lo = __reduce_min_sync(FULL_MASK, lo);
+  hi = __reduce_max_sync(FULL_MASK, hi);
+  if (lane == 0) { red[warp] = lo; red[SELECT_WARPS + warp] = hi; }
+  __syncthreads();
+  for (int w = 0; w < SELECT_WARPS; ++w) { lo = min(lo, red[w]); hi = max(hi, red[SELECT_WARPS + w]); }
+  __syncthreads();
+}
+
+// Sums the per-warp histograms bin by bin, zeroing them, and scans the
+// sums: thread b < SELECT_BINS gets the count of the bins below b (excl)
+// and through b (incl). Every thread calls it; red: SELECT_WARPS words.
+__device__ __forceinline__ void scan_bins(uint32_t* hist, uint32_t* red, uint32_t& excl,
+                                          uint32_t& incl) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint32_t n = 0;
+  incl = 0;
+  if (tid < SELECT_BINS) {
+    for (int w = 0; w < SELECT_WARPS; ++w) {
+      n += hist[w * SELECT_BINS + tid];
+      hist[w * SELECT_BINS + tid] = 0;
     }
+    incl = n;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
-      const int oi = __shfl_xor_sync(FULL_MASK, bi, o);
-      if (lex_less(ov, oi, bv, bi)) { bv = ov; bi = oi; }
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(FULL_MASK, incl, o);
+      if (lane >= o) incl += y;
     }
-    if (lane == 0) { warp_v[warp] = bv; warp_i[warp] = bi; }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < WARPS; ++w)
-        if (lex_less(warp_v[w], warp_i[w], bv, bi)) { bv = warp_v[w]; bi = warp_i[w]; }
-      pick_v = bv;
-      pick_i = bi;
-      vals[(size_t)blockIdx.x * k + j] = bv;
-      idx[(size_t)blockIdx.x * k + j] = bi;
-    }
-    __syncthreads();
-    prev_v = pick_v;
-    prev_i = pick_i;
-    __syncthreads();  // pick_v / pick_i are rewritten by the next round
+    if (lane == 31) red[warp] = incl;
   }
+  __syncthreads();
+  if (tid < SELECT_BINS)
+    for (int w = 0; w < warp; ++w) incl += red[w];
+  excl = incl - n;
+}
+
+// The k smallest of each row of dist [rows, N] by (value, index), read a
+// fixed number of times whatever k is. One block a row:
+//   1. keys (order_key) of the row, kept in shared memory where the row
+//      fits (row_shared: one read of device memory; else each step below
+//      reads the row again), and their least lo and largest hi;
+//   2. the k-th smallest key T by a radix select on key - lo, 8 bits a
+//      pass from the highest bit of hi - lo: a per-warp histogram of the
+//      keys that share the digits fixed so far, then a scan of its bins
+//      picks the next digit (at most 4 passes; 3 for distances within one
+//      binade's width of each other);
+//   3. compaction in index order: every key below T, then the first k - c
+//      keys equal to T (c: the count below), each warp taking a contiguous
+//      segment of the row with ballots and the warps' counts scanned, so
+//      ties at the k-th place go to the lowest index;
+//   4. the k survivors (key << 32 | index) sorted: bitonic in shared
+//      memory for k up to SELECT_SORT_MAX (sort_shared), else a stable LSD
+//      radix sort by key (8 bits a pass, at most 4) through sort_g [rows, 2,
+//      k], whose input is in index order already; values are read back
+//      from the row, so -0 stays -0.
+// Steps 1-3 read the row at most 7 times (step 1 once, step 2 once a
+// pass, step 3 twice); no step loops over k.
+__global__ void __launch_bounds__(SELECT_THREADS, 2)
+radix_select_kernel(const float* __restrict__ dist, int N, int k, int row_shared,
+                    int sort_shared, float* __restrict__ vals, int* __restrict__ idx,
+                    unsigned long long* __restrict__ sort_g) {
+  extern __shared__ __align__(16) uint8_t sel_smem[];
+  const int kp = sort_shared ? pow2_at_least(k) : 0;
+  const int tables = sort_shared ? 1 : 2;
+  unsigned long long* sorted = reinterpret_cast<unsigned long long*>(sel_smem);  // [kp]
+  uint32_t* hist = reinterpret_cast<uint32_t*>(sel_smem + 8 * (size_t)kp);  // [tables][WARPS][BINS]
+  uint32_t* misc = hist + tables * SELECT_WARPS * SELECT_BINS;  // [0, 32) reductions, 32-33
+                                                                 // the digit, [64, 96) the
+                                                                 // warps' counts, [256, 512) run
+  const size_t r = blockIdx.x;
+  const float* row = dist + r * N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1;
+  uint32_t* h = hist + warp * SELECT_BINS;  // this warp's histogram (table 0)
+  for (int i = tid; i < tables * SELECT_WARPS * SELECT_BINS; i += SELECT_THREADS) hist[i] = 0;
+
+  // 1. keys: 16-byte loads after the first `head` columns, stored so that
+  // those land 16-byte aligned in shared memory too
+  const int head = min(N, (int)((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / 4);
+  uint32_t* keys = misc + SELECT_MISC / 4 + ((4 - head) & 3);
+  uint32_t lo = 0xffffffffu, hi = 0u;
+  if (tid < head) {
+    const uint32_t key = order_key(row[tid]);
+    if (row_shared) keys[tid] = key;
+    lo = hi = key;
+  }
+  const int n4 = (N - head) / 4;
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+#pragma unroll 4
+  for (int i = tid; i < n4; i += SELECT_THREADS) {
+    const float4 v = body[i];
+    const uint4 q = make_uint4(order_key(v.x), order_key(v.y), order_key(v.z), order_key(v.w));
+    if (row_shared) *reinterpret_cast<uint4*>(keys + head + 4 * i) = q;
+    lo = min(lo, min(min(q.x, q.y), min(q.z, q.w)));
+    hi = max(hi, max(max(q.x, q.y), max(q.z, q.w)));
+  }
+  for (int c = head + 4 * n4 + tid; c < N; c += SELECT_THREADS) {
+    const uint32_t key = order_key(row[c]);
+    if (row_shared) keys[c] = key;
+    lo = min(lo, key);
+    hi = max(hi, key);
+  }
+  block_min_max(lo, hi, misc);
+  auto key_at = [&](int c) -> uint32_t { return row_shared ? keys[c] : order_key(row[c]); };
+
+  // 2. the radix select: prefix holds the k-th key's offset from lo above
+  // bit `top`, krem its rank (from 1) among the keys that share it
+  const uint32_t range = hi - lo;
+  uint32_t prefix = 0;
+  int krem = k;
+  for (int top = range ? 32 - __clz(range) : 0; top > 0;) {
+    const int shift = max(top - 8, 0);
+    const uint32_t mask = (1u << (top - shift)) - 1;
+    for (int c = tid; c < N; c += SELECT_THREADS) {
+      const uint32_t u = key_at(c) - lo;
+      if (((uint64_t)u >> top) == prefix) atomicAdd(&h[(u >> shift) & mask], 1u);
+    }
+    __syncthreads();
+    uint32_t excl, incl;
+    scan_bins(hist, misc, excl, incl);
+    if (tid < SELECT_BINS && excl < (uint32_t)krem && (uint32_t)krem <= incl) {
+      misc[32] = tid;
+      misc[33] = excl;
+    }
+    __syncthreads();
+    prefix = (prefix << (top - shift)) | misc[32];
+    krem -= (int)misc[33];
+    top = shift;
+  }
+  const uint32_t T = lo + prefix;
+  const int need = krem, n_below = k - krem;  // keys equal to T to keep; keys below T
+
+  // 3. compaction in index order: warp w takes columns [c0, c1)
+  const int seg = ((N + SELECT_WARPS - 1) / SELECT_WARPS + 31) / 32 * 32;
+  const int c0 = min(N, warp * seg), c1 = min(N, c0 + seg);
+  int below = 0, equal = 0;
+  for (int base = c0; base < c1; base += 32) {
+    const bool in = base + lane < c1;
+    const uint32_t key = in ? key_at(base + lane) : 0u;
+    below += __popc(__ballot_sync(FULL_MASK, in && key < T));
+    equal += __popc(__ballot_sync(FULL_MASK, in && key == T));
+  }
+  if (lane == 0) {
+    misc[64 + warp] = below;
+    misc[64 + SELECT_WARPS + warp] = equal;
+  }
+  __syncthreads();
+  int nb = 0, ne = 0;  // this warp's first slots among the keys below T and equal to it
+  for (int w = 0; w < warp; ++w) {
+    nb += misc[64 + w];
+    ne += misc[64 + SELECT_WARPS + w];
+  }
+  unsigned long long* out_g = sort_g + r * 2 * (size_t)k;
+  auto put = [&](int pos, uint32_t key, int c) {
+    const unsigned long long v = ((unsigned long long)key << 32) | (uint32_t)c;
+    if (sort_shared) sorted[pos] = v; else out_g[pos] = v;
+  };
+  const int nb_end = nb + below, ne_end = min(need, ne + equal);
+  for (int base = c0; base < c1 && (nb < nb_end || ne < ne_end); base += 32) {
+    const bool in = base + lane < c1;
+    const uint32_t key = in ? key_at(base + lane) : 0u;
+    const unsigned mb = __ballot_sync(FULL_MASK, in && key < T);
+    const unsigned me = __ballot_sync(FULL_MASK, in && key == T);
+    if (in && key < T) {
+      put(nb + __popc(mb & lt), key, base + lane);
+    } else if (in && key == T) {
+      const int q = ne + __popc(me & lt);
+      if (q < need) put(n_below + q, key, base + lane);
+    }
+    nb += __popc(mb);
+    ne += __popc(me);
+  }
+  __syncthreads();
+
+  // 4. the survivors in (key, index) order
+  float* ov = vals + r * k;
+  int* oi = idx + r * k;
+  if (sort_shared) {
+    for (int i = k + tid; i < kp; i += SELECT_THREADS) sorted[i] = ~0ull;
+    __syncthreads();
+    for (int size = 2; size <= kp; size <<= 1)
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int i = tid; i < kp / 2; i += SELECT_THREADS) {
+          const int a = 2 * i - (i & (stride - 1)), b = a + stride;
+          const unsigned long long x = sorted[a], y = sorted[b];
+          if ((x > y) == ((a & size) == 0)) { sorted[a] = y; sorted[b] = x; }
+        }
+        __syncthreads();
+      }
+    for (int j = tid; j < k; j += SELECT_THREADS) {
+      const int c = (int)(uint32_t)sorted[j];
+      oi[j] = c;
+      ov[j] = row[c];
+    }
+    return;
+  }
+  // stable LSD passes over the survivors' key - lo (all within [0, T - lo]);
+  // a tile of SELECT_THREADS survivors at a time: lanes of one digit ranked
+  // by __match_any_sync, warps by a scan over tables[tile % 2] (the other
+  // table zeroed meanwhile), tiles by run[]
+  const uint32_t span = T - lo;
+  const int sbits = span ? 32 - __clz(span) : 0;
+  uint32_t* run = misc + 256;
+  unsigned long long* src = out_g;
+  unsigned long long* dst = out_g + k;
+  for (int shift = 0; shift < sbits; shift += 8) {
+    const bool last = shift + 8 >= sbits;
+    for (int i = tid; i < k; i += SELECT_THREADS)
+      atomicAdd(&h[(((uint32_t)(src[i] >> 32) - lo) >> shift) & 0xff], 1u);
+    __syncthreads();
+    uint32_t excl, incl;
+    scan_bins(hist, misc, excl, incl);
+    if (tid < SELECT_BINS) run[tid] = excl;
+    __syncthreads();
+    int tb = 0;
+    for (int t0 = 0; t0 < k; t0 += SELECT_THREADS, tb ^= 1) {
+      const int i = t0 + tid;
+      const bool in = i < k;
+      const unsigned long long v = in ? src[i] : 0ull;
+      const int d = in ? (int)((((uint32_t)(v >> 32) - lo) >> shift) & 0xff) : SELECT_BINS;
+      const unsigned peers = __match_any_sync(FULL_MASK, d);
+      uint32_t* cur = hist + tb * SELECT_WARPS * SELECT_BINS;
+      uint32_t* nxt = hist + (tb ^ 1) * SELECT_WARPS * SELECT_BINS;
+      if (in && lane == __ffs(peers) - 1) cur[warp * SELECT_BINS + d] = __popc(peers);
+      __syncthreads();
+      if (tid < SELECT_BINS) {
+        uint32_t s = run[tid];
+        for (int w = 0; w < SELECT_WARPS; ++w) {
+          const uint32_t n = cur[w * SELECT_BINS + tid];
+          cur[w * SELECT_BINS + tid] = s;
+          s += n;
+          nxt[w * SELECT_BINS + tid] = 0;
+        }
+        run[tid] = s;
+      }
+      __syncthreads();
+      if (in) {
+        const int pos = cur[warp * SELECT_BINS + d] + __popc(peers & lt);
+        if (last) {
+          const int c = (int)(uint32_t)v;
+          oi[pos] = c;
+          ov[pos] = row[c];
+        } else {
+          dst[pos] = v;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < 2 * SELECT_WARPS * SELECT_BINS; i += SELECT_THREADS) hist[i] = 0;
+    __syncthreads();
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  if (sbits == 0)  // every survivor has key T: index order is the order
+    for (int j = tid; j < k; j += SELECT_THREADS) {
+      const int c = (int)(uint32_t)src[j];
+      oi[j] = c;
+      ov[j] = row[c];
+    }
+}
+
+// One launch of the selection over rows [0, B) of dist [B, N].
+cudaError_t select_rows(const float* dist, int B, int N, int k, int row_shared, int sort_shared,
+                        int sel_smem, float* vals, int* idx, unsigned long long* sort_g,
+                        cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      radix_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sel_smem);
+  if (err != cudaSuccess) return err;
+  radix_select_kernel<<<B, SELECT_THREADS, sel_smem, s>>>(dist, N, k, row_shared, sort_shared,
+                                                          vals, idx, sort_g);
+  return cudaGetLastError();
+}
+
+// The selection's arguments as the wrapper's plan gives them
+bool select_args_ok(int N, int k, int row_shared, int sort_shared, int sel_smem) {
+  return k >= 1 && k <= N && (!sort_shared || pow2_at_least(k) <= SELECT_SORT_MAX) &&
+         (size_t)sel_smem == select_smem(N, k, row_shared, sort_shared) &&
+         sel_smem <= X_SMEM_MAX;
 }
 
 // x_regs_of of one build of the wide sweep, read at its first launch
@@ -932,8 +1221,9 @@ cudaError_t sweep_wide(const float* zh, const float* zl, const float* zq, const 
 }
 
 cudaError_t launch_wide(const float* z, const float* e, int B, int N, int D, int DP, int k,
-                        int splits, int tiles_per_split, int rows, int smem, float* scratch,
-                        float* part_v, int* part_i, float* vals, int* idx, cudaStream_t s) {
+                        int splits, int tiles_per_split, int rows, int smem, int row_shared,
+                        int sort_shared, int sel_smem, float* scratch, float* part_v,
+                        int* part_i, float* vals, int* idx, cudaStream_t s) {
   float* zh = scratch;
   float* zl = zh + (size_t)B * DP;
   float* eh = zl + (size_t)B * DP;
@@ -946,15 +1236,17 @@ cudaError_t launch_wide(const float* z, const float* e, int B, int N, int D, int
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (k > KW_CAP) {  // the distances of `rows` z rows at a time, then the selection
+    // the global sort's [rows, 2, k] survivors after the distances, 8-byte aligned
+    unsigned long long* sort_g = reinterpret_cast<unsigned long long*>(
+        (reinterpret_cast<uintptr_t>(dist + (size_t)rows * N) + 7) & ~(uintptr_t)7);
     for (int r0 = 0; r0 < B && err == cudaSuccess; r0 += rows) {
       const int nr = min(rows, B - r0);
       const size_t zo = (size_t)r0 * DP;
       err = sweep_wide<0>(zh + zo, zl + zo, zq + r0, eh, el, eq, nr, N, DP, k, splits,
                           tiles_per_split, smem, nullptr, nullptr, dist, s);
       if (err != cudaSuccess) return err;
-      wide_select_kernel<<<nr, SELECT_THREADS, 0, s>>>(dist, N, k, vals + (size_t)r0 * k,
-                                                        idx + (size_t)r0 * k);
-      err = cudaGetLastError();
+      err = select_rows(dist, nr, N, k, row_shared, sort_shared, sel_smem,
+                        vals + (size_t)r0 * k, idx + (size_t)r0 * k, sort_g, s);
     }
     return err;
   }
@@ -1036,25 +1328,48 @@ extern "C" int medtok_topk_l2(const void* z, const void* e, int B, int N,
 // [B, dim] and e [N, dim] fp32 row-major, any dim >= 1 and 1 <= k <= N, by
 // the wrapper's plan: dp = dim rounded up to a multiple of 32, `splits`
 // splits of `tiles_per_split` 128-row codebook tiles (every tile in one),
-// `rows` z rows a distance chunk for k above 16 (else unused), `smem`
-// bytes of dynamic shared memory (at least the sweep's, at most 232,448).
-// scratch holds 2 (B + N) dp + B + N + 1 floats, and rows * N more for k
-// above 16; part_v / part_i hold [splits, B, k] (unused for one split or k
-// above 16); vals / idx receive [B, k].
+// `smem` bytes of dynamic shared memory for the sweep (at least its
+// stages', at most 232,448). For k above 16 also `rows` z rows a distance
+// chunk and the selection's route: row_shared (the row's keys in shared
+// memory), sort_shared (the survivors sorted there; k rounded up to a power
+// of 2 at most 4,096) and sel_smem bytes, select_smem's count for them.
+// scratch holds 2 (B + N) dp + B + N + 1 floats, for k above 16 rows * N
+// more, and without sort_shared 2 + 4 * rows * k more; part_v / part_i hold
+// [splits, B, k] (unused for one split or k above 16); vals / idx receive
+// [B, k].
 extern "C" int medtok_topk_l2_wide(const void* z, const void* e, int B, int N, int dim, int dp,
                                    int k, int splits, int tiles_per_split, int rows, int smem,
+                                   int row_shared, int sort_shared, int sel_smem,
                                    void* scratch, void* part_v, void* part_i, void* vals,
                                    void* idx, void* stream) {
   if (B <= 0 || N <= 0 || dim <= 0 || dp < dim || dp % KW_DC || dp - dim >= KW_DC || k < 1 ||
       k > N || splits < 1 || splits > 65535 || tiles_per_split < 1 ||
       (long long)(splits - 1) * tiles_per_split * KW_TN >= N ||
-      (long long)splits * tiles_per_split * KW_TN < N || (k > KW_CAP && rows < 1) ||
+      (long long)splits * tiles_per_split * KW_TN < N ||
       smem < (long long)topk_wide_smem() || smem > X_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
+  if (k > KW_CAP && (rows < 1 || !select_args_ok(N, k, row_shared, sort_shared, sel_smem)))
+    return (int)cudaErrorInvalidValue;
   return (int)launch_wide(static_cast<const float*>(z), static_cast<const float*>(e), B, N, dim,
-                          dp, k, splits, tiles_per_split, rows, smem,
-                          static_cast<float*>(scratch),
+                          dp, k, splits, tiles_per_split, rows, smem, row_shared, sort_shared,
+                          sel_smem, static_cast<float*>(scratch),
                           static_cast<float*>(part_v), static_cast<int*>(part_i),
                           static_cast<float*>(vals), static_cast<int*>(idx),
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The selection alone: the k smallest of each row of dist [B, N] fp32 by
+// (value, index), by the wrapper's plan (row_shared, sort_shared, sel_smem
+// as for medtok_topk_l2_wide); sort_scratch holds B * 2 * k 8-byte words
+// (8-byte aligned; unused with sort_shared); vals / idx receive [B, k].
+extern "C" int medtok_topk_select(const void* dist, int B, int N, int k, int row_shared,
+                                  int sort_shared, int sel_smem, void* sort_scratch, void* vals,
+                                  void* idx, void* stream) {
+  if (B <= 0 || !select_args_ok(N, k, row_shared, sort_shared, sel_smem) ||
+      (!sort_shared && reinterpret_cast<uintptr_t>(sort_scratch) % 8))
+    return (int)cudaErrorInvalidValue;
+  return (int)select_rows(static_cast<const float*>(dist), B, N, k, row_shared, sort_shared,
+                          sel_smem, static_cast<float*>(vals), static_cast<int*>(idx),
+                          static_cast<unsigned long long*>(sort_scratch),
                           static_cast<cudaStream_t>(stream));
 }

@@ -63,9 +63,14 @@ _SIGNATURES = {
     "medtok_topk_tile_b": ([_I], ctypes.c_int),
     "medtok_topk_tile_n": ([_I], ctypes.c_int),
     # the wide route: z, e, B, N, dim, then the plan's dim in whole chunks,
-    # k, splits, tiles a split, z rows a distance chunk, shared-memory
-    # bytes, then scratch, part_vals, part_idx, vals, idx, stream
-    "medtok_topk_l2_wide": ([_P, _P] + [_I] * 9 + [_P] * 6, ctypes.c_int),
+    # k, splits, tiles a split, z rows a distance chunk, the sweep's
+    # shared-memory bytes, the selection's row_shared, sort_shared and
+    # shared-memory bytes, then scratch, part_vals, part_idx, vals, idx,
+    # stream
+    "medtok_topk_l2_wide": ([_P, _P] + [_I] * 12 + [_P] * 6, ctypes.c_int),
+    # the wide route's selection alone: dist, B, N, k, row_shared,
+    # sort_shared, shared-memory bytes, sort scratch, vals, idx, stream
+    "medtok_topk_select": ([_P] + [_I] * 6 + [_P] * 4, ctypes.c_int),
     # q, k, v, seg, out, B, H, L, Dh, sm_scale, is_bf16, stream
     "medtok_segment_attention": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], ctypes.c_int),

@@ -1,8 +1,9 @@
 """Device time of four wide routes, call by call and kernel by kernel: K1's
 (``fused_topk_l2`` at D above 256 or k above 8) at z [4096, 320] against
-21000 codewords, k 9, 5 and 64 (above the register lists: the distances
-written, then selected), with fp32 matmul + ``torch.topk`` at k 64 beside
-it, and K3's bf16 forward, dq and dk / dv (``flash_attention_fwd``,
+21000 codewords, k 9, 5, 64, 17 and 1000 (the last three above the register
+lists: the distances written, then the radix select, whose ms the split by
+kernel name shows), with fp32 matmul + ``torch.topk`` at k 64 beside it,
+and K3's bf16 forward, dq and dk / dv (``flash_attention_fwd``,
 ``flash_attention_dq``, ``flash_attention_dkv`` at a head width above 256)
 at [8*2, 1100, 320],
 every key valid, dropout 0.5 — the shapes ``chip_smoke.py::wide_times``
@@ -58,7 +59,7 @@ def cases(dev: torch.device) -> dict:
     z = torch.nn.functional.normalize(torch.randn(B, D, generator=gen, device=dev), dim=1)
     e = torch.nn.functional.normalize(torch.randn(N, D, generator=gen, device=dev), dim=1)
     calls = {f"K1 wide z [{B}, {D}] x e [{N}, {D}], k {k}":
-             (lambda k=k: fused_topk_l2(z, e, k=k)) for k in (9, 5, 64)}
+             (lambda k=k: fused_topk_l2(z, e, k=k)) for k in (9, 5, 64, 17, min(1000, N))}
 
     def matmul_topk(k=64):  # the library's call for K1's function
         d = (z * z).sum(1, keepdim=True) + (e * e).sum(1)[None] - 2.0 * (z @ e.T)

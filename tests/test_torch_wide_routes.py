@@ -192,14 +192,14 @@ def test_dkv_wide_splits_cover_every_query_group_once(key_blocks, groups, sms):
 
 
 def test_profile_wide_script_runs_the_plain_versions_on_the_cpu():
-    """scripts/profile_wide.py with --device cpu: each of its ten cases
-    (K1-wide at k 9, 5 and 64, fp32 matmul + torch.topk at k 64, bf16
-    K3-fwd-wide, K3-dq-wide and K3-dkv-wide with every key valid and with
-    prefixes) runs the plain version at its small shape and reports a time;
-    the kernel split needs the card."""
+    """scripts/profile_wide.py with --device cpu: each of its twelve cases
+    (K1-wide at k 9, 5, 64, 17 and 1000 (N at the small shape), fp32 matmul
+    + torch.topk at k 64, bf16 K3-fwd-wide, K3-dq-wide and K3-dkv-wide with
+    every key valid and with prefixes) runs the plain version at its small
+    shape and reports a time; the kernel split needs the card."""
     from medtok_tpu_torch.scripts import profile_wide
 
     got = profile_wide.main(["--device", "cpu", "--calls", "1"])
-    assert got.pop("device") == "cpu" and len(got) == 10
+    assert got.pop("device") == "cpu" and len(got) == 12
     assert all(row["ms"] > 0 and "kernels_ms" not in row for row in got.values())
 
