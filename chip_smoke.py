@@ -1054,20 +1054,21 @@ def run_main_path(model, dataset, dev) -> tuple[dict, dict]:
 def log_host_runtime(dataset, label: str) -> None:
     """The native route's pools and counters: the compact packs ran into
     pinned buffers."""
-    from medtok_tpu_torch.data import dataset as dataset_module
-    from medtok_tpu_torch.data import native
+    from medtok_tpu_torch.utils.profiling import counters
 
     check(dataset.native is not None, f"{label}: the dataset is not on the native route")
     keys = sorted(dataset.native._pools, key=str)
     pinned = dataset.native.pool_bytes(pinned=True)
     check(pinned > 0, f"{label}: no pinned pool entry was packed")
     entries = sum(len(p) for p in dataset.native._pools.values())
-    stats, tok = native.STATS, dataset_module.TOK_STATS
+    c = counters()
     log(f"{label}: host runtime: {len(keys)} pools ({entries} entries), "
         f"{pinned / 2**20:.1f} MiB pinned, "
         f"{dataset.native.pool_bytes(pinned=False) / 2**20:.1f} MiB pageable; cumulative: "
-        f"native pack {stats['pack_s']:.3f} s, fence waits {stats['fence_wait_s']:.3f} s, "
-        f"WordPiece encode {tok['encode_s']:.3f} s + store {tok['store_s']:.3f} s")
+        f"native pack {c.get('native.pack_s', 0):.3f} s, "
+        f"fence waits {c.get('native.fence_wait_s', 0):.3f} s, "
+        f"WordPiece encode {c.get('text.encode_s', 0):.3f} s + "
+        f"store {c.get('text.store_s', 0):.3f} s")
     for key in keys:
         pool = dataset.native._pools[key]
         log(f"  pool (B, Ln, Epg, aug, uint16 or stream, pinned) = {key}: depth {len(pool)}, "
@@ -4068,8 +4069,8 @@ def check_fence(dataset, dev) -> None:
     does (logged, not a failure)."""
     import numpy as np
 
-    from medtok_tpu_torch.data import native
     from medtok_tpu_torch.data.dataset import MedCodeDataset
+    from medtok_tpu_torch.utils.profiling import counters
 
     fresh = MedCodeDataset(dataset.kg, dataset.med_codes, dataset.descs,
                            dataset.pkg_index_lists, dataset.tokenizer, cfg=dataset.cfg)
@@ -4077,11 +4078,11 @@ def check_fence(dataset, dev) -> None:
     sizes = fresh.node_counts(0, len(fresh))
     heavy = np.argsort(-sizes, kind="stable")
     rows = [heavy[np.arange(i, i + 512 * 8, 8) % len(heavy)].tolist() for i in range(6)]
-    wait0 = native.STATS["fence_wait_s"]
+    wait0 = counters().get("native.fence_wait_s", 0)
     t0 = time.perf_counter()
     differ = fence_run(fresh, dev, rows, fenced=True)
     wall = time.perf_counter() - t0
-    waited = native.STATS["fence_wait_s"] - wait0
+    waited = counters().get("native.fence_wait_s", 0) - wait0
     check(differ == 0, f"host runtime: {differ} of {FENCE_PACKS} fenced device batches differ "
           "from their host packs")
     check(waited > 0, "host runtime: no pack waited on a fence (no copy was in flight)")
@@ -6091,8 +6092,8 @@ def aux_profile(model_state: dict, buffers: dict, cfg, dataset, dev, keep: Path)
     """Phase 24 (d): trace() and StepTimer around a packed export of the
     first two of phase 5's export steps (phase 5's model rebuilt from its
     weights), twice: the trace file holds the export.bert and
-    export.quantize ranges and K1's and K2's kernels; the timer's summary
-    is logged."""
+    export.quantize ranges and K1's and K2's kernels, counters.json the two
+    exports' quantize.codes; the timer's summary is logged."""
     import json as json_module
 
     import numpy as np
@@ -6123,6 +6124,9 @@ def aux_profile(model_state: dict, buffers: dict, cfg, dataset, dev, keep: Path)
             timer.stop(sync_on=torch.zeros(1, device=dev))
     files = list(logdir.glob("*.pt.trace.json"))
     check(len(files) == 1, f"auxiliaries (d): trace files {files}")
+    moved = json_module.loads((logdir / "counters.json").read_text())
+    check(moved.get("quantize.code_slots", 0) >= moved.get("quantize.codes", 0) == 2 * len(sub),
+          f"auxiliaries (d): counters.json {moved}")
     names = {e.get("name", "") for e in json_module.loads(files[0].read_text())["traceEvents"]}
     for want in ("export.bert", "export.quantize"):
         check(want in names, f"auxiliaries (d): no {want} range in the trace")

@@ -218,12 +218,17 @@ int64_t subgraph_stamped(const Graph* g, const NodeT* nodes, int64_t n,
 
 extern "C" {
 
+// Classic pack: the CodeBatch graph arrays, real entries at the front of
+// each graph's slots, and each graph's real edge count (ne_out; ne_aug_out
+// after the dropout, written only when the aug arrays do not alias the
+// clean ones). Returns the number of edge-truncated graphs.
 int64_t medtok_graph_pack_batch(
     const void* handle, const int64_t* node_data, const int64_t* node_off,
     int64_t batch, int64_t ln, int64_t epg, double dropout_p, uint64_t seed,
     int32_t* node_ids, uint8_t* node_mask, int32_t* edge_src,
     int32_t* edge_dst, float* edge_weight, int32_t* edge_src_aug,
-    int32_t* edge_dst_aug, float* edge_weight_aug) {
+    int32_t* edge_dst_aug, float* edge_weight_aug, int32_t* ne_out,
+    int32_t* ne_aug_out) {
   const auto* g = static_cast<const Graph*>(handle);
   const bool want_aug = edge_src_aug != edge_src;
 
@@ -259,6 +264,7 @@ int64_t medtok_graph_pack_batch(
       std::memset(edge_src + o + ne, 0, sizeof(int32_t) * (epg - ne));
       std::memset(edge_dst + o + ne, 0, sizeof(int32_t) * (epg - ne));
       std::memset(edge_weight + o + ne, 0, sizeof(float) * (epg - ne));
+      ne_out[b] = static_cast<int32_t>(ne);
       if (want_aug) {
         Rng rng(seed * 0x9E3779B97f4A7C15ULL + static_cast<uint64_t>(b));
         int64_t na = 0;
@@ -274,6 +280,7 @@ int64_t medtok_graph_pack_batch(
         std::memset(edge_src_aug + o + na, 0, sizeof(int32_t) * (epg - na));
         std::memset(edge_dst_aug + o + na, 0, sizeof(int32_t) * (epg - na));
         std::memset(edge_weight_aug + o + na, 0, sizeof(float) * (epg - na));
+        ne_aug_out[b] = static_cast<int32_t>(na);
       }
     }
     *out_truncated = truncated;

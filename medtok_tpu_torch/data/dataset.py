@@ -37,6 +37,7 @@ from medtok_tpu_torch.data.kg import KnowledgeGraph, edge_dropout
 from medtok_tpu_torch.data.packing import pack_store_meta
 from medtok_tpu_torch.data.text import WordPieceTokenizer
 from medtok_tpu_torch.data.types import CodeBatch, CompactCodeBatch
+from medtok_tpu_torch.utils.profiling import count
 
 
 @dataclass
@@ -61,10 +62,6 @@ def _pick_bucket(buckets: Sequence[int], needed: int) -> int:
         if needed <= b:
             return b
     return buckets[-1]
-
-
-#: cumulative seconds inside the native text encode / the arena insert
-TOK_STATS = {"encode_s": 0.0, "store_s": 0.0}
 
 
 class _TextStore:
@@ -245,8 +242,8 @@ class MedCodeDataset:
             out, lens = enc.encode_batch_flat(texts, max_length=max_len)
             t1 = time.perf_counter()
             self._text.put_flat(missing, out, lens)
-            TOK_STATS["encode_s"] += t1 - t0
-            TOK_STATS["store_s"] += time.perf_counter() - t1
+            count("text.encode_s", t1 - t0)
+            count("text.store_s", time.perf_counter() - t1)
         else:
             for i, text in zip(missing, texts):
                 self._text.put_one(int(i), enc.encode(text, max_length=max_len)[0])
@@ -287,10 +284,13 @@ class MedCodeDataset:
         """Pack the tokenized descriptions of ``indices`` into fixed
         [num_rows, row_len] rows. Returns (input_ids, flat_base, lens)."""
         t = self._text
-        return pack_store_meta(
+        ids, base, lens = pack_store_meta(
             t.arena, t.start, t.length, np.asarray(indices, np.int64),
             row_len=row_len, num_rows=num_rows,
         )
+        count("text.tokens", int(lens.sum()))
+        count("text.slots", ids.size)
+        return ids, base, lens
 
     def text_ids(self, idx: int) -> np.ndarray:
         if idx not in self._text:
@@ -316,18 +316,37 @@ class MedCodeDataset:
         return Lt, Ln, Epg
 
     def make_batch(self, indices: Sequence[int], *, aug_seed: int | None = None,
-                   force_shapes: tuple[int, int, int] | None = None) -> CodeBatch:
+                   force_shapes: tuple[int, int, int] | None = None,
+                   real: int | None = None) -> CodeBatch:
         """CodeBatch of these codes (numpy arrays). ``aug_seed`` (training)
         seeds the edge dropout of the augmented edges; without it they are
         the clean ones. On the native route the C++ packer extracts, pads
         and drops edges, starting at ``batch_shapes`` and growing the edge
         bucket while a graph's edges were cut; on the numpy route
         ``collate`` buckets by the largest counts. ``force_shapes=(Lt, Ln,
-        Epg)`` pins the shapes (edges beyond Epg are cut)."""
+        Epg)`` pins the shapes (edges beyond Epg are cut). ``real``: the
+        codes after the first ``real`` repeat-pad the batch, and count in
+        the graph fill counters as slots only."""
+        batch, nn, ne, ne_aug = self._build_batch(indices, aug_seed=aug_seed,
+                                                  force_shapes=force_shapes)
+        B, Ln = batch.node_mask.shape
+        _count_graph_fill(nn, [ne] + ([ne_aug] if aug_seed is not None else []),
+                          Ln, batch.edge_weight.size // B, real)
+        return batch
+
+    def _build_batch(self, indices: Sequence[int], *, aug_seed: int | None,
+                     force_shapes: tuple[int, int, int] | None) -> tuple:
+        """(CodeBatch, each graph's real nodes, real edges, real edges
+        after the dropout): the native packer's counts; the numpy route
+        (the witness) counts its arrays."""
         if self.native is None:
             rng = np.random.default_rng(aug_seed) if aug_seed is not None else None
-            return collate([self[int(i)] for i in indices], self.cfg, rng=rng,
-                           pad_id=self.tokenizer.pad_id, shapes=force_shapes)
+            batch = collate([self[int(i)] for i in indices], self.cfg, rng=rng,
+                            pad_id=self.tokenizer.pad_id, shapes=force_shapes)
+            B = len(indices)
+            ne, ne_aug = ((w.reshape(B, -1) > 0).sum(axis=1)
+                          for w in (batch.edge_weight, batch.edge_weight_aug))
+            return batch, batch.node_mask.sum(axis=1), ne, ne_aug
 
         texts = [self.text_ids(int(i)) for i in indices]
         nodes = [self.node_list(int(i)) for i in indices]
@@ -357,6 +376,7 @@ class MedCodeDataset:
             L = min(len(t), Lt)
             input_ids[i, :L] = t[:L]
             attention_mask[i, :L] = 1
+        nn = np.minimum(np.fromiter(map(len, nodes), np.int64, B), Ln)
         return CodeBatch(
             input_ids=input_ids, attention_mask=attention_mask,
             node_ids=packed["node_ids"], node_mask=packed["node_mask"],
@@ -364,11 +384,12 @@ class MedCodeDataset:
             edge_weight=packed["edge_weight"], edge_src_aug=packed["edge_src_aug"],
             edge_dst_aug=packed["edge_dst_aug"], edge_weight_aug=packed["edge_weight_aug"],
             code_indices=np.asarray(indices, np.int32),
-        )
+        ), nn, packed["ne"], packed["ne_aug"]
 
     def make_batch_compact(self, indices: Sequence[int], *, aug_seed: int | None = None,
                            force_shapes: tuple[int, int, int] | None = None,
-                           want_text: bool = True, pinned: bool = False):
+                           want_text: bool = True, pinned: bool = False,
+                           real: int | None = None):
         """The batch as a CompactCodeBatch of CPU tensors. Returns
         ``(batch, fence)``: on the native route the graph fields are views
         of a pooled buffer set (pinned memory with ``pinned=True``, for a
@@ -378,7 +399,19 @@ class MedCodeDataset:
         more take the stream encoding, Ln <= 256 the uint16 pairs, the rest
         int32 pairs. The numpy route compresses ``make_batch``'s batch
         (int32 pairs, no pool). ``want_text=False`` leaves the text fields
-        [B, 0]."""
+        [B, 0]. ``real`` as ``make_batch``'s."""
+        compact, fence = self._build_compact(indices, aug_seed=aug_seed,
+                                             force_shapes=force_shapes,
+                                             want_text=want_text, pinned=pinned)
+        B, Ln = compact.node_ids.shape
+        epg = compact.edge_packed.numel() // B
+        views = [compact.ne] + ([compact.ne_aug] if aug_seed is not None else [])
+        _count_graph_fill(compact.nn.numpy(), [v.numpy() for v in views], Ln, epg, real)
+        return compact, fence
+
+    def _build_compact(self, indices: Sequence[int], *, aug_seed: int | None,
+                       force_shapes: tuple[int, int, int] | None, want_text: bool,
+                       pinned: bool):
         if force_shapes is not None:
             Lt, Ln, Epg = force_shapes
         else:
@@ -387,7 +420,8 @@ class MedCodeDataset:
         if self.native is None:
             # force_shapes passes through unchanged: pinning the computed
             # shapes would cut graphs where make_batch grows the edge bucket
-            classic = self.make_batch(indices, aug_seed=aug_seed, force_shapes=force_shapes)
+            classic = self._build_batch(indices, aug_seed=aug_seed,
+                                        force_shapes=force_shapes)[0]
             return _compress_classic(classic, classic.edge_weight.size // max(len(indices), 1),
                                      want_aug=want_aug, want_text=want_text)
 
@@ -475,6 +509,21 @@ class MedCodeDataset:
             input_ids=np.asarray(self.text_ids(idx), np.int32),
             nodes=nodes, edge_src=src, edge_dst=dst, rel=rel,
         )
+
+
+def _count_graph_fill(nodes: np.ndarray, edge_views: list, ln: int, epg: int,
+                      real: int | None) -> None:
+    """The graph fill counters of one built batch: the real nodes of its
+    first ``real`` codes (all without) against B x Ln node slots, and for
+    each view the graph encoder runs (clean, and in training the augmented
+    one) their real edges against B x Epg edge slots."""
+    B = len(nodes)
+    real = B if real is None else real
+    count("graph.nodes", int(nodes[:real].sum()))
+    count("graph.node_slots", B * ln)
+    for edges in edge_views:
+        count("graph.edges", int(edges[:real].sum()))
+        count("graph.edge_slots", B * epg)
 
 
 class _NoopFence:

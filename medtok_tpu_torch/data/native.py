@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from medtok_tpu_torch.data import host_build
+from medtok_tpu_torch.utils.profiling import count
 
 _lib = None
 
@@ -51,7 +52,7 @@ def _load():
     lib.medtok_graph_pack_batch.restype = i64
     lib.medtok_graph_pack_batch.argtypes = [
         vp, i64p, i64p, i64, i64, i64, f64, u64,
-        i32p, u8p, i32p, i32p, f32p, i32p, i32p, f32p]
+        i32p, u8p, i32p, i32p, f32p, i32p, i32p, f32p, i32p, i32p]
     # compact packers: (handle, node lists, shape, dropout, seed, outputs);
     # the *_idx ones read node lists from an int32 arena by row index
     lists, arena = [vp, i64p, i64p], [vp, i32p, i64p, i64p]
@@ -92,9 +93,6 @@ def _arena_rows(arena_data: np.ndarray, arena_off: np.ndarray, indices) -> np.nd
         raise IndexError(f"rows outside the arena's {len(arena_off) - 1}")
     return rows
 
-
-#: cumulative seconds blocked on pool fences / inside the native pack call
-STATS = {"fence_wait_s": 0.0, "pack_s": 0.0}
 
 # the pool buffers' element types; uint16 payloads live in int16 tensors
 # (the same bytes; the card widens them with & 0xFFFF) seen as uint16 by numpy
@@ -139,7 +137,7 @@ class _PoolEntry:
         if self.fence is not None:
             t0 = time.perf_counter()
             self.fence.synchronize()
-            STATS["fence_wait_s"] += time.perf_counter() - t0
+            count("native.fence_wait_s", time.perf_counter() - t0)
             self.fence = None
 
 
@@ -200,7 +198,8 @@ class NativeGraph:
     def pack_batch(self, node_lists: list[np.ndarray], *, ln: int, epg: int,
                    dropout_p: float = 0.0, seed: int = 0) -> dict[str, np.ndarray]:
         """Pack B sorted node lists into the CodeBatch graph arrays (fresh
-        numpy arrays; the aug fields alias the clean ones at dropout 0)."""
+        numpy arrays; the aug fields alias the clean ones at dropout 0),
+        with ``ne`` / ``ne_aug``, each graph's real edges."""
         B = len(node_lists)
         node_data, node_off = self._node_data(node_lists)
         node_ids = np.empty(B * ln, np.int32)
@@ -209,13 +208,16 @@ class NativeGraph:
         edge_src = np.empty(e, np.int32)
         edge_dst = np.empty(e, np.int32)
         edge_weight = np.empty(e, np.float32)
+        ne = np.empty(B, np.int32)
         # the C side skips the aug pass when the aug pointers alias the clean
         if dropout_p > 0.0:
             edge_src_aug = np.empty(e, np.int32)
             edge_dst_aug = np.empty(e, np.int32)
             edge_weight_aug = np.empty(e, np.float32)
+            ne_aug = np.empty(B, np.int32)
         else:
             edge_src_aug, edge_dst_aug, edge_weight_aug = edge_src, edge_dst, edge_weight
+            ne_aug = ne
         truncated = self._lib.medtok_graph_pack_batch(
             self._handle, _ptr(node_data, ctypes.c_int64),
             _ptr(node_off, ctypes.c_int64), B, ln, epg,
@@ -225,6 +227,7 @@ class NativeGraph:
             _ptr(edge_weight, ctypes.c_float),
             _ptr(edge_src_aug, ctypes.c_int32), _ptr(edge_dst_aug, ctypes.c_int32),
             _ptr(edge_weight_aug, ctypes.c_float),
+            _ptr(ne, ctypes.c_int32), _ptr(ne_aug, ctypes.c_int32),
         )
         return {
             "node_ids": node_ids.reshape(B, ln),
@@ -232,6 +235,7 @@ class NativeGraph:
             "edge_src": edge_src, "edge_dst": edge_dst, "edge_weight": edge_weight,
             "edge_src_aug": edge_src_aug, "edge_dst_aug": edge_dst_aug,
             "edge_weight_aug": edge_weight_aug,
+            "ne": ne, "ne_aug": ne_aug,
             "truncated": int(truncated),
         }
 
@@ -325,7 +329,7 @@ class NativeGraph:
             _ptr(b["edge_packed"], ect), _ptr(b["ne"], ctypes.c_int32),
             _ptr(b["edge_packed_aug"], ect), _ptr(b["ne_aug"], ctypes.c_int32),
         )
-        STATS["pack_s"] += time.perf_counter() - t0
+        count("native.pack_s", time.perf_counter() - t0)
         return self._compact_out(b, truncated, B, ln, want_aug), entry
 
     def pack_batch_compact_idx(self, arena_data: np.ndarray, arena_off: np.ndarray,
@@ -354,7 +358,7 @@ class NativeGraph:
             _ptr(b["edge_packed"], ect), _ptr(b["ne"], ctypes.c_int32),
             _ptr(b["edge_packed_aug"], ect), _ptr(b["ne_aug"], ctypes.c_int32),
         )
-        STATS["pack_s"] += time.perf_counter() - t0
+        count("native.pack_s", time.perf_counter() - t0)
         return self._compact_out(b, truncated, B, ln, want_aug), entry
 
     def pack_batch_stream_idx(self, arena_data: np.ndarray, arena_off: np.ndarray,
@@ -383,7 +387,7 @@ class NativeGraph:
             _ptr(b["outdeg_aug"], u16), _ptr(b["edge_packed_aug"], u16),
             _ptr(b["ne_aug"], ctypes.c_int32),
         )
-        STATS["pack_s"] += time.perf_counter() - t0
+        count("native.pack_s", time.perf_counter() - t0)
         out = self._compact_out(b, truncated, B, ln, want_aug)
         out["outdeg"] = b["outdeg"].reshape(B, ln)
         out["outdeg_aug"] = b["outdeg_aug"].reshape(B, ln) if want_aug else None

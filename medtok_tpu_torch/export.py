@@ -31,7 +31,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from medtok_tpu_torch import resolve_device
 from medtok_tpu_torch.data.compact import unpack_compact
@@ -39,6 +38,7 @@ from medtok_tpu_torch.data.dataset import MedCodeDataset
 from medtok_tpu_torch.data.packing import derive_packed_meta, iter_groups
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
 from medtok_tpu_torch.parallel.mesh import DataParallel
+from medtok_tpu_torch.utils.profiling import count, span
 
 CODE_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
 # groups in flight before the oldest result is copied back: the host packs
@@ -96,21 +96,23 @@ def export_all_packed(
     ``dp`` on the rank's device, its share of the groups (see the module
     docstring)."""
     dev = resolve_device(device) if dp is None else dp.device
-    model = model.to(dev).eval()
-    n = len(dataset)
-    k = model.cfg.quantizer.top_k
-    row_len, num_rows, lmax = packed_layout(dataset, row_len=row_len,
-                                            num_rows=num_rows)
-    buckets = code_buckets(n)
-    embeddings = np.zeros((n, model.cfg.embedding_dim), np.float32)
-    tokens = np.zeros((n, 4, k), np.int32)
-    weights = np.zeros((n, 4, k), np.float32)
+    with span("export.plan"):
+        model = model.to(dev).eval()
+        n = len(dataset)
+        k = model.cfg.quantizer.top_k
+        row_len, num_rows, lmax = packed_layout(dataset, row_len=row_len,
+                                                num_rows=num_rows)
+        buckets = code_buckets(n)
+        embeddings = np.zeros((n, model.cfg.embedding_dim), np.float32)
+        tokens = np.zeros((n, 4, k), np.int32)
+        weights = np.zeros((n, 4, k), np.float32)
 
-    dataset.warm_cache(tokenize=True)
-    # int16 text rows when every id fits, widened to int32 on the device
-    text_dtype = np.int16 if model.cfg.text.vocab_size < 32768 else np.int32
-    pinned = dev.type == "cuda"
-    inflight = []
+        dataset.warm_cache(tokenize=True)
+        # int16 text rows when every id fits, widened to int32 on the device
+        text_dtype = np.int16 if model.cfg.text.vocab_size < 32768 else np.int32
+        pinned = dev.type == "cuda"
+        inflight = []
+        steps = export_groups(dataset, row_len=row_len, num_rows=num_rows)
 
     def drain(item):
         group, out = item
@@ -119,22 +121,23 @@ def export_all_packed(
         tokens[group] = out.tokens[:m].cpu().numpy()
         weights[group] = out.weights[:m].cpu().numpy()
 
-    steps = export_groups(dataset, row_len=row_len, num_rows=num_rows)
-    # the record_function ranges name the host phases in a torch.profiler
-    # trace (chip_smoke.py reads them); they cost nothing when no profiler runs
+    # the spans name the host phases in a torch.profiler trace (portbench/ and
+    # chip_smoke.py read them); with no profiler running each is one flag check
     for group in _own_steps(steps, dp):
         C = next((c for c in buckets if len(group) <= c), buckets[-1])
         pad = C - len(group)
-        with record_function("export.pack_text"):
+        count("quantize.codes", len(group))
+        count("quantize.code_slots", C)
+        with span("export.pack_text"):
             ids_np, base_np, lens_np = dataset.pack_text_rows(
                 group, row_len=row_len, num_rows=num_rows)
             base = torch.from_numpy(np.concatenate([base_np, np.repeat(base_np[-1:], pad)]))
             lens = torch.from_numpy(np.concatenate([lens_np, np.repeat(lens_np[-1:], pad)]))
-        with record_function("export.make_batch"):
+        with span("export.make_batch"):
             codes = np.concatenate([group, np.repeat(group[-1:], pad)])
             compact, fence = dataset.make_batch_compact(codes.tolist(), want_text=False,
-                                                        pinned=pinned)
-        with record_function("export.to_device"):
+                                                        pinned=pinned, real=len(group))
+        with span("export.to_device"):
             compact = compact.to(dev)
             # the pooled buffers are reused after their copies are done
             fence.set_fence(dev)
@@ -142,22 +145,22 @@ def export_all_packed(
             seg, pos, gidx, tmask = derive_packed_meta(
                 base.to(dev), lens.to(dev), num_rows=num_rows, row_len=row_len,
                 lmax=lmax)
-        with record_function("export.unpack"):
+        with span("export.unpack"):
             batch = unpack_compact(compact)
-        with record_function("export.bert"):
+        with span("export.bert"):
             flat = model.encode_text_packed(ids, seg, pos)
-        with record_function("export.quantize"):
+        with span("export.quantize"):
             out = model.tokenize_from_hidden(flat, gidx, tmask, batch)
         inflight.append((group, out))
         if len(inflight) > _PREFETCH:
-            with record_function("export.drain"):
+            with span("export.drain"):
                 drain(inflight.pop(0))
-    with record_function("export.drain"):
+    with span("export.drain"):
         while inflight:
             drain(inflight.pop(0))
-
-    return _finish({"embeddings_all": embeddings, "tokens_all": tokens,
-                    "weights_all": weights}, steps, dp, out_dir)
+    with span("export.finish"):
+        return _finish({"embeddings_all": embeddings, "tokens_all": tokens,
+                        "weights_all": weights}, steps, dp, out_dir)
 
 
 def _own_steps(steps: list[np.ndarray], dp: DataParallel | None) -> list[np.ndarray]:
@@ -244,13 +247,16 @@ def export_all(
     if packed:
         return export_all_packed(model, dataset, device=device, out_dir=out_dir, dp=dp)
     dev = resolve_device(device) if dp is None else dp.device
-    model = model.to(dev).eval()
-    n = len(dataset)
-    k = model.cfg.quantizer.top_k
-    embeddings = np.zeros((n, model.cfg.embedding_dim), np.float32)
-    tokens = np.zeros((n, 4, k), np.int32)
-    weights = np.zeros((n, 4, k), np.float32)
-    inflight = []
+    with span("export.plan"):
+        model = model.to(dev).eval()
+        n = len(dataset)
+        k = model.cfg.quantizer.top_k
+        embeddings = np.zeros((n, model.cfg.embedding_dim), np.float32)
+        tokens = np.zeros((n, 4, k), np.int32)
+        weights = np.zeros((n, 4, k), np.float32)
+        inflight = []
+        steps = [np.arange(start, min(start + batch_size, n))
+                 for start in range(0, n, batch_size)]
 
     def drain(item):
         idxs, out = item
@@ -259,22 +265,22 @@ def export_all(
         tokens[idxs] = out.tokens[:m].cpu().numpy()
         weights[idxs] = out.weights[:m].cpu().numpy()
 
-    steps = [np.arange(start, min(start + batch_size, n)) for start in range(0, n, batch_size)]
     for idxs in _own_steps(steps, dp):
-        with record_function("export.make_batch"):
+        with span("export.make_batch"):
             # the tail batch is padded to full size with repeats of its last code
             ids = idxs.tolist() + [int(idxs[-1])] * (batch_size - len(idxs))
-            batch = dataset.make_batch(ids)
-        with record_function("export.to_device"):
+            batch = dataset.make_batch(ids, real=len(idxs))
+        with span("export.to_device"):
             batch = batch.to(dev)
-        with record_function("export.forward"):
+        with span("export.forward"):
             out = model(batch)
         inflight.append((idxs, out))
         if len(inflight) > _PREFETCH:
-            with record_function("export.drain"):
+            with span("export.drain"):
                 drain(inflight.pop(0))
-    with record_function("export.drain"):
+    with span("export.drain"):
         while inflight:
             drain(inflight.pop(0))
-    return _finish({"embeddings_all": embeddings, "tokens_all": tokens,
-                    "weights_all": weights}, steps, dp, out_dir)
+    with span("export.finish"):
+        return _finish({"embeddings_all": embeddings, "tokens_all": tokens,
+                        "weights_all": weights}, steps, dp, out_dir)

@@ -16,10 +16,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from medtok_tpu_torch.ops.adj_count import adj_count_reference
 from medtok_tpu_torch.ops.flash_attention import flash_attention
+from medtok_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 FLASH_PRECISIONS = ("highest", "default")
@@ -268,7 +268,7 @@ def gcn_norm_adj(edge_src, edge_dst, edge_weight, batch: int, num_nodes: int,
     adj_count_reference``); the hand kernels K5 and K5-lane compute the same
     Count and are timed against it by ``scripts/bench_adj.py``. The
     ``gcn_norm_adj`` range names the build in a torch.profiler trace."""
-    with record_function("gcn_norm_adj"):
+    with span("gcn_norm_adj"):
         count = adj_count_reference(edge_src, edge_dst, edge_weight, batch, num_nodes)
         return gcn_normalize(count, dtype)
 

@@ -41,12 +41,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from medtok_tpu_torch.config import QuantizerConfig
 from medtok_tpu_torch.models.layers import CrossAttention, global_mean_pool
 from medtok_tpu_torch.ops import vq as vq_ops
 from medtok_tpu_torch.ops.ema import assignment_stats, ema_update, norm_ema_weight
+from medtok_tpu_torch.utils.profiling import span
 
 
 class SoftVQQuantizer(nn.Module):
@@ -194,11 +194,11 @@ class SoftVQQuantizer(nn.Module):
         alike. z and z_aug [B, split0 + split1] are the clean and the
         augmented cat(text_cls, graph_pool). The cross-attention's dropout
         applies, its masks drawn from ``generator``. Writes the usage FIFO."""
-        with record_function("train.cross_attn"):
+        with span("train.cross_attn"):
             z_flat_text, z_flat_graph = self._shared_rows(
                 text_features, graph_node_features, text_mask, node_mask,
                 generator=generator, deterministic=False)
-        with record_function("train.vq"):
+        with span("train.vq"):
             return self._quantize_train(z, z_aug, z_flat_text, z_flat_graph)
 
     def _quantize_train(self, z, z_aug, z_flat_text, z_flat_graph) -> dict:

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from medtok_tpu_torch.config import ModelConfig
 from medtok_tpu_torch.data.types import CodeBatch, PackedTextBatch, TokenizedCodes
@@ -31,6 +30,7 @@ from medtok_tpu_torch.models.bert import BertEncoder
 from medtok_tpu_torch.models.graph_encoder import GraphEncoder
 from medtok_tpu_torch.models.layers import CastLinear, global_mean_pool
 from medtok_tpu_torch.models.quantizer import SoftVQQuantizer
+from medtok_tpu_torch.utils.profiling import span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -123,7 +123,7 @@ class MultimodalTokenizer(nn.Module):
         if text_drop and packed is not None:
             raise ValueError("packed text encoding requires text_dropout_in_train=False: "
                              "dropout noise would leak across packed segments")
-        with torch.no_grad(), record_function("train.bert"):
+        with torch.no_grad(), span("train.bert"):
             if packed is not None:
                 flat = self.encode_text_packed(packed.input_ids, packed.seg_ids,
                                                packed.pos_ids)
@@ -135,16 +135,16 @@ class MultimodalTokenizer(nn.Module):
                          for _ in range(2 if text_drop else 1)]
                 text_hidden = views[0]
                 text_mask = batch.attention_mask.bool()
-        with record_function("train.text_mapped"):
+        with span("train.text_mapped"):
             text_features = self.text_mapped(text_hidden)          # [B, Lt, D]
             text_cls = text_features[:, 0, :]
             text_cls_aug = self.text_mapped(views[1][:, 0, :]) if text_drop else text_cls
         node_mask = batch.node_mask.bool()
-        with record_function("train.gcn"):
+        with span("train.gcn"):
             graph_nodes = self.graph_encoder(
                 batch.node_ids, batch.edge_src, batch.edge_dst, batch.edge_weight)[-1]
             h = torch.cat([text_cls, global_mean_pool(graph_nodes, node_mask)], dim=-1)
-        with record_function("train.gcn"):
+        with span("train.gcn"):
             graph_aug = self.graph_encoder(
                 batch.node_ids, batch.edge_src_aug, batch.edge_dst_aug,
                 batch.edge_weight_aug)[-1]

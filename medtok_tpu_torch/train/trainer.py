@@ -49,7 +49,6 @@ from typing import Callable, Iterable, Mapping
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from medtok_tpu_torch import resolve_device
 from medtok_tpu_torch.config import MedTokConfig
@@ -62,6 +61,7 @@ from medtok_tpu_torch.ops.ema import kmeans
 from medtok_tpu_torch.parallel.mesh import DataParallel, check_mesh, rank_seed
 from medtok_tpu_torch.train.losses import assemble_losses
 from medtok_tpu_torch.utils.checkpoint import CheckpointManager
+from medtok_tpu_torch.utils.profiling import count, span
 
 ADAM_EPS = 1e-8
 
@@ -204,7 +204,7 @@ def _loss_fn(model: MultimodalTokenizer, batch: CodeBatch, cfg: MedTokConfig, *,
     """(total loss, metrics) of the training forward; writes the usage
     FIFO (and the EMA codebook)."""
     out = model.forward_train(batch, packed=packed, generator=generator)
-    with record_function("train.losses"):
+    with span("train.losses"):
         breakdown = assemble_losses(
             out, shared_loss_beta=cfg.train.shared_loss_beta,
             specific_loss_lamb=cfg.train.specific_loss_lamb,
@@ -236,16 +236,16 @@ def make_train_step(cfg: MedTokConfig, model: MultimodalTokenizer,
             p.grad = None
         loss, metrics = _loss_fn(model, batch, cfg, packed=packed,
                                  generator=state.generator)
-        with record_function("train.backward"):
+        with span("train.backward"):
             loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if dp is not None:
-            with record_function("train.allreduce"):
+            with span("train.allreduce"):
                 dp.all_reduce_mean_([p.grad for p in params], axis="dp")
                 values = torch.stack([v.float() for v in metrics.values()])
                 dp.all_reduce_mean_([values], axis="dp")
                 metrics = dict(zip(metrics, values.unbind()))
-        with record_function("train.optimizer"):
+        with span("train.optimizer"):
             tx.step(params, [p.grad for p in params], state.opt_state)
             if state.ema_params is not None:
                 with torch.no_grad():
@@ -342,42 +342,57 @@ class Trainer:
         if self.pack_rows == 0:
             self.pack_rows = packed_rows_budget(am, t.packed_row_len, self.dp)
         try:
-            return pack_code_batch(np.asarray(batch.input_ids), am,
-                                   num_rows=self.pack_rows,
-                                   row_len=t.packed_row_len)
+            packed = pack_code_batch(np.asarray(batch.input_ids), am,
+                                     num_rows=self.pack_rows,
+                                     row_len=t.packed_row_len)
         except ValueError as e:
             if "rows" in str(e):
                 raise ValueError(f"{e}: raise TrainConfig.packed_rows_per_shard "
                                  f"(current {self.pack_rows})") from e
             raise
+        count("text.tokens", int(np.count_nonzero(packed.text_mask)))
+        count("text.slots", packed.input_ids.size)
+        return packed
 
     def fit(self, state: TrainState, batches: Iterable[CodeBatch], *,
             max_steps: int | None = None) -> TrainState:
         """Train over host CodeBatches (numpy, as ``epoch_batches`` yields
         them; data parallel, this rank's blocks) until they run out or
         ``state.step`` reaches ``max_steps``; with a workdir, checkpoint
-        after every ``ckpt_every``-th step."""
+        after every ``ckpt_every``-th step. Each host phase of a step runs in
+        its own ``train.*`` range (``utils/profiling.py::span``): ``draw``
+        (the iterator's batch build), ``pack``, ``to_device`` (the copies),
+        ``metrics`` (their one copy to the host, which waits for the step,
+        and ``log_fn``) and ``checkpoint``; none encloses the step's own."""
         t = self.cfg.train
         log_t0, log_steps = time.perf_counter(), 0
         batches = iter(batches)
         while max_steps is None or state.step < max_steps:
             # checked before the next batch is drawn: none is collated idly
-            batch = next(batches, None)
+            with span("train.draw"):
+                batch = next(batches, None)
             if batch is None:
                 break
             step = state.step
-            packed = self.pack(batch).to(self.device) if t.packed_text else None
-            state, metrics = self.step_fn(state, batch.to(self.device), packed)
+            with span("train.pack"):
+                packed = self.pack(batch) if t.packed_text else None
+            with span("train.to_device"):
+                packed = packed.to(self.device) if packed is not None else None
+                batch = batch.to(self.device)
+            state, metrics = self.step_fn(state, batch, packed)
             log_steps += 1
             if (step + 1) % t.log_every == 0:
-                # one copy to the host for all the scalars
-                values = torch.stack([v.float() for v in metrics.values()]).tolist()
-                metrics = dict(zip(metrics, values))
-                metrics["steps_per_sec"] = log_steps / max(time.perf_counter() - log_t0, 1e-9)
-                if self.log_fn is not None:
-                    self.log_fn(step + 1, metrics)
-                log_t0, log_steps = time.perf_counter(), 0
+                with span("train.metrics"):
+                    # one copy to the host for all the scalars
+                    values = torch.stack([v.float() for v in metrics.values()]).tolist()
+                    metrics = dict(zip(metrics, values))
+                    metrics["steps_per_sec"] = log_steps / max(time.perf_counter() - log_t0,
+                                                               1e-9)
+                    if self.log_fn is not None:
+                        self.log_fn(step + 1, metrics)
+                    log_t0, log_steps = time.perf_counter(), 0
             if self.ckpt is not None and (step + 1) % t.ckpt_every == 0:
-                self.save(state)
+                with span("train.checkpoint"):
+                    self.save(state)
         return state
 

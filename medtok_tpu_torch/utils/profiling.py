@@ -1,11 +1,33 @@
-"""Tracing and step timing (counterpart of ``medtok_tpu/utils/profiling.py``):
+"""Tracing, counters and step timing (counterpart of
+``medtok_tpu/utils/profiling.py``):
 
+- ``span(name)``: a named range in a ``torch.profiler`` trace while a
+  profiler runs (``record_function``), else a shared no-op context (a
+  check of ``torch.autograd._profiler_enabled``, about 0.1 us, where an
+  idle ``record_function`` costs about 10 us on a CPU). Every range of the
+  port opens through it: the export's ``export.*`` (``export.plan`` /
+  ``export.finish`` around each call's set-up and return), the trainer's
+  ``train.*`` (``train.draw`` / ``pack`` / ``to_device`` / ``metrics`` /
+  ``checkpoint`` around each host phase of ``fit``) and ``gcn_norm_adj``.
+  Kineto records them on the clock of the CUDA device events, so a device
+  gap can be put down to a host range. ``annotate`` is the JAX package's
+  name for it;
+- ``count(name, n)`` / ``counters()``: one registry of named running
+  totals, always on, each taken where the host already holds the number:
+  ``native.pack_s`` / ``native.fence_wait_s`` (the C++ packer's calls and
+  its waits on pinned-pool fences), ``text.encode_s`` / ``text.store_s``
+  (the bulk WordPiece encode and the text store's insert), and the padded
+  shapes' fill as real / slot pairs: ``text.tokens`` / ``text.slots``
+  (packed BERT rows), ``graph.nodes`` / ``graph.node_slots`` and
+  ``graph.edges`` / ``graph.edge_slots`` (each built batch, every view the
+  graph encoder runs; repeat-padding codes are slots, not real),
+  ``quantize.codes`` / ``quantize.code_slots`` (the packed export's groups
+  against their code buckets);
 - ``trace(logdir)``: a ``torch.profiler`` trace of the CPU and, where the
   build has it, the CUDA activity, written into ``logdir`` as a Chrome
   trace (``*.pt.trace.json``; TensorBoard's profiler plugin and
-  chrome://tracing read it);
-- ``annotate(name)``: a named range in that trace (``record_function``:
-  the export's ``export.*`` and the trainer's ``train.*`` ranges are such);
+  chrome://tracing read it), and beside it ``counters.json``, the
+  registry's change over the traced block;
 - ``StepTimer``: steps/sec and per-step latency, the device synchronized
   at each boundary.
 """
@@ -13,6 +35,8 @@
 from __future__ import annotations
 
 import contextlib
+import json
+import threading
 import time
 from pathlib import Path
 
@@ -20,25 +44,53 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+_IDLE = contextlib.nullcontext()
+_COUNTS: dict[str, float] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def span(name: str):
+    """``with span("export.plan"): ...``: a ``record_function`` range while
+    a profiler runs, else a no-op context."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _IDLE
+
+
+annotate = span
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the running total ``name`` (made at 0)."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> dict[str, float]:
+    """A snapshot of every running total."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
 
 @contextlib.contextmanager
 def trace(logdir: str | Path):
     """``with trace('prof/') as prof: step(...)``: profiles the block and,
-    on leaving it, writes ``<host>_<pid>.<ms>.pt.trace.json`` into
-    ``logdir`` (made if missing). Yields the ``torch.profiler.profile``, so
-    the caller may read ``key_averages()`` too."""
+    on leaving it, writes ``<host>_<pid>.<ms>.pt.trace.json`` and
+    ``counters.json`` (each counter's change over the block, those that
+    moved) into ``logdir`` (made if missing). Yields the
+    ``torch.profiler.profile``, so the caller may read ``key_averages()``
+    too."""
     logdir = Path(logdir)
     logdir.mkdir(parents=True, exist_ok=True)
     wanted = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
     activities = [a for a in wanted if a in torch.profiler.supported_activities()]
+    before = counters()
     with profile(activities=activities, acc_events=True,
                  on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir))) as prof:
         yield prof
-
-
-def annotate(name: str):
-    """A named range inside a trace (``torch.profiler.record_function``)."""
-    return record_function(name)
+    delta = {k: v - before.get(k, 0) for k, v in sorted(counters().items())
+             if v != before.get(k, 0)}
+    (logdir / "counters.json").write_text(json.dumps(delta, indent=1) + "\n")
 
 
 def _synchronize(x) -> None:

@@ -25,7 +25,6 @@ from medtok_tpu.export.parity import compare_exports
 from medtok_tpu.models.tokenizer_model import MultimodalTokenizer as JaxTokenizer
 from medtok_tpu_torch.config import DataConfig, MedTokConfig
 from medtok_tpu_torch.convert import load_params, save_npz
-from medtok_tpu_torch.data import native
 from medtok_tpu_torch.data.dataset import STREAM_MIN_NODES, MedCodeDataset
 from medtok_tpu_torch.data.synthetic import (
     MEDICAL_WORDS,
@@ -36,6 +35,7 @@ from medtok_tpu_torch.data.synthetic import (
 from medtok_tpu_torch.data.text import WordPieceTokenizer, make_test_vocab
 from medtok_tpu_torch.export import export_all_packed, export_groups
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
+from medtok_tpu_torch.utils.profiling import counters
 from tests.test_model import tiny_config
 
 N_CODES, KG_NODES = 64, 3000
@@ -109,4 +109,4 @@ def test_export_took_both_compact_encodings_from_the_pool(exports):
     assert ds.native.pool_bytes(pinned=True) == 0
     assert all(e.fence is None for pool in ds.native._pools.values() for e in pool)
     assert exports["datasets"]["numpy"].native is None
-    assert native.STATS["pack_s"] > 0
+    assert counters()["native.pack_s"] > 0

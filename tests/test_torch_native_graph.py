@@ -10,9 +10,9 @@ import pytest
 import torch
 
 from medtok_tpu.data.native import NativeGraph as JaxNativeGraph
-from medtok_tpu_torch.data import native
 from medtok_tpu_torch.data.native import NativeGraph
 from medtok_tpu_torch.data.synthetic import synthetic_kg, synthetic_vocab_columns
+from medtok_tpu_torch.utils.profiling import counters
 
 KG_NODES = 4000
 
@@ -64,9 +64,13 @@ def test_pack_batch_matches_jax(graphs, p, seeds):
         for ln, epg in ((16, 32), (128, 1024), (512, 8192)):
             got = graphs["port"].pack_batch(lists, ln=ln, epg=epg, dropout_p=p, seed=seed)
             want = graphs["jax"].pack_batch(lists, ln=ln, epg=epg, dropout_p=p, seed=seed)
-            _equal(got, want)
+            # the port's packer also returns each graph's real edges, clean and kept
+            real = {k: (want[w].reshape(len(lists), epg) > 0).sum(axis=1).astype(np.int32)
+                    for k, w in (("ne", "edge_weight"), ("ne_aug", "edge_weight_aug"))}
+            _equal(got, dict(want, **real))
             if p == 0:
                 assert got["edge_src_aug"] is got["edge_src"]
+                assert got["ne_aug"] is got["ne"]
             else:
                 assert got["edge_weight_aug"].sum() < got["edge_weight"].sum()
     # the count of graphs whose edges were cut
@@ -199,6 +203,6 @@ def test_cpu_fence_holds_nothing(graphs):
     assert entry.fence is None
     entry.set_fence(None)
     assert entry.fence is None
-    before = dict(native.STATS)
+    before = counters().get("native.fence_wait_s", 0)
     entry.wait()
-    assert native.STATS["fence_wait_s"] == before["fence_wait_s"]
+    assert counters().get("native.fence_wait_s", 0) == before
