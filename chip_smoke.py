@@ -19,7 +19,11 @@ Phases, each fatal on failure:
      export group, the whole group (the layout the export launches K2 on)
      and 80% of it (last rows empty), and at L = 100 and 200 on
      interleaved, single-token and padded segments; time it on both
-     packings beside scaled_dot_product_attention and its bound;
+     packings beside scaled_dot_product_attention and its bound; beside
+     it, hold the bf16 gelu fit's kernel (csrc/gelu.cu) bit for bit to its
+     plain version on every bf16 pattern and at the export's FFN shape
+     [256, 128, 3072] (aligned, unaligned, odd numel), and time it there
+     beside its bound, the plain version and F.gelu(approximate="tanh");
   5. run the packed full-vocabulary export at the full ModelConfig() width
      (bert-base, 130K-node GCN, 21000 x 64 codebook, bf16) over a synthetic
      heavy-tail vocabulary on the native route (C++ WordPiece and graph
@@ -755,6 +759,52 @@ def check_segment_kernel(gen, dev, nt: bool, layouts: dict) -> dict:
                                                       "bound_by", "library_ms")})
 
 
+# ------------------------------------------------------------------- gelu --
+
+GELU_SHAPE = (256, 128, 3072)   # the export's FFN activation
+
+
+def check_gelu(gen, dev) -> dict:
+    """The bf16 gelu fit's kernel (phase 4, beside K2): bit for bit its
+    plain version on every bf16 pattern and at the export's FFN shape,
+    aligned, 2 bytes past a 16-byte boundary and at an odd numel; timed
+    there beside its bound (one bf16 read and one write an element), the
+    plain version and F.gelu(approximate="tanh"), the one-pass library
+    gelu (timed only; the port never calls it)."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from medtok_tpu_torch.ops.gelu import gelu_bf16, gelu_fit
+
+    every = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    n = math.prod(GELU_SHAPE)
+    flat = (torch.randn(n + 8, generator=gen, device=dev) * 3).to(torch.bfloat16)
+    cases = {"every bf16 pattern": every.view(torch.bfloat16).to(dev),
+             "export shape": flat[:n].view(GELU_SHAPE),
+             "export shape, unaligned": flat[1:n + 1].view(GELU_SHAPE),
+             "odd numel": flat[:n - 3069]}
+    differ = {label: int((gelu_fit(x).view(torch.int16)
+                          != gelu_bf16(x).view(torch.int16)).sum())
+              for label, x in cases.items()}
+    check(not any(differ.values()), f"gelu kernel: elements that differ from the plain "
+          f"version {differ}")
+    x = cases["export shape"]
+    nbytes = 2 * 2 * n
+    t = dict(ms=cuda_ms(lambda: gelu_fit(x), 50), plain_ms=cuda_ms(lambda: gelu_bf16(x), 5),
+             library_ms=cuda_ms(lambda: F.gelu(x, approximate="tanh"), 50),
+             bound_ms=1e3 * nbytes / PEAK_BYTES)
+    log(f"gelu_fit bf16: bit for bit the plain version on {', '.join(cases)}; at "
+        f"{list(GELU_SHAPE)} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+        f"F.gelu(approximate='tanh') {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB); kernel {t['ms'] / t['bound_ms']:.2f}x the bound, plain "
+        f"{t['plain_ms'] / t['ms']:.1f}x the kernel")
+    return dict(name="gelu_fit", route="cuda", source="medtok_tpu_torch/csrc/gelu.cu",
+                replaces="none (XLA fuses medtok_tpu/ops/gelu.py::gelu_bf16)",
+                max_abs_err=0.0, bound_by="bytes", **t)
+
+
 # --------------------------------------------------------------------- K5 --
 
 def k5_edges(rng, B: int, Ln: int, Epg: int, hi: int | None = None, zero_every: int = 0,
@@ -1017,22 +1067,27 @@ def run_main_path(model, dataset, dev) -> tuple[dict, dict]:
 
     from medtok_tpu_torch.export import export_all_packed, export_groups
     from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.gelu import gelu_fit
     from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
 
     n = len(dataset)
     steps = len(export_groups(dataset))
     fused_topk_l2.launches = 0
     packed_segment_attention.launches = 0
+    gelu_fit.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     arrays = export_all_packed(model, dataset, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"topk_l2": fused_topk_l2.launches,
-                "segment_attention": packed_segment_attention.launches}
+                "segment_attention": packed_segment_attention.launches,
+                "gelu_fit": gelu_fit.launches}
     n_layers = model.cfg.text.num_layers
     check(launches["segment_attention"] == n_layers * steps,
           f"K2 launches {launches['segment_attention']} != {n_layers} x {steps} BERT steps")
+    check(launches["gelu_fit"] == n_layers * steps,
+          f"gelu launches {launches['gelu_fit']} != {n_layers} x {steps} BERT steps")
     check(launches["topk_l2"] == 4 * steps,
           f"K1 launches {launches['topk_l2']} != 4 x {steps} quantizer steps")
     emb, tok, w = arrays["embeddings_all"], arrays["tokens_all"], arrays["weights_all"]
@@ -2685,6 +2740,7 @@ def run_training(dataset, dataset_np, dev, gen) -> dict:
     from medtok_tpu_torch.data.dataset import epoch_batches
     from medtok_tpu_torch.ops import vq
     from medtok_tpu_torch.ops.flash_attention import packed_segment_attention
+    from medtok_tpu_torch.ops.gelu import gelu_fit
     from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
     from medtok_tpu_torch.train.trainer import Trainer, trainable_parameters
 
@@ -2736,20 +2792,23 @@ def run_training(dataset, dataset_np, dev, gen) -> dict:
     finally:
         vq.distance_topk = distance_topk
     n_layers = cfg.model.text.num_layers
-    want = {"topk_l2": TRAIN_SWEEPS * T, "segment_attention": n_layers * T}
+    want = {"topk_l2": TRAIN_SWEEPS * T, "segment_attention": n_layers * T,
+            "gelu_fit": n_layers * T}
 
     def timed_fit(state, batches, **kw):
         fused_topk_l2.launches = 0
         packed_segment_attention.launches = 0
+        gelu_fit.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = trainer.fit(state, batches, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"topk_l2": fused_topk_l2.launches,
-                    "segment_attention": packed_segment_attention.launches}
+                    "segment_attention": packed_segment_attention.launches,
+                    "gelu_fit": gelu_fit.launches}
         check(launches == want, f"training: launches {launches} != {want} "
-              f"({TRAIN_SWEEPS} K1 and {n_layers} K2 a step)")
+              f"({TRAIN_SWEEPS} K1, {n_layers} K2 and {n_layers} gelu a step)")
         return state, wall, launches
 
     # the step alone, over batches built in advance (pack + copies + step)
@@ -3195,13 +3254,16 @@ def qa_step_flops(cfg, B: int, L: int, window: int) -> float:
 
 
 def kernel_wrappers() -> dict:
-    """Name -> the wrapper of each kernel K1-K5 (``launches``; K1-K4 also
+    """Name -> the wrapper of each kernel K1-K5 and of the gelu fit's
+    (``launches``; K1-K4 also
     count their wide routes in ``wide_launches``)."""
     from medtok_tpu_torch.ops import adj_count as ac
     from medtok_tpu_torch.ops import flash_attention as fa
+    from medtok_tpu_torch.ops.gelu import gelu_fit
     from medtok_tpu_torch.ops.topk_l2 import fused_topk_l2
 
     return {"topk_l2": fused_topk_l2, "segment_attention": fa.packed_segment_attention,
+            "gelu_fit": gelu_fit,
             "segment_attention_nt": fa.packed_segment_attention_nt,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_dq": fa.flash_attention_dq,
@@ -6260,6 +6322,7 @@ def main(argv=None) -> int:
     check(bool((packings["80% packing"] == 0).all(dim=1).any()),
           "the 80% packing has no all-padding row")
     k2 = check_segment_kernel(gen, dev, False, packings)
+    gelu = check_gelu(gen, dev)
     k4 = check_segment_kernel(gen, dev, True, packings)
     k5 = check_k5(gen, dev)
 
@@ -6317,6 +6380,10 @@ def main(argv=None) -> int:
 
     k1["launches"] = launches["topk_l2"]
     k2["launches"] = launches["segment_attention"]
+    gelu["launches"] = launches["gelu_fit"]
+    gelu["launches_by_path"] = {"export (phase 5)": launches["gelu_fit"],
+                                "Trainer.fit over epoch_batches (phase 15)":
+                                    train_launches["gelu_fit"]}
     for row, key in zip(k3, ("fwd", "dq", "dkv")):
         row["launches"] = k3_launches[key]
     for row in (k4, *k5):
@@ -6383,7 +6450,7 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     log(card)
     log(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
-                                for k in (k1, k2, *k3, k4, *k5, *wide)]}))
+                                for k in (k1, k2, gelu, *k3, k4, *k5, *wide)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -110,6 +110,9 @@ _SIGNATURES = {
     # the bf16 dk / dv's: q, k, v, mask, lse, delta, dO, dk, dv, then the
     # plan's slices, K / V resident (0 / 1) and shared-memory bytes
     "medtok_flash_dkv_wide_mma": ([_P] * 9 + [_I] * 3 + _K3_TAIL, ctypes.c_int),
+    # x, y, numel, the fit's 12 fp32 coefficients (host memory, lowest
+    # first), x_hi, x_lo, stream
+    "medtok_gelu_fit": ([_P, _P, ctypes.c_int64, _P, _F, _F, _P], ctypes.c_int),
     "medtok_error_string": ([_I], ctypes.c_char_p),
 }
 

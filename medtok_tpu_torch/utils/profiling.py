@@ -22,7 +22,8 @@
   ``graph.edges`` / ``graph.edge_slots`` (each built batch, every view the
   graph encoder runs; repeat-padding codes are slots, not real),
   ``quantize.codes`` / ``quantize.code_slots`` (the packed export's groups
-  against their code buckets);
+  against their code buckets), and ``gelu.kernel_elems`` / ``gelu.elems``
+  (the bf16 gelu elements the kernel took, of all, ``ops/gelu.py``);
 - ``trace(logdir)``: a ``torch.profiler`` trace of the CPU and, where the
   build has it, the CUDA activity, written into ``logdir`` as a Chrome
   trace (``*.pt.trace.json``; TensorBoard's profiler plugin and
