@@ -35,6 +35,55 @@ class TextEncoderConfig:
 
 
 @dataclass(frozen=True)
+class DeepseekV2TextConfig(TextEncoderConfig):
+    """A DeepSeek-V2 decoder as a frozen, causal text encoder
+    (``models/deepseek_v2.py``); the defaults are DeepSeek-V2-Lite's
+    published config (huggingface.co/deepseek-ai/DeepSeek-V2-Lite,
+    ``config.json``). The BERT fields keep their meaning where one exists:
+    ``intermediate_size`` is the dense layers' SwiGLU width,
+    ``layer_norm_eps`` the RMSNorm's eps and ``max_position_embeddings``
+    the positions the YaRN RoPE is stated for (no table is held); the
+    token types, dropout and ``packed_flash`` are not read. Multi-head
+    latent attention without a query LoRA; layers below
+    ``first_k_dense_replace`` are dense, the rest mixture-of-experts
+    (softmax gate, greedy top-k, shared experts of ``n_shared_experts`` x
+    ``moe_intermediate_size``)."""
+
+    architecture: str = "deepseek_v2"
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    num_layers: int = 27
+    num_heads: int = 16
+    intermediate_size: int = 10944
+    max_position_embeddings: int = 163840
+    layer_norm_eps: float = 1e-6
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense_replace: int = 1
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    rope_theta: float = 10000.0
+    # YaRN (rope_scaling of the published config)
+    rope_factor: float = 40.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+
+
+#: ``TextEncoderConfig`` classes by the ``architecture`` key of a config
+#: dict (absent: BERT, whose dict has no such key, as the JAX package's)
+TEXT_ARCHITECTURES = {"bert": TextEncoderConfig, "deepseek_v2": DeepseekV2TextConfig}
+
+
+@dataclass(frozen=True)
 class GraphEncoderConfig:
     model_name: str = "GCN"  # "GCN" | "GAT"
     num_nodes: int = 130000
@@ -146,7 +195,8 @@ class MedTokConfig:
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "MedTokConfig":
         """Build from a nested dict; unknown keys are ignored and lists
-        become tuples, as in the JAX package's loader."""
+        become tuples, as in the JAX package's loader. A ``text`` dict's
+        ``architecture`` picks its class (``TEXT_ARCHITECTURES``)."""
 
         def build(tp, val):
             if not (dataclasses.is_dataclass(tp) and isinstance(val, dict)):
@@ -159,6 +209,12 @@ class MedTokConfig:
                 ft = fields[k].type
                 name = ft if isinstance(ft, str) else getattr(ft, "__name__", "")
                 sub = _TYPE_REGISTRY.get(name)
+                if sub is TextEncoderConfig and isinstance(v, dict):
+                    arch = v.get("architecture", "bert")
+                    if arch not in TEXT_ARCHITECTURES:
+                        raise ValueError(f"unknown text architecture {arch!r} (have "
+                                         f"{sorted(TEXT_ARCHITECTURES)})")
+                    sub = TEXT_ARCHITECTURES[arch]
                 if sub is not None and isinstance(v, dict):
                     kwargs[k] = build(sub, v)
                 elif isinstance(v, list):

@@ -17,6 +17,8 @@ module names), with these leaf renames:
     ``post_attention_layernorm``, ``norm`` -> unchanged
     its LoRA adapters ``lora_a`` [in, r], ``lora_b`` [r, out] -> unchanged
     (the port keeps the flax layout: ``x @ lora_a @ lora_b``)
+    the DeepSeek-V2 encoder's stacked experts ``gate_up_proj`` [n, 2I, E],
+    ``down_proj`` [n, E, I] -> unchanged (its RMSNorms' ``scale`` -> ``weight``)
 
 So ``layers_0/self_attn/q_proj/base/kernel`` becomes
 ``layers_0.self_attn.q_proj.base.weight`` (transposed). The QA tree
@@ -33,6 +35,10 @@ and under ``use_kmeans`` its ``quantize/ema_codebook``, ``ema_cluster`` and
 Values are cast to each tensor's dtype, so one tree loads into the eval
 model (parameters in the compute dtype) and into the training model (fp32
 parameters) alike.
+
+A HuggingFace DeepSeek-V2 checkpoint's state_dict maps onto the
+DeepSeek-V2 text encoder by ``convert_hf_deepseek_v2`` (names kept, the
+routed experts stacked): ``model.text_model.load_state_dict`` takes it.
 
 The stand-alone EMA quantizers' state (``ops/ema.py``: an
 ``EmbeddingEMAState``, a ``FeaturePoolState``, an ``embed_prob``) comes
@@ -54,7 +60,8 @@ _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "miss_emb": "miss_emb", "cls_emb": "cls_emb",
            "input_layernorm": "input_layernorm",
            "post_attention_layernorm": "post_attention_layernorm", "norm": "norm",
-           "lora_a": "lora_a", "lora_b": "lora_b"}
+           "lora_a": "lora_a", "lora_b": "lora_b",
+           "gate_up_proj": "gate_up_proj", "down_proj": "down_proj"}
 
 
 def flatten_tree(tree: Mapping, sep: str = "/") -> dict[str, np.ndarray]:
@@ -152,3 +159,43 @@ def ema_state_from_arrays(state, device=None):
         if tuple(fields) == cls._fields:
             return cls(*(tensor(x) for x in state))
     raise ValueError(f"no EMA state of the port has the fields {fields}")
+
+
+def convert_hf_deepseek_v2(state_dict, cfg) -> dict[str, torch.Tensor]:
+    """A HuggingFace ``DeepseekV2Model`` (or ``ForCausalLM``) state_dict
+    (tensors or numpy arrays; a ``model.`` prefix is dropped, ``lm_head``
+    ignored) as the state_dict of ``DeepseekV2Encoder``: names kept but
+    the routed experts', ``mlp.experts.{e}.gate_proj`` / ``up_proj`` /
+    ``down_proj`` stacked into ``mlp.experts.gate_up_proj`` [n, 2I, E] and
+    ``mlp.experts.down_proj`` [n, E, I]. Values come back as fp32
+    tensors; every parameter of the encoder must be present."""
+
+    def arr(key):
+        for k in ("model." + key, key):
+            if k in state_dict:
+                v = state_dict[k]
+                v = (v.detach().cpu() if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.asarray(v)))
+                return v.to(torch.float32)
+        raise KeyError(f"no {key!r} in the DeepSeek-V2 state_dict")
+
+    sd = {"embed_tokens.weight": arr("embed_tokens.weight"), "norm.weight": arr("norm.weight")}
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        names = ["input_layernorm.weight", "post_attention_layernorm.weight"]
+        names += [f"self_attn.{m}.weight" for m in ("q_proj", "kv_a_proj_with_mqa",
+                                                    "kv_a_layernorm", "kv_b_proj", "o_proj")]
+        if i < cfg.first_k_dense_replace:
+            names += [f"mlp.{m}.weight" for m in ("gate_proj", "up_proj", "down_proj")]
+        else:
+            names += ["mlp.gate.weight"] + [f"mlp.shared_experts.{m}.weight"
+                                            for m in ("gate_proj", "up_proj", "down_proj")]
+            e = range(cfg.n_routed_experts)
+            sd[p + "mlp.experts.gate_up_proj"] = torch.stack([torch.cat(
+                [arr(f"{p}mlp.experts.{j}.gate_proj.weight"),
+                 arr(f"{p}mlp.experts.{j}.up_proj.weight")]) for j in e])
+            sd[p + "mlp.experts.down_proj"] = torch.stack(
+                [arr(f"{p}mlp.experts.{j}.down_proj.weight") for j in e])
+        for name in names:
+            sd[p + name] = arr(p + name)
+    return sd

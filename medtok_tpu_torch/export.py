@@ -36,6 +36,7 @@ from medtok_tpu_torch import resolve_device
 from medtok_tpu_torch.data.compact import unpack_compact
 from medtok_tpu_torch.data.dataset import MedCodeDataset
 from medtok_tpu_torch.data.packing import derive_packed_meta, iter_groups
+from medtok_tpu_torch.models.deepseek_v2 import count_routed
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
 from medtok_tpu_torch.parallel.mesh import DataParallel
 from medtok_tpu_torch.utils.profiling import count, span
@@ -113,6 +114,8 @@ def export_all_packed(
         pinned = dev.type == "cuda"
         inflight = []
         steps = export_groups(dataset, row_len=row_len, num_rows=num_rows)
+        # the BERT keeps its range's name; another text encoder runs under export.text
+        text_range = "export.text" if model.causal_text else "export.bert"
 
     def drain(item):
         group, out = item
@@ -131,6 +134,7 @@ def export_all_packed(
         with span("export.pack_text"):
             ids_np, base_np, lens_np = dataset.pack_text_rows(
                 group, row_len=row_len, num_rows=num_rows)
+            count_routed(model.cfg.text, lens_np.sum(), ids_np.size)
             base = torch.from_numpy(np.concatenate([base_np, np.repeat(base_np[-1:], pad)]))
             lens = torch.from_numpy(np.concatenate([lens_np, np.repeat(lens_np[-1:], pad)]))
         with span("export.make_batch"):
@@ -147,7 +151,7 @@ def export_all_packed(
                 lmax=lmax)
         with span("export.unpack"):
             batch = unpack_compact(compact)
-        with span("export.bert"):
+        with span(text_range):
             flat = model.encode_text_packed(ids, seg, pos)
         with span("export.quantize"):
             out = model.tokenize_from_hidden(flat, gidx, tmask, batch)
@@ -270,6 +274,8 @@ def export_all(
             # the tail batch is padded to full size with repeats of its last code
             ids = idxs.tolist() + [int(idxs[-1])] * (batch_size - len(idxs))
             batch = dataset.make_batch(ids, real=len(idxs))
+            count_routed(model.cfg.text, np.count_nonzero(batch.attention_mask),
+                         batch.attention_mask.size)
         with span("export.to_device"):
             batch = batch.to(dev)
         with span("export.forward"):

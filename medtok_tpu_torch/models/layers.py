@@ -409,7 +409,8 @@ def glorot_uniform_(p: torch.Tensor, generator: torch.Generator | None = None) -
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator``, in the families the JAX package's
-    flax initializers use: N(0, 1/fan_in) for dense kernels, N(0, 1/dim) for
+    flax initializers use: N(0, 1/fan_in) for dense kernels (the last axis;
+    also each of stacked experts' [n, out, in]), N(0, 1/dim) for
     embedding tables, N(0, 1) for the codebook and the EHR model's raw
     embedding rows, glorot-uniform for the GAT attention vectors, zero
     biases, unit LayerNorm scales."""
@@ -424,5 +425,5 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif p.dim() == 1:
             p.fill_(1.0)
         else:
-            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[-1]), generator=generator)
     return model

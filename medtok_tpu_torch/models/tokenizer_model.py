@@ -10,6 +10,14 @@
          ``text_dropout_in_train`` the BERT runs with dropout (unpacked) and
          the augmented view's [CLS] comes from a second such forward
 
+The text encoder is the config's architecture: the BERT, or a DeepSeek-V2
+decoder (``models/deepseek_v2.py``), which is causal: its code feature is
+the code's last real token, so each code's token rows are gathered with
+the last token first (``deepseek_v2.last_first``) and everything that reads
+the first row ([CLS] above: h's text half, the shared text row) reads the
+last token; the cross-attention holds no positions. This is the one
+departure from MedTok for such an encoder. It takes no text dropout.
+
 The encoders, ``text_mapped`` and the cross-attention compute in
 ``cfg.compute_dtype`` (bf16 by default) and hold their parameters in
 ``param_dtype``: the compute dtype for eval, fp32 for training (flax keeps
@@ -24,9 +32,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from medtok_tpu_torch.config import ModelConfig
+from medtok_tpu_torch.config import DeepseekV2TextConfig, ModelConfig
 from medtok_tpu_torch.data.types import CodeBatch, PackedTextBatch, TokenizedCodes
 from medtok_tpu_torch.models.bert import BertEncoder
+from medtok_tpu_torch.models.deepseek_v2 import DeepseekV2Encoder, last_first
 from medtok_tpu_torch.models.graph_encoder import GraphEncoder
 from medtok_tpu_torch.models.layers import CastLinear, global_mean_pool
 from medtok_tpu_torch.models.quantizer import SoftVQQuantizer
@@ -55,11 +64,27 @@ class MultimodalTokenizer(nn.Module):
         self.cfg = cfg
         dt = compute_dtype(cfg)
         fk = {"dtype": dt, "param_dtype": param_dtype, "device": device}
-        self.text_model = BertEncoder(cfg.text, dtype=dt, device=device)
+        # a causal encoder's feature is the last token (module docstring)
+        self.causal_text = isinstance(cfg.text, DeepseekV2TextConfig)
+        if self.causal_text and cfg.text_dropout_in_train:
+            raise ValueError("text_dropout_in_train is BERT's: the DeepSeek-V2 text "
+                             "encoder runs without dropout")
+        encoder = DeepseekV2Encoder if self.causal_text else BertEncoder
+        self.text_model = encoder(cfg.text, dtype=dt, device=device)
         self.text_model.requires_grad_(False)
         self.graph_encoder = GraphEncoder(cfg.graph, **fk)
         self.text_mapped = CastLinear(cfg.text.hidden_size, cfg.graph.out_channels, **fk)
         self.quantize = SoftVQQuantizer(cfg.quantizer, cfg.split, **fk, dp=dp)
+
+    def text_states(self, input_ids, attention_mask) -> torch.Tensor:
+        """The text encoder over padded texts [B, Lt] -> [B, Lt, hidden],
+        a causal encoder's rows last token first."""
+        hidden = self.text_model(input_ids, attention_mask)
+        if self.causal_text:
+            pos = torch.arange(hidden.shape[1], device=hidden.device).expand(hidden.shape[:2])
+            pos = last_first(pos, attention_mask)
+            hidden = hidden.gather(1, pos[..., None].expand(hidden.shape))
+        return hidden
 
     def _tokenize(self, text_features, text_mask, batch: CodeBatch) -> TokenizedCodes:
         graph_nodes = self.graph_encoder(
@@ -92,13 +117,16 @@ class MultimodalTokenizer(nn.Module):
                              batch: CodeBatch) -> TokenizedCodes:
         """Quantizer tail on per-code states gathered from packed rows:
         gather_idx [B, Lmax] flat indices, text_mask [B, Lmax]; the batch's
-        graph fields are used, its text fields are not."""
+        graph fields are used, its text fields are not (a causal encoder's
+        rows are gathered last token first)."""
+        if self.causal_text:
+            gather_idx = last_first(gather_idx, text_mask)
         text_features = self.text_mapped(flat_hidden[gather_idx])
         return self._tokenize(text_features, text_mask, batch)
 
     def forward(self, batch: CodeBatch) -> TokenizedCodes:
-        """Unpacked eval tokenization (dense-attention BERT per code)."""
-        hidden = self.text_model(batch.input_ids, batch.attention_mask)
+        """Unpacked eval tokenization (dense-attention text encoder per code)."""
+        hidden = self.text_states(batch.input_ids, batch.attention_mask)
         return self._tokenize(self.text_mapped(hidden), batch.attention_mask, batch)
 
     tokenize = forward
@@ -117,23 +145,29 @@ class MultimodalTokenizer(nn.Module):
         [CLS]. ``generator`` draws the dropout masks (BERT, then the
         cross-attention). The BERT runs without autograd and K2 never sees a
         tensor that requires a gradient. The ``train.*`` ranges name the
-        parts in a torch.profiler trace."""
+        parts in a torch.profiler trace (the text encoder's: ``train.bert``,
+        or ``train.text`` for another architecture)."""
         c = self.cfg
         text_drop = c.text_dropout_in_train
         if text_drop and packed is not None:
             raise ValueError("packed text encoding requires text_dropout_in_train=False: "
                              "dropout noise would leak across packed segments")
-        with torch.no_grad(), span("train.bert"):
+        with torch.no_grad(), span("train.text" if self.causal_text else "train.bert"):
             if packed is not None:
                 flat = self.encode_text_packed(packed.input_ids, packed.seg_ids,
                                                packed.pos_ids)
-                text_hidden = flat[packed.gather_idx]
                 text_mask = packed.text_mask.bool()
-            else:
+                gather = packed.gather_idx
+                text_hidden = flat[last_first(gather, text_mask) if self.causal_text
+                                   else gather]
+            elif text_drop:
                 views = [self.text_model(batch.input_ids, batch.attention_mask,
-                                         generator=generator, dropout=text_drop)
-                         for _ in range(2 if text_drop else 1)]
+                                         generator=generator, dropout=True)
+                         for _ in range(2)]
                 text_hidden = views[0]
+                text_mask = batch.attention_mask.bool()
+            else:
+                text_hidden = self.text_states(batch.input_ids, batch.attention_mask)
                 text_mask = batch.attention_mask.bool()
         with span("train.text_mapped"):
             text_features = self.text_mapped(text_hidden)          # [B, Lt, D]
@@ -157,7 +191,7 @@ class MultimodalTokenizer(nn.Module):
         """The shared path's pooled, l2-normalised text and graph rows of the
         deterministic unpacked encode (no quantization): the features the
         k-means codebook init clusters."""
-        hidden = self.text_model(batch.input_ids, batch.attention_mask)
+        hidden = self.text_states(batch.input_ids, batch.attention_mask)
         text_features = self.text_mapped(hidden)
         graph_nodes = self.graph_encoder(
             batch.node_ids, batch.edge_src, batch.edge_dst, batch.edge_weight)[-1]

@@ -55,6 +55,7 @@ from medtok_tpu_torch.config import MedTokConfig
 from medtok_tpu_torch.convert import load_params
 from medtok_tpu_torch.data.packing import pack_code_batch
 from medtok_tpu_torch.data.types import CodeBatch, PackedTextBatch
+from medtok_tpu_torch.models.deepseek_v2 import count_routed
 from medtok_tpu_torch.models.layers import init_random_
 from medtok_tpu_torch.models.tokenizer_model import MultimodalTokenizer
 from medtok_tpu_torch.ops.ema import kmeans
@@ -352,6 +353,8 @@ class Trainer:
             raise
         count("text.tokens", int(np.count_nonzero(packed.text_mask)))
         count("text.slots", packed.input_ids.size)
+        count_routed(self.cfg.model.text, np.count_nonzero(packed.text_mask),
+                     packed.input_ids.size)
         return packed
 
     def fit(self, state: TrainState, batches: Iterable[CodeBatch], *,
@@ -376,6 +379,9 @@ class Trainer:
             step = state.step
             with span("train.pack"):
                 packed = self.pack(batch) if t.packed_text else None
+                if packed is None:
+                    am = np.asarray(batch.attention_mask)
+                    count_routed(self.cfg.model.text, np.count_nonzero(am), am.size)
             with span("train.to_device"):
                 packed = packed.to(self.device) if packed is not None else None
                 batch = batch.to(self.device)

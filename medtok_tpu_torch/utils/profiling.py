@@ -23,12 +23,19 @@
   graph encoder runs; repeat-padding codes are slots, not real),
   ``quantize.codes`` / ``quantize.code_slots`` (the packed export's groups
   against their code buckets), and ``gelu.kernel_elems`` / ``gelu.elems``
-  (the bf16 gelu elements the kernel took, of all, ``ops/gelu.py``);
+  (the bf16 gelu elements the kernel took, of all, ``ops/gelu.py``), and
+  ``moe.pairs`` / ``moe.pair_slots`` (the DeepSeek-V2 encoder's
+  token-expert pairs of real tokens, of all slots routed);
+- ``device_count(name, t)`` / ``read_device_counts()``: totals kept on the
+  device, added to only while a profiler runs (``device_counting``;
+  ``moe.expert_load.<layer>``: the real tokens each expert of a MoE layer
+  took) and read, and cleared, once
+  by the tracer when its block closes: an untraced run pays nothing;
 - ``trace(logdir)``: a ``torch.profiler`` trace of the CPU and, where the
   build has it, the CUDA activity, written into ``logdir`` as a Chrome
   trace (``*.pt.trace.json``; TensorBoard's profiler plugin and
   chrome://tracing read it), and beside it ``counters.json``, the
-  registry's change over the traced block;
+  registry's change over the traced block and the device totals;
 - ``StepTimer``: steps/sec and per-step latency, the device synchronized
   at each boundary.
 """
@@ -48,6 +55,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 _IDLE = contextlib.nullcontext()
 _COUNTS: dict[str, float] = {}
 _COUNTS_LOCK = threading.Lock()
+_DEVICE_COUNTS: dict[str, torch.Tensor] = {}
 
 
 def span(name: str):
@@ -73,12 +81,42 @@ def counters() -> dict[str, float]:
         return dict(_COUNTS)
 
 
+def device_counting() -> bool:
+    """Whether ``device_count`` counts now (a profiler runs): a caller
+    computes what it would add only then."""
+    return torch.autograd._profiler_enabled()
+
+
+def device_count(name: str, values: torch.Tensor) -> None:
+    """While a profiler runs, add ``values`` (integers, on any device) into
+    the device-side total ``name`` (made at 0, of the same shape), with no
+    host read; else nothing."""
+    if not device_counting():
+        return
+    with _COUNTS_LOCK:
+        acc = _DEVICE_COUNTS.get(name)
+        if acc is None:
+            _DEVICE_COUNTS[name] = values.detach().to(torch.int64, copy=True)
+        else:
+            acc += values
+
+
+def read_device_counts() -> dict[str, list]:
+    """The device-side totals as lists (one copy to the host each), then
+    cleared."""
+    with _COUNTS_LOCK:
+        out = {k: v.tolist() for k, v in sorted(_DEVICE_COUNTS.items())}
+        _DEVICE_COUNTS.clear()
+    return out
+
+
 @contextlib.contextmanager
 def trace(logdir: str | Path):
     """``with trace('prof/') as prof: step(...)``: profiles the block and,
     on leaving it, writes ``<host>_<pid>.<ms>.pt.trace.json`` and
     ``counters.json`` (each counter's change over the block, those that
-    moved) into ``logdir`` (made if missing). Yields the
+    moved, and the device totals of ``read_device_counts``) into ``logdir``
+    (made if missing). Yields the
     ``torch.profiler.profile``, so the caller may read ``key_averages()``
     too."""
     logdir = Path(logdir)
@@ -91,6 +129,7 @@ def trace(logdir: str | Path):
         yield prof
     delta = {k: v - before.get(k, 0) for k, v in sorted(counters().items())
              if v != before.get(k, 0)}
+    delta.update(read_device_counts())
     (logdir / "counters.json").write_text(json.dumps(delta, indent=1) + "\n")
 
 
